@@ -1,0 +1,261 @@
+"""Batched FFT/IFFT on (re, im) float planes: the four-step matmul form.
+
+Port of ``simpledsp_tpu/ops/fft.py``.  N = N1 * N2, x viewed as (N1, N2):
+
+    1. DFT_N1 along axis -2            (dense matmul)
+    2. twiddle by exp(-+ 2 pi i k1 n2 / N)   (elementwise)
+    3. DFT_N2 along axis -1            (recursive)
+    4. transpose (k1, k2) -> (k2, k1) and flatten
+
+applied recursively until a factor is <= _MAX_DFT, which is one dense
+matmul against a float64-built table.  Complex values are carried as
+explicit (re, im) planes, so every product is a real matmul, and the
+public boundary matches the JAX package's.  ``torch.fft`` is not used.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils.intmath import is_power_of as _is_power_of
+
+__all__ = ["fft_ri", "ifft_ri", "rfft_ri", "irfft_ri", "pack_rfft_ri",
+           "unpack_rfft_ri", "fft_radix2", "fft_radix4", "dft_matrix"]
+
+# Largest size computed as one dense DFT matmul.
+_MAX_DFT = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_mats_f64(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos, -sin) parts of the forward DFT matrix W[k, j] = e^{-2 pi i kj/n}.
+
+    The phase index k*j is reduced mod n in exact integer arithmetic before
+    scaling by 2 pi / n, so the trig argument never exceeds one turn.
+    """
+    k = np.arange(n, dtype=np.int64)
+    red = np.outer(k, k) % n
+    ang = (-2.0 * np.pi / n) * red
+    return np.cos(ang), np.sin(ang)
+
+
+def dft_matrix(n: int, inverse: bool = False, dtype=np.float64):
+    """Dense DFT matrix as an (re, im) pair of real matrices (host-side)."""
+    cr, si = _dft_mats_f64(n)
+    if inverse:
+        return cr.astype(dtype), (-si).astype(dtype)
+    return cr.astype(dtype), si.astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddle_f64(n1: int, n2: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Step-2 twiddles T[k1, n2] = e^{-2 pi i k1 n2 / (n1 n2)}, with the
+    phase index reduced mod n1*n2 exactly (see _dft_mats_f64)."""
+    n = n1 * n2
+    red = np.outer(np.arange(n1, dtype=np.int64),
+                   np.arange(n2, dtype=np.int64)) % n
+    ang = (-2.0 * np.pi / n) * red
+    return np.cos(ang), np.sin(ang)
+
+
+def _split(n: int) -> Tuple[int, int]:
+    """Factor n = n1 * n2 with n1 <= _MAX_DFT and factors as square as
+    possible."""
+    d = min(int(np.sqrt(n)), _MAX_DFT)
+    while d > 1:
+        if n % d == 0 and d <= _MAX_DFT:
+            return d, n // d
+        d -= 1
+    raise ValueError(f"cannot factor N={n} into radices <= {_MAX_DFT}")
+
+
+def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def _cmatmul(wr, wi, xr, xi, axis: int):
+    """Complex matmul along `axis`:  (wr + i wi) @ (xr + i xi)."""
+    if axis == -2:
+        def dot(w, v):
+            return torch.matmul(w, v)
+    elif axis == -1:
+        def dot(w, v):
+            return torch.matmul(v, w.T)
+    else:
+        raise ValueError(axis)
+    yr = dot(wr, xr) - dot(wi, xi)
+    yi = dot(wr, xi) + dot(wi, xr)
+    return yr, yi
+
+
+def _fft_ri(xr: torch.Tensor, xi: torch.Tensor, inverse: bool):
+    """Recursive four-step FFT over the LAST axis on (re, im) planes.
+
+    No scaling is applied here (done once at the top level for inverse).
+    """
+    n = xr.shape[-1]
+
+    if n <= _MAX_DFT:
+        wr64, wi64 = dft_matrix(n, inverse=inverse)
+        return _cmatmul(_table(wr64, xr), _table(wi64, xr), xr, xi, axis=-1)
+
+    try:
+        n1, n2 = _split(n)
+    except ValueError:
+        # The JAX package runs Bluestein's chirp-z here (ops/transforms.czt_ri),
+        # which the port does not have yet.
+        raise NotImplementedError(
+            f"FFT size {n} has a prime factor above {_MAX_DFT}; it needs the "
+            f"Bluestein (czt_ri) path, which is not ported yet") from None
+    xr = xr.reshape(xr.shape[:-1] + (n1, n2))
+    xi = xi.reshape(xi.shape[:-1] + (n1, n2))
+
+    # Step 1: DFT_n1 along axis -2 (n1 <= _MAX_DFT by construction).
+    wr64, wi64 = dft_matrix(n1, inverse=inverse)
+    xr, xi = _cmatmul(_table(wr64, xr), _table(wi64, xr), xr, xi, axis=-2)
+
+    # Step 2: twiddle (conjugated for inverse).
+    tr64, ti64 = _twiddle_f64(n1, n2)
+    tr = _table(tr64, xr)
+    ti = _table(ti64 if not inverse else -ti64, xr)
+    xr, xi = xr * tr - xi * ti, xr * ti + xi * tr
+
+    # Step 3: DFT_n2 along the last axis — recurse (n2 may still be big).
+    xr, xi = _fft_ri(xr, xi, inverse)
+
+    # Step 4: output index k = k1 + n1 k2 -> transpose to (k2, k1), flatten.
+    xr = xr.transpose(-1, -2).reshape(xr.shape[:-2] + (n,))
+    xi = xi.transpose(-1, -2).reshape(xi.shape[:-2] + (n,))
+    return xr, xi
+
+
+def fft_ri(xr: torch.Tensor, xi: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward FFT (unscaled) over the last axis on (re, im) planes."""
+    with ieee_fp32():
+        return _fft_ri(xr, xi, inverse=False)
+
+
+def ifft_ri(xr: torch.Tensor, xi: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse FFT on (re, im) planes: conjugate twiddles + 1/N scaling."""
+    with ieee_fp32():
+        yr, yi = _fft_ri(xr, xi, inverse=True)
+    scale = 1.0 / xr.shape[-1]
+    return yr * scale, yi * scale
+
+
+def fft_radix2(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's radix-2 entry: requires a power-of-2 size.  The
+    result is the mathematical DFT."""
+    if not _is_power_of(xr.shape[-1], 2):
+        raise ValueError(f"fft_radix2 requires power-of-2 size, got {xr.shape[-1]}")
+    return ifft_ri(xr, xi) if inverse else fft_ri(xr, xi)
+
+
+def fft_radix4(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's radix-4 entry: requires a power-of-4 size."""
+    if not _is_power_of(xr.shape[-1], 4):
+        raise ValueError(f"fft_radix4 requires power-of-4 size, got {xr.shape[-1]}")
+    return ifft_ri(xr, xi) if inverse else fft_ri(xr, xi)
+
+
+@functools.lru_cache(maxsize=None)
+def _half_twiddle_f64(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos, -sin) of W[k] = e^{-2 pi i k / n} for k = 0..n//2 inclusive —
+    the Hermitian post-twiddle of the real-input split step."""
+    k = np.arange(n // 2 + 1, dtype=np.int64)
+    ang = (-2.0 * np.pi / n) * k
+    return np.cos(ang), np.sin(ang)
+
+
+def rfft_ri(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Half-spectrum real-input FFT: (..., N) real -> (re, im) planes of the
+    N//2+1 non-negative bins.
+
+    Even N packs the N real samples as N/2 complex (even samples real,
+    odd samples imaginary), runs one N/2-point FFT, and recovers the half
+    spectrum with the Hermitian post-twiddle
+
+        X[k] = E[k] - i W^k O[k],   W = e^{-2 pi i / N},
+        E = (Z[k] + conj(Z[N/2-k]))/2,  O = (Z[k] - conj(Z[N/2-k]))/2.
+
+    Odd N falls back to the full transform + slice.
+    """
+    n = x.shape[-1]
+    nb = n // 2 + 1
+    if n % 2 or n < 4:
+        yr, yi = fft_ri(x, torch.zeros_like(x))
+        return yr[..., :nb], yi[..., :nb]
+    zr, zi = fft_ri(x[..., 0::2], x[..., 1::2])
+    # Extend with Z[N/2] := Z[0] so k and N/2-k index one array of nb bins.
+    zr = torch.cat([zr, zr[..., :1]], dim=-1)
+    zi = torch.cat([zi, zi[..., :1]], dim=-1)
+    rr, ri_ = zr.flip(-1), zi.flip(-1)            # Z[N/2-k]
+    er, ei = 0.5 * (zr + rr), 0.5 * (zi - ri_)    # even part E
+    orr, oi = 0.5 * (zr - rr), 0.5 * (zi + ri_)   # odd part O
+    wc, ws = _half_twiddle_f64(n)
+    wr = _table(wc, x)
+    wi = _table(ws, x)
+    # X = E - i (wr + i wi) O
+    yr = er + (wr * oi + wi * orr)
+    yi = ei - (wr * orr - wi * oi)
+    return yr, yi
+
+
+def irfft_ri(xr: torch.Tensor, xi: torch.Tensor,
+             n: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`rfft_ri`: (re, im) planes of N//2+1 bins -> the
+    length-n real signal.  Even n inverts the half-size packing; other
+    lengths rebuild the full Hermitian spectrum and take the real part of
+    a full inverse."""
+    nb = xr.shape[-1]
+    if n is None:
+        n = 2 * (nb - 1)
+    if n % 2 or n != 2 * (nb - 1) or n < 4:
+        tail_r = xr[..., 1: n - nb + 1].flip(-1)
+        tail_i = -xi[..., 1: n - nb + 1].flip(-1)
+        fr = torch.cat([xr, tail_r], dim=-1)
+        fi = torch.cat([xi, tail_i], dim=-1)
+        yr, _ = ifft_ri(fr, fi)
+        return yr
+    ar, ai = xr[..., :-1], xi[..., :-1]            # X[k], k = 0..N/2-1
+    br = xr[..., 1:].flip(-1)                      # X[N/2-k]
+    bi = xi[..., 1:].flip(-1)
+    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+    orr, oi = 0.5 * (ar - br), 0.5 * (ai + bi)
+    wc, ws = _half_twiddle_f64(n)
+    wr = _table(wc[:-1], xr)
+    wp = _table(-ws[:-1], xr)                      # +sin: W^{+k}
+    # Z = E + i (wr + i wp) O
+    zr = er - (wr * oi + wp * orr)
+    zi = ei + (wr * orr - wp * oi)
+    zr, zi = ifft_ri(zr, zi)
+    return torch.stack([zr, zi], dim=-1).reshape(zr.shape[:-1] + (n,))
+
+
+def pack_rfft_ri(yr: torch.Tensor, yi: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack a one-sided spectrum ((..., N/2+1) planes, even N) into the
+    N/2-bin form the chain emits: DC..bin N/2-1 in both planes, with
+    X[N/2].re (real for real input) in the imag plane's bin-0 slot."""
+    pr = yr[..., :-1]
+    pi = torch.cat([yr[..., -1:], yi[..., 1:-1]], dim=-1)
+    return pr, pi
+
+
+def unpack_rfft_ri(pr: torch.Tensor, pi: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_rfft_ri`: (..., N/2) packed planes ->
+    (..., N/2+1) one-sided (re, im) planes."""
+    zero = torch.zeros_like(pi[..., :1])
+    yr = torch.cat([pr, pi[..., :1]], dim=-1)
+    yi = torch.cat([zero, pi[..., 1:], zero], dim=-1)
+    return yr, yi
