@@ -8,7 +8,13 @@ passes their fields as numpy arrays, e.g.::
     state = state_from_numpy(np.asarray(jax_state.y_hist), device="cuda")
 
 so both packages filter with identical float64 coefficients and start from
-an identical state.
+an identical state.  The receiver banks cross the same way::
+
+    bank = FMReceiverBank(16, fs, taps=prototype_from_branch(jbank.chan._branch),
+                          dec_taps=np.asarray(jbank._ataps))
+    state = sdr_state_from_numpy(*(np.asarray(a) for a in (
+        js.chan.hist_r, js.chan.hist_i, js.demod.prev_r, js.demod.prev_i,
+        js.audio.hist)), dc=js.dc)
 """
 
 from __future__ import annotations
@@ -17,9 +23,15 @@ import numpy as np
 import torch
 
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign, FilterType
+from simpledsp_tpu_torch.models.sdr import SDRState
+from simpledsp_tpu_torch.ops.channelizer import ChanStateRI
+from simpledsp_tpu_torch.ops.demod import DemodStateRI
+from simpledsp_tpu_torch.ops.fir import FIRState
 from simpledsp_tpu_torch.ops.iir import IIRState
 
-__all__ = ["design_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["design_from_numpy", "state_from_numpy", "state_to_numpy",
+           "prototype_from_branch", "sdr_state_from_numpy",
+           "sdr_state_to_numpy"]
 
 
 def design_from_numpy(b, a, gain, ftype, f0, fs,
@@ -44,3 +56,35 @@ def state_from_numpy(y_hist, device=None, dtype=torch.float32) -> IIRState:
 def state_to_numpy(state: IIRState) -> np.ndarray:
     """The state's (..., M+1, 2) history as a host numpy array."""
     return state.y_hist.detach().cpu().numpy()
+
+
+def prototype_from_branch(branch) -> np.ndarray:
+    """The prototype h (length M K) of a channelizer's (M, K) branch taps
+    ``branch[r, j] = h[j M + r]``, for ``PFBChannelizer(taps=...)`` and the
+    banks' ``taps=``."""
+    return np.asarray(branch, dtype=np.float64).T.reshape(-1).copy()
+
+
+def sdr_state_from_numpy(hist_r, hist_i, prev_r, prev_i, audio_hist, dc=None,
+                         device=None, dtype=torch.float32) -> SDRState:
+    """An :class:`SDRState` holding copies of a receiver bank's state:
+    channelizer history (B, L-1) twice, demod carry (B, M) twice, decimator
+    history (B, M, kd-1) and, for an AM bank with remove_dc, the previous
+    envelope mean (B, M)."""
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return SDRState(ChanStateRI(t(hist_r), t(hist_i)),
+                    DemodStateRI(t(prev_r), t(prev_i)), FIRState(t(audio_hist)),
+                    None if dc is None else t(dc))
+
+
+def sdr_state_to_numpy(state: SDRState) -> dict:
+    """The state's arrays on the host, under the names
+    :func:`sdr_state_from_numpy` takes."""
+    def n(a):
+        return None if a is None else a.detach().cpu().numpy()
+
+    return dict(hist_r=n(state.chan.hist_r), hist_i=n(state.chan.hist_i),
+                prev_r=n(state.demod.prev_r), prev_i=n(state.demod.prev_i),
+                audio_hist=n(state.audio.hist), dc=n(state.dc))

@@ -1,8 +1,8 @@
 """Fused north-star chain: block IIR + framed half-spectrum FFT, one kernel.
 
 Port of ``simpledsp_tpu/kernels/chain.py`` (``fused_chain_frames`` with
-``half_spectrum=True``).  Each frame of N = n1 * n2 samples (n2 = 128, the
-IIR sub-block) is viewed as x (n1, n2).  A prepass of plain matmuls gives
+``half_spectrum=True``).  Each frame of N = n1 * n2 samples (n2 <= 128 even,
+the IIR sub-block; ``_best_split``) is viewed as x (n1, n2).  A prepass of plain matmuls gives
 every sub-block its incoming IIR state (the "starts"); then one kernel per
 frame computes, without writing the filtered signal to device memory,
 
@@ -27,6 +27,7 @@ the two-step projection loses about 37 dB at reduced matmul precision.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -45,9 +46,31 @@ __all__ = ["ChainTables", "FusedNorthStarOperators", "chain_frames",
 
 
 def kernel_supports(n1: int, n2: int) -> bool:
-    """Frames the CUDA kernel takes: n1 x 128 samples, n1 a multiple of 8
-    up to 128 (fft_size = 1024, 2048, ..., 16384)."""
-    return n2 == 128 and 8 <= n1 <= 128 and n1 % 8 == 0
+    """Frames the CUDA kernel takes: every split ``_best_split`` yields
+    (n1, n2 <= 128) with n2 even, which the one-sided packing needs."""
+    return 1 <= n1 <= 128 and 2 <= n2 <= 128 and n2 % 2 == 0
+
+
+def _padded_tables(tables: ChainTables, n1: int, n2: int) -> ChainTables:
+    """The tables in the kernel's padded shapes (``csrc/chain.cu``): rows
+    128 wide and n1 rounded up to n1p, a multiple of 8, with zeros.  The
+    tables of an n1 % 8 == 0, n2 == 128 frame are returned as they are."""
+    n1p = -(-n1 // 8) * 8
+    if n1p == n1 and n2 == 128:
+        return tables
+    pad = torch.nn.functional.pad
+
+    def cols(t):
+        return pad(t, (0, 128 - t.shape[1]))
+
+    def rows(t):
+        return pad(t, (0, 0, 0, n1p - t.shape[0]))
+
+    w1 = [pad(w, (0, n1p - n1, 0, n1p - n1))
+          for w in (tables.W1cs[:n1], tables.W1cs[n1:])]
+    return ChainTables(cols(tables.HT), cols(tables.PhiT),
+                       torch.cat(w1).contiguous(), rows(cols(tables.Tc)),
+                       rows(cols(tables.Ts)), cols(tables.PQT))
 
 
 class ChainTables(NamedTuple):
@@ -259,6 +282,17 @@ def chain_frames_reference(x3: torch.Tensor, s3: torch.Tensor,
     return spec_re, spec_im
 
 
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """``csrc/chain.cu`` built and loaded, its entry point typed."""
+    lib = _build.load_library("sdsp_chain", ("chain.cu",))
+    fn = lib.sdsp_chain_frames_f32
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 class _ChainKernel:
     """The CUDA chain kernel: built from ``csrc/chain.cu`` at first launch;
     ``launches`` counts the launches made through :func:`chain_frames`."""
@@ -267,19 +301,14 @@ class _ChainKernel:
         self.launches = 0
 
     def library(self) -> ctypes.CDLL:
-        lib = _build.load_library("sdsp_chain", ("chain.cu",))
-        fn = lib.sdsp_chain_frames_f32
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        return lib
+        return _library()
 
     def __call__(self, x3: torch.Tensor, s3: torch.Tensor,
                  tables: ChainTables) -> Tuple[torch.Tensor, torch.Tensor]:
         nf, n1, n2 = x3.shape
         if not kernel_supports(n1, n2):
-            raise ValueError(f"the CUDA chain kernel needs frames of n1 x 128 "
-                             f"samples, n1 a multiple of 8 up to 128; got "
+            raise ValueError(f"the CUDA chain kernel needs frames of n1 x n2 "
+                             f"samples, n1 <= 128 and n2 <= 128 even; got "
                              f"{tuple(x3.shape)}")
         d = s3.shape[1]
         expect = {"x3": (x3, (nf, n1, n2)), "s3": (s3, (nf, d, n1)),
@@ -294,6 +323,7 @@ class _ChainKernel:
             if tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"{name}: expected a contiguous {shape}, got "
                                  f"{tuple(t.shape)}")
+        tables = _padded_tables(tables, n1, n2)
         spec_re = torch.empty((nf, n1 * n2 // 2), dtype=x3.dtype,
                               device=x3.device)
         spec_im = torch.empty_like(spec_re)

@@ -79,8 +79,9 @@ class NorthStarChain(nn.Module):
                     or dtype != torch.float32):
                 raise ValueError(
                     f"the CUDA chain kernel needs float32 and fft_size = "
-                    f"n1 * 128, n1 a multiple of 8 up to 128; got {dtype}, "
-                    f"fft_size={self.fft_size}")
+                    f"n1 * n2 with n2 even (the one-sided packing); got "
+                    f"{dtype}, fft_size={self.fft_size} = {self.ops.n1} * "
+                    f"{self.ops.n2}")
 
     @property
     def use_kernel(self) -> bool:

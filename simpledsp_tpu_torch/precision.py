@@ -28,11 +28,15 @@ __all__ = ["ieee_fp32"]
 
 @contextlib.contextmanager
 def ieee_fp32():
-    """Run the enclosed float32 matmuls in IEEE float32 (no TF32), then
-    restore the caller's ``allow_tf32`` setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """Run the enclosed float32 matmuls and cuDNN convolutions in IEEE
+    float32 (no TF32), then restore the caller's two ``allow_tf32``
+    settings, also when the body raises."""
+    prev_mm = torch.backends.cuda.matmul.allow_tf32
+    prev_conv = torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32 = prev_mm
+        torch.backends.cudnn.allow_tf32 = prev_conv

@@ -142,7 +142,7 @@ def test_chain_frames_runs_only_on_cpu_or_cuda():
     launches = tchain.chain_kernel.launches
     with pytest.raises(ValueError, match="float32"):
         tchain.chain_kernel(x3, s3, tops.tables())
-    with pytest.raises(ValueError, match="n1 x 128"):
+    with pytest.raises(ValueError, match="n2 <= 128 even"):
         tchain.chain_kernel(torch.zeros(2, 8, 125), s3, tops.tables())
     assert tchain.chain_kernel.launches == launches
 
@@ -157,11 +157,97 @@ def test_rejects_unsupported_fft_size():
 
 @pytest.mark.parametrize("n1,n2,ok", [(8, 128, True), (16, 128, True),
                                       (24, 128, True), (128, 128, True),
-                                      (4, 128, False), (12, 128, False),
-                                      (136, 128, False), (8, 125, False)])
+                                      (4, 128, True), (12, 128, True),
+                                      (136, 128, False), (8, 125, False),
+                                      (2, 100, True), (9, 128, True),
+                                      (8, 130, False)])
 def test_kernel_supports(n1, n2, ok):
-    """The frames the CUDA kernel takes: n1 x 128, n1 a multiple of 8."""
+    """The frames the CUDA kernel takes: n1 <= 128 rows of n2 <= 128
+    samples, n2 even."""
     assert tchain.kernel_supports(n1, n2) is ok
+
+
+@pytest.mark.parametrize("n", [200, 256, 512, 768, 1152, 1000, 1024, 4096])
+def test_kernel_supports_every_even_split(n):
+    """The kernel takes every split the JAX fused chain runs half-spectrum:
+    it refuses a split only for odd n2 (1000 = 8 * 125), where the JAX
+    path raises too."""
+    from simpledsp_tpu.kernels.fft import _best_split as jax_best_split
+    from simpledsp_tpu_torch.kernels.fft import _best_split
+    n1, n2 = _best_split(n)
+    assert (n1, n2) == jax_best_split(n)
+    assert tchain.kernel_supports(n1, n2) is (n2 % 2 == 0)
+    assert (n2 % 2 == 0) is (n != 1000)
+
+
+def test_northstar_cuda_size_check_matches_jax():
+    """Where the CUDA chain refuses an fft_size, so does the JAX fused
+    path: no split, or odd n2 with the one-sided spectrum."""
+    jd, _ = _designs()
+    ops = jchain.FusedNorthStarOperators(jd, 1000, dtype=jnp.float64)
+    x = jnp.zeros((1, 1000), jnp.float64)
+    with pytest.raises(ValueError, match="even n2"):
+        jchain.fused_chain_frames(ops, x, jnp.zeros((1, ops.state_dim)),
+                                  half_spectrum=True, interpret=True)
+
+
+@pytest.mark.parametrize("n", [200, 256, 768, 1152, 1024])
+def test_padded_tables_reproduce_the_spectra(n, rng):
+    """The kernel's padded arithmetic, emulated in float64: frames and
+    tables zero-padded to (n1p, 128) as ``csrc/chain.cu`` holds them give
+    the plain version's spectra in every stored bin (1e-12)."""
+    _, tops = _ops(n, torch.float64)
+    n1, n2, d = tops.n1, tops.n2, tops.state_dim
+    n1p = -(-n1 // 8) * 8
+    x = torch.as_tensor(rng.standard_normal((2, 3 * n)))
+    x3, s3, _ = tchain.chain_prepass(tops, x, torch.as_tensor(
+        _warm_state(rng, 2)))
+    ref_re, ref_im = tchain.chain_frames_reference(x3, s3, tops.tables())
+    tp = tchain._padded_tables(tops.tables(), n1, n2)
+    assert tp.HT.shape == (n2, 128) and tp.W1cs.shape == (2 * n1p, n1p)
+    assert tp.Tc.shape == (n1p, 128) and tp.PQT.shape == (2 * n2, 128)
+    nf = x3.shape[0]
+    xp = torch.zeros(nf, n1p, 128, dtype=x3.dtype)
+    xp[:, :n1, :n2] = x3
+    sp = torch.zeros(nf, d, n1p, dtype=x3.dtype)
+    sp[:, :, :n1] = s3
+    y = xp[:, :, :n2] @ tp.HT + sp.transpose(1, 2) @ tp.PhiT
+    cs = tp.W1cs @ y
+    c, s_ = cs[:, :n1p], cs[:, n1p:]
+    tr = c * tp.Tc - s_ * tp.Ts
+    ti = s_ * tp.Tc + c * tp.Ts
+    out = tr[..., :n2] @ tp.PQT[:n2] + ti[..., :n2] @ tp.PQT[n2:]
+    alt = torch.tensor([(-1.0) ** t for t in range(128)], dtype=x3.dtype)
+    k = torch.arange(n1 * n2 // 2)
+    k1, k2 = k % n1, k // n1
+    re = out[:, k1, k2]
+    im = out[:, k1, n2 // 2 + k2]
+    im[:, 0] = (tr[:, 0] * alt).sum(-1)
+    np.testing.assert_allclose(re.numpy(), ref_re.numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(im.numpy(), ref_im.numpy(), rtol=0,
+                               atol=1e-12)
+
+
+def test_ieee_fp32_pins_and_restores_both_tf32_flags():
+    """Matmuls and cuDNN convolutions are both pinned to IEEE float32 and
+    both caller settings come back, also after an exception."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        for mm, conv in ((True, True), (True, False), (False, True)):
+            torch.backends.cuda.matmul.allow_tf32 = mm
+            torch.backends.cudnn.allow_tf32 = conv
+            with pytest.raises(RuntimeError):
+                with ieee_fp32():
+                    assert torch.backends.cuda.matmul.allow_tf32 is False
+                    assert torch.backends.cudnn.allow_tf32 is False
+                    raise RuntimeError("inside")
+            assert torch.backends.cuda.matmul.allow_tf32 is mm
+            assert torch.backends.cudnn.allow_tf32 is conv
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def test_ieee_fp32_overrides_and_restores_the_callers_tf32():

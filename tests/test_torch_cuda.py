@@ -1,13 +1,18 @@
-"""The CUDA chain kernel against its plain version, on an NVIDIA GPU.
+"""The CUDA kernels against their plain versions, on an NVIDIA GPU.
 
 These tests need a card and ``nvcc``; elsewhere they skip.  The file
 imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Tolerance: >= 130 dB SNR against the plain version evaluated in float64 on
-the same float32 inputs and tables (the chain's bar; the kernel sums in
-IEEE float32).
+Tolerances: the chain kernel >= 130 dB SNR against its plain version
+evaluated in float64 on the same float32 inputs and tables (the chain's
+bar; the kernel sums in IEEE float32).  The PFB kernel: max |err| against
+the float64 plain version <= max(1.5e-6 max(1, scale), 2 x the float32
+plain version's own max |err|) per output, 1.5e-6 being the bank parity
+gate the TPU kernels were held to; outputs for two tile sizes are equal
+bit for bit.  The banks on the card: the same bar against the float64
+composable path.
 """
 
 import numpy as np
@@ -16,8 +21,12 @@ import scipy.signal as sig
 import torch
 
 from simpledsp_tpu_torch.design.biquad import sos_matrix
+from simpledsp_tpu_torch.design.fir import lowpass_taps
 from simpledsp_tpu_torch.kernels import chain as tchain
+from simpledsp_tpu_torch.kernels import pfb as tpfb
+from simpledsp_tpu_torch.models import sdr as tsdr
 from simpledsp_tpu_torch.models.northstar import NorthStarChain, default_design
+from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +44,8 @@ def _snr_db(ref, got):
     return 10 * torch.log10(sig / err).item()
 
 
-@pytest.mark.parametrize("n", [1024, 2048, 4096, 16384])
+@pytest.mark.parametrize("n", [1024, 2048, 4096, 16384, 200, 256, 512, 768,
+                               1152])
 def test_kernel_matches_plain_version(n, cuda_device):
     ops = tchain.FusedNorthStarOperators(default_design(), n, device=cuda_device)
     x = torch.as_tensor(np.random.default_rng(n).standard_normal((2, 8 * n)),
@@ -68,3 +78,118 @@ def test_chain_on_the_card_matches_oracle(use_kernel, cuda_device):
     ref_im = np.concatenate([full.real[..., 2048:], full.imag[..., 1:2048]], -1)
     ref = tuple(torch.as_tensor(r, device=cuda_device) for r in (ref_re, ref_im))
     assert _snr_db(ref, (sr, si)) >= 130.0
+
+
+def _carriers(b, t, m, seed=0):
+    """Constant-envelope FM carriers, one per channel, with per-stream
+    phases: (xr, xi) float32 (b, t) numpy planes."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(t)
+    z = np.zeros((b, t), np.complex128)
+    for c in range(m):
+        ph = rng.uniform(0, 2 * np.pi, (b, 1))
+        z += np.exp(1j * (2 * np.pi * ((c + 0.002) / m) * n
+                          + 2.0 * np.sin(2 * np.pi * (0.2 + 0.03 * c) / 257.0
+                                         * n) + ph))
+    return z.real.astype(np.float32), z.imag.astype(np.float32)
+
+
+def _leaves(t):
+    if isinstance(t, (tuple, list)):
+        return [u for v in t for u in _leaves(v)]
+    return [t]
+
+
+def _within_bar(got, ref64, ref32):
+    for a, r, p in zip(_leaves(got), _leaves(ref64), _leaves(ref32)):
+        err = float((a.double() - r).abs().max())
+        own = float((p.double() - r).abs().max())
+        scale = float(r.abs().max())
+        assert err <= max(1.5e-6 * max(1.0, scale), 2 * own), (err, own, scale)
+
+
+PFB_MODES = [("flat", "fm"), ("flat", "fm_dec"), ("flat", "am"),
+             ("flat", "am_dec"), ("flat", "am_sum"), ("frames", "fm"),
+             ("frames", "fm_dec"), ("frames", "am"), ("frames", "am_dec"),
+             ("frames", "chan")]
+
+
+@pytest.mark.parametrize("layout,mode", PFB_MODES)
+@pytest.mark.parametrize("m,k", [(16, 16), (8, 16), (32, 16), (16, 32),
+                                 (128, 8), (2, 4)])
+def test_pfb_kernel_matches_plain_version(layout, mode, m, k, cuda_device):
+    b, g, kd = 3, 4096, 64
+    dev = cuda_device
+    chan = PFBChannelizer(m, taps_per_channel=k, device=dev)
+    ops = chan.kernel_ops
+    xr, xi = _carriers(b, (g + k) * m, m)
+    xr, xi = (torch.as_tensor(v, device=dev) for v in (xr, xi))
+    if layout == "frames":
+        xr, xi = chan.frames_t(xr), chan.frames_t(xi)
+    rng = np.random.default_rng(m + k)
+    prev = [torch.as_tensor(rng.standard_normal((b, m, 1)), dtype=torch.float32,
+                            device=dev) for _ in range(2)]
+    ahist = torch.as_tensor(rng.standard_normal((b, m, kd - 1)),
+                            dtype=torch.float32, device=dev)
+    dtaps = torch.as_tensor(lowpass_taps(kd, 0.1, fs=1.0), dtype=torch.float32,
+                            device=dev)
+    kmode = "am_dec" if mode == "am_sum" else mode
+    dec = kmode.endswith("_dec")
+    fm = kmode.startswith("fm")
+    kw = dict(gain=0.2, g=g, decim=4, emit_sum=mode == "am_sum")
+    args = (prev[0] if fm else None, prev[1] if fm else None,
+            ahist if dec else None, dtaps if dec else None)
+
+    def kernel(tile):
+        kern = tpfb.pfb_flat_kernel if layout == "flat" else tpfb.pfb_frames_kernel
+        return kern(kmode, ops.tables(dev), xr, xi, *args, tile=tile, **kw)
+
+    ref = (tpfb.pfb_flat_reference if layout == "flat"
+           else tpfb.pfb_frames_reference)
+    t64 = tpfb.PFBTables(*(t.double() for t in ops.tables(dev)))
+    got = kernel(None)
+    other = kernel(16 if m >= 64 else 64 if mode == "am_sum" else 32)
+    torch.cuda.synchronize()
+    ref64 = ref(kmode, t64, xr.double(), xi.double(),
+                *[None if a is None else a.double() for a in args], **kw)
+    ref32 = ref(kmode, ops.tables(dev), xr, xi, *args, **kw)
+    _within_bar(got, ref64, ref32)
+    for a, c in zip(_leaves(got), _leaves(other)):
+        if a.dim() == 2:       # the emit_sum totals: compared above only
+            continue
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("kind", ["fm", "am"])
+def test_banks_on_the_card_match_float64_composable(kind, cuda_device):
+    """Both banks on the card, 3 chained calls through __call__ and
+    process_padded, against the float64 composable path on the card; the
+    kernel launches once per call."""
+    cls = tsdr.FMReceiverBank if kind == "fm" else tsdr.AMReceiverBank
+    bank = cls(16, fs=1.6e6, device=cuda_device)
+    oracle = cls(16, fs=1.6e6, device=cuda_device, dtype=torch.float64,
+                 use_kernel=False)
+    plain = cls(16, fs=1.6e6, device=cuda_device, use_kernel=False)
+    assert bank.use_kernel
+    b, t = 2, 16 * 4096
+    xr, xi = _carriers(b, 3 * t, 16, seed=3)
+    s = sp = so = s32 = None
+    for i in range(3):
+        part = [torch.as_tensor(v[:, i * t:(i + 1) * t], device=cuda_device)
+                for v in (xr, xi)]
+        launches = tpfb.pfb_flat_kernel.launches
+        audio, s = bank(tuple(part), s)
+        assert tpfb.pfb_flat_kernel.launches == launches + 1
+        front, total = bank.padded_spec(t)
+        bufs = tuple(torch.empty(b, total, device=cuda_device)
+                     for _ in range(2))
+        for buf, v in zip(bufs, part):
+            buf[:, front:front + t] = v
+        padded, sp, _ = bank.process_padded(bufs, sp)
+        ref, so = oracle(tuple(v.double() for v in part), so)
+        p32, s32 = plain(tuple(part), s32)
+        assert torch.equal(audio, padded)
+        err = float((audio.double() - ref).abs().max())
+        own = float((p32.double() - ref).abs().max())
+        assert err <= max(1.5e-6 * max(1.0, float(ref.abs().max())),
+                          2 * own), (err, own)

@@ -178,6 +178,9 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.models.northstar\n"
             "import simpledsp_tpu_torch.convert\n"
             "import simpledsp_tpu_torch.kernels.chain\n"
+            "import simpledsp_tpu_torch.models.sdr\n"
+            "import simpledsp_tpu_torch.kernels.pfb\n"
+            "import simpledsp_tpu_torch.design.optimal_fir\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
             "assert not bad, bad\n")
@@ -191,8 +194,10 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
                CUDA_PATH=str(tmp_path))
     code = ("import simpledsp_tpu_torch.kernels.chain as kc\n"
+            "import simpledsp_tpu_torch.kernels.pfb as kp\n"
             "from simpledsp_tpu_torch.kernels import _build\n"
             "assert kc.chain_kernel.launches == 0\n"
+            "assert kp.pfb_flat_kernel.launches == 0\n"
             "try:\n"
             "    _build._nvcc()\n"
             "except RuntimeError as e:\n"
