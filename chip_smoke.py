@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
-checks each against its plain version, drives the north-star chain and
-both SDR receiver banks end to end, and times them.
+checks each against its plain version, drives the north-star chain, both
+SDR receiver banks and the 1-D and 2-D convolution paths end to end, and
+times them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero before the result line):
 
 1. Device: a CUDA device is required; prints the card's name and power limit.
-2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu`` and ``pfb.cu`` into
-   ``build/``, one nvcc for each, started together.
+2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``pfb.cu``,
+   ``ols.cu`` and ``conv2d.cu`` into ``build/``, one nvcc for each, started
+   together.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -50,6 +52,36 @@ Phases (any failure exits nonzero before the result line):
    against the float64 composable channelizer.
 9. Bank timing: ms/call and Msamples/s through both entries, and the
    float32 composable bank.
+10. Overlap-save kernel against its plain version at nfft 4096 / 8192 /
+    16384 (m = 301 / 1000 / 2000 random taps) on the frames that 256 x 65536
+    float32 noise (seed 0) gives: >= 100 dB SNR against
+    ``conv_ols_frames_reference`` in float64 on the same float32 frames, and
+    no more than 6 dB below the float32 plain version's own SNR.  Kernel
+    and float32 plain ms (median of 5).
+11. 1-D main path on the same 256 x 65536 float32 with 301 random taps:
+    ``fftconvolve(x, h, "same")``, ``convolve(x, h, "full")``,
+    ``correlate(x, h, "same")`` and ``oaconvolve(x, h)`` each launch the
+    overlap-save kernel exactly once, rows 0-1 hold >= 100 dB against scipy
+    in float64, and all 256 rows >= 100 dB against the same call on the
+    float64 signal (the plain ``OverlapSaveFIR`` route).  The route's entry
+    ``convolve_ols_fused`` (frames read in place, zero history and tail)
+    holds >= 100 dB on all rows against ``conv_ols_frames_reference`` in
+    float64 on the padded frames.  ``OverlapSaveFIR(h, block_size=4096)``
+    over 2 chained calls equals one call over both, bit for bit.  ms/call
+    and Msamples/s; the plain ``OverlapSaveFIR`` route and ``torch.fft``
+    (cuFFT) as labelled baselines.
+12. conv2d kernel against its plain version at 32 x 512 x 512 float32 with
+    3x3, 9x9 and 13x13 random taps, and on that image padded so the output
+    is whole 32 x 128 tiles (512 x 512) and padded by k - 1 on every side as
+    the 'same' path pads it: equal bit for bit.  Kernel and plain ms.
+13. 2-D main path on the same image: ``convolve2d(x, k9, "same")`` with each
+    boundary and ``correlate2d(x, k9, "same")`` launch the conv2d kernel once
+    each; ``convolve2d(x, k64, "same", method="fft")`` launches none.  The
+    direct calls' 32 images equal, bit for bit, the same call with a tensor
+    kernel (the plain direct route).  Image 0 holds against scipy in
+    float64: <= 1e-5 relative max error on the direct route, >= 100 dB on
+    the FFT route.  ms/call.
+    Phases 10-13 time windows of 10 back-to-back calls, as phases 6 and 9 do.
 
 The line before the last is a JSON object with the kernels' records; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -78,6 +110,12 @@ PFB_CONFIGS = ((16, 32), (8, 16), (32, 16))
 BAR = 1.5e-6
 STEADY = 10                 # bank-phase timings: calls per timed window
 
+CB, CT = 256, 1 << 16       # 1-D convolution: rows, samples per row
+OLS_CASES = ((4096, 301), (8192, 1000), (16384, 2000))   # (nfft, taps)
+MIN_CONV_DB = 100.0
+IB, IH = 32, 512            # 2-D convolution: images, height = width
+DIRECT_REL = 1e-5
+
 
 KERNELS = []                # every kernel wrapper with a launch count
 
@@ -92,6 +130,13 @@ def snr_db(ref, got) -> float:
     err = np.asarray(got, dtype=np.complex128) - ref
     return float(10 * np.log10((np.abs(ref) ** 2).sum()
                                / max((np.abs(err) ** 2).sum(), 1e-300)))
+
+
+def snr_db_dev(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """:func:`snr_db` of real tensors, reduced in float64 on their device."""
+    ref = ref.double()
+    err = float(((got.double() - ref) ** 2).sum())
+    return float(10 * np.log10(float((ref ** 2).sum()) / max(err, 1e-300)))
 
 
 def check(ok: bool, what: str) -> None:
@@ -520,6 +565,233 @@ def bank_phases(dev, kpfb, sdr, PFBChannelizer):
     return flat_launches, frames_launches, timing
 
 
+# -- the convolution paths ----------------------------------------------------
+
+def ols_kernel_phase(dev, kols):
+    """Phase 10; returns {nfft: (max |err|, kernel ms, plain ms)}."""
+    from simpledsp_tpu_torch.kernels.fft import _best_split
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (CB, CT), dtype=np.float32), device=dev)
+    results = {}
+    for nfft, m in OLS_CASES:
+        taps = np.random.default_rng(m).standard_normal(m)
+        n2 = _best_split(nfft)[1]
+        o1 = -(-(m - 1) // n2)
+        hop = nfft - o1 * n2
+        nf = -(-(CT + m - 1) // hop)
+        frames = torch.nn.functional.pad(x, (o1 * n2, nf * hop - CT)).unfold(
+            -1, nfft, hop)
+        got = kols.conv_ols_frames(frames, taps, overlap_rows=o1)
+        torch.cuda.synchronize()
+        t64 = kols.ols_tables(nfft, taps, torch.float64, dev)
+        t32 = kols.ols_tables(nfft, taps, torch.float32, dev)
+        ref = kols.conv_ols_frames_reference(frames.double(), t64, o1)
+        own = kols.conv_ols_frames_reference(frames, t32, o1)
+        sig2 = float((ref ** 2).sum())
+        snr = 10 * np.log10(sig2 / float(((got.double() - ref) ** 2).sum()))
+        plain_snr = 10 * np.log10(sig2 / float(((own.double() - ref) ** 2).sum()))
+        err = float((got.double() - ref).abs().max())
+        check(bool(torch.isfinite(got).all()), f"ols nfft={nfft} not finite")
+        del ref, own
+        ms = median_ms(lambda: kols.conv_ols_frames(frames, taps,
+                                                    overlap_rows=o1), per=STEADY)
+        plain_ms = median_ms(lambda: kols.conv_ols_frames_reference(
+            frames, t32, o1), reps=3, per=STEADY)
+        print(f"ols kernel nfft={nfft} m={m} frames={CB * nf}: {snr:.2f} dB vs "
+              f"float64 plain (float32 plain {plain_snr:.2f} dB), max |err| "
+              f"{err:.3e}; kernel {ms:.3f} ms, float32 plain {plain_ms:.3f} ms")
+        check(snr >= MIN_CONV_DB and snr >= plain_snr - 6.0,
+              f"ols kernel nfft={nfft}: {snr:.2f} dB (float32 plain "
+              f"{plain_snr:.2f} dB)")
+        results[nfft] = (err, ms, plain_ms)
+        del got, frames
+    return results
+
+
+def conv1d_path(dev, kols, conv, OverlapSaveFIR):
+    """Phase 11; returns the overlap-save kernel's launches on the path."""
+    import scipy.signal as ss
+
+    from simpledsp_tpu_torch.kernels.fft import _best_split
+    x_host = np.random.default_rng(0).standard_normal((CB, CT), dtype=np.float32)
+    x = torch.as_tensor(x_host, device=dev)
+    taps = np.random.default_rng(301).standard_normal(301)
+    calls = {"fftconvolve same": (lambda s=x: conv.fftconvolve(s, taps, "same"),
+                                  lambda r: ss.fftconvolve(r, taps, "same")),
+             "convolve full": (lambda s=x: conv.convolve(s, taps, "full"),
+                               lambda r: ss.convolve(r, taps, "full")),
+             "correlate same": (lambda s=x: conv.correlate(s, taps, "same"),
+                                lambda r: ss.correlate(r, taps, "same")),
+             "oaconvolve full": (lambda s=x: conv.oaconvolve(s, taps),
+                                 lambda r: ss.oaconvolve(r, taps))}
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = {}
+    for name, (run, _) in calls.items():
+        before = kols.ols_kernel.launches
+        outs[name] = run()
+        check(kols.ols_kernel.launches == before + 1,
+              f"{name} launched the overlap-save kernel "
+              f"{kols.ols_kernel.launches - before} times")
+    torch.cuda.synchronize()
+    launches = kols.ols_kernel.launches
+    rows = x_host[:2].astype(np.float64)
+    x64 = x.double()
+    for name, (run, oracle) in calls.items():
+        ref = np.stack([oracle(r) for r in rows])
+        got = outs[name][:2].double().cpu().numpy()
+        check(got.shape == ref.shape and np.isfinite(got).all(),
+              f"{name}: shape {got.shape} != {ref.shape} or not finite")
+        snr = snr_db(ref, got)
+        # Every row against the same call on the float64 signal, which takes
+        # the plain OverlapSaveFIR route.
+        plain = run(x64)
+        snr_all = snr_db_dev(plain, outs[name])
+        del plain
+        ms = median_ms(run, per=STEADY)
+        print(f"1-D path {name}: {CB} x {CT} float32, 301 taps, 1 kernel "
+              f"launch; rows 0-1 {snr:.2f} dB vs scipy float64, all {CB} rows "
+              f"{snr_all:.2f} dB vs the float64 plain route; {ms:.3f} ms/call "
+              f"({CB * CT / ms / 1e3:.1f} Msamples/s)")
+        check(snr >= MIN_CONV_DB and snr_all >= MIN_CONV_DB,
+              f"{name}: {snr:.2f} dB vs scipy, {snr_all:.2f} dB vs the float64 "
+              f"plain route (bar {MIN_CONV_DB} dB)")
+    del outs
+    # The route's entry point, which reads the frames in place with the
+    # zero history and tail, against the plain version on the padded frames.
+    m = taps.size
+    nfft = max(4096, 1 << (8 * m - 1).bit_length())
+    n2 = _best_split(nfft)[1]
+    o1 = -(-(m - 1) // n2)
+    hop = nfft - o1 * n2
+    nf = -(-(CT + m - 1) // hop)
+    got = kols.convolve_ols_fused(x, taps, nfft=nfft)
+    frames = torch.nn.functional.pad(x64, (o1 * n2, nf * hop - CT)).unfold(
+        -1, nfft, hop)
+    ref = kols.conv_ols_frames_reference(
+        frames, kols.ols_tables(nfft, taps, torch.float64, dev), o1)
+    ref = ref.reshape(CB, nf * hop)[:, : CT + m - 1]
+    check(got.shape == ref.shape, f"convolve_ols_fused: shape "
+                                  f"{tuple(got.shape)} != {tuple(ref.shape)}")
+    snr = snr_db_dev(ref, got)
+    print(f"1-D path convolve_ols_fused nfft={nfft}: all {CB} rows {snr:.2f} "
+          f"dB vs conv_ols_frames_reference in float64 on the padded frames")
+    check(snr >= MIN_CONV_DB, f"convolve_ols_fused: {snr:.2f} dB")
+    del got, frames, ref, x64
+    ols = OverlapSaveFIR(taps, block_size=4096, device=dev)
+    whole, _ = ols(x)
+    a, st = ols(x[:, : CT // 2])
+    b, _ = ols(x[:, CT // 2:], st)
+    check(torch.equal(torch.cat([a, b], -1), whole),
+          "OverlapSaveFIR: 2 chained calls differ from one call")
+    fir_ms = median_ms(lambda: ols(x), reps=3, per=STEADY)
+    n = CT + taps.size - 1
+    L = 1 << (n - 1).bit_length()
+    ht = torch.as_tensor(taps, dtype=torch.float32, device=dev)
+
+    def cufft():
+        return torch.fft.irfft(torch.fft.rfft(x, L) * torch.fft.rfft(ht, L),
+                               L)[:, :n]
+
+    cufft_ms = median_ms(cufft, per=STEADY)
+    print(f"1-D path: OverlapSaveFIR(block 4096) streams bit for bit over 2 "
+          f"chained calls; plain OverlapSaveFIR route {fir_ms:.3f} ms/call; "
+          f"torch.fft rfft/irfft (cuFFT) of the same convolution "
+          f"{cufft_ms:.3f} ms")
+    return launches
+
+
+def conv2d_kernel_phase(dev, k2d):
+    """Phase 12; returns {(kh, kw): (max |err|, kernel ms, plain ms)}."""
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (IB, IH, IH), dtype=np.float32), device=dev)
+    results = {}
+    for ks in ((3, 3), (9, 9), (13, 13)):
+        k = np.random.default_rng(ks[0]).standard_normal(ks)
+        k32 = torch.as_tensor(k, dtype=torch.float32, device=dev)
+        # The image as given, padded so the output is whole 32 x 128 tiles
+        # (512 x 512), and padded by k - 1 on every side as the 'same' path
+        # hands it to the kernel.
+        for pad in (0, ks[0] - 1, 2 * (ks[0] - 1)):
+            xp = torch.nn.functional.pad(x, (0, pad, 0, pad)) if pad else x
+            got = k2d.conv2d_valid_fused(xp, k)
+            ref = k2d.conv2d_valid_reference(xp, k32)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape and torch.equal(got, ref),
+                  f"conv2d kernel {ks} on {tuple(xp.shape)}: not bit for bit "
+                  f"its plain version")
+            del got, ref
+        got = k2d.conv2d_valid_fused(x, k)
+        err = float((got - k2d.conv2d_valid_reference(x, k32)).abs().max())
+        ms = median_ms(lambda: k2d.conv2d_valid_fused(x, k), per=STEADY)
+        plain_ms = median_ms(lambda: k2d.conv2d_valid_reference(x, k32),
+                             reps=3, per=STEADY)
+        print(f"conv2d kernel {ks[0]}x{ks[1]} on {IB} x {IH} x {IH}, "
+              f"{IH + ks[0] - 1} and {IH + 2 * (ks[0] - 1)} square: bit for "
+              f"bit its float32 plain version; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms on {IH} x {IH}")
+        results[ks] = (err, ms, plain_ms)
+    return results
+
+
+def conv2d_path(dev, k2d, conv2d):
+    """Phase 13; returns the conv2d kernel's launches on the path."""
+    import scipy.signal as ss
+    x_host = np.random.default_rng(8).standard_normal((IB, IH, IH),
+                                                      dtype=np.float32)
+    x = torch.as_tensor(x_host, device=dev)
+    k9 = np.random.default_rng(9).standard_normal((9, 9))
+    k64 = np.random.default_rng(64).standard_normal((64, 64))
+    img0 = x_host[0].astype(np.float64)
+    # A tensor kernel takes the plain direct route: conv2d_valid_reference on
+    # the same boundary-padded images, cropped the same way.
+    k9t = torch.as_tensor(k9, device=dev)
+    calls = [(f"convolve2d same {b}",
+              lambda b=b, k=k9: conv2d.convolve2d(x, k, "same", boundary=b),
+              lambda b=b: ss.convolve2d(img0, k9, "same", boundary=b), 1)
+             for b in ("fill", "wrap", "symm")]
+    calls.append(("correlate2d same",
+                  lambda k=k9: conv2d.correlate2d(x, k, "same"),
+                  lambda: ss.correlate2d(img0, k9, "same"), 1))
+    calls.append(("convolve2d same 64x64 fft",
+                  lambda: conv2d.convolve2d(x, k64, "same", method="fft"),
+                  lambda: ss.convolve2d(img0, k64, "same"), 0))
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = []
+    for name, run, _, want in calls:
+        before = k2d.conv2d_kernel.launches
+        outs.append(run())
+        check(k2d.conv2d_kernel.launches == before + want,
+              f"{name} launched the conv2d kernel "
+              f"{k2d.conv2d_kernel.launches - before} times, not {want}")
+    torch.cuda.synchronize()
+    launches = k2d.conv2d_kernel.launches
+    for (name, run, oracle, want), out in zip(calls, outs):
+        ref = oracle()
+        got = out[0].double().cpu().numpy()
+        check(out.shape == x.shape and np.isfinite(got).all(),
+              f"{name}: shape {tuple(out.shape)} or values")
+        if want:
+            plain = run(k=k9t)
+            check(torch.equal(out, plain), f"{name}: the kernel's {IB} images "
+                                           f"differ from the plain direct route")
+            del plain
+            rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+            quality = (f"image 0 max rel err {rel:.3e} vs scipy float64, all "
+                       f"{IB} images bit for bit the plain direct route")
+            check(rel <= DIRECT_REL, f"{name}: max rel err {rel:.3e}")
+        else:
+            snr = snr_db(ref, got)
+            quality = f"image 0 {snr:.2f} dB vs scipy float64"
+            check(snr >= MIN_CONV_DB, f"{name}: {snr:.2f} dB")
+        ms = median_ms(run, per=STEADY)
+        print(f"2-D path {name}: {IB} x {IH} x {IH} float32, {want} kernel "
+              f"launch(es); {quality}; {ms:.3f} ms/call "
+              f"({IB * IH * IH / ms / 1e3:.1f} Msamples/s)")
+    return launches
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -548,13 +820,17 @@ def main() -> int:
     from simpledsp_tpu_torch.design.fir import lowpass_taps
     from simpledsp_tpu_torch.kernels import _build
     from simpledsp_tpu_torch.kernels import chain as kchain
+    from simpledsp_tpu_torch.kernels import conv2d as k2d
+    from simpledsp_tpu_torch.kernels import ols as kols
     from simpledsp_tpu_torch.kernels import pfb as kpfb
     from simpledsp_tpu_torch.models import sdr
     from simpledsp_tpu_torch.models.northstar import NorthStarChain, default_design
+    from simpledsp_tpu_torch.ops import conv, conv2d
     from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
+    from simpledsp_tpu_torch.ops.fir import OverlapSaveFIR
 
     KERNELS[:] = [kchain.chain_kernel, kpfb.pfb_flat_kernel,
-                  kpfb.pfb_frames_kernel]
+                  kpfb.pfb_frames_kernel, kols.ols_kernel, k2d.conv2d_kernel]
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -564,17 +840,26 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     start = time.perf_counter()
-    build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library])
-    print(f"build: chain.cu {_build.build_seconds['sdsp_chain']:.2f} s and "
-          f"pfb.cu {_build.build_seconds['sdsp_pfb']:.2f} s in nvcc, "
-          f"{time.perf_counter() - start:.2f} s for both with loading")
+    build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library,
+               kols.ols_kernel.library, k2d.conv2d_kernel.library])
+    secs = _build.build_seconds
+    print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, pfb.cu "
+          f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s and "
+          f"conv2d.cu {secs['sdsp_conv2d']:.2f} s in nvcc, "
+          f"{time.perf_counter() - start:.2f} s for all with loading")
 
     chain_record = chain_phases(dev, kchain, NorthStarChain, default_design())
     pfb = pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps)
     flat_launches, frames_launches, _ = bank_phases(dev, kpfb, sdr,
                                                     PFBChannelizer)
+    ols = ols_kernel_phase(dev, kols)
+    ols_launches = conv1d_path(dev, kols, conv, OverlapSaveFIR)
+    k2 = conv2d_kernel_phase(dev, k2d)
+    conv2d_launches = conv2d_path(dev, k2d, conv2d)
     flat_err, flat_ms, flat_plain = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain = pfb[("frames", "chan")]
+    ols_err, ols_ms, ols_plain = ols[4096]
+    k2_err, k2_ms, k2_plain = k2[(9, 9)]
     print(smi)
     print(json.dumps({"kernels": [chain_record, {
         "name": "pfb_flat", "route": "cuda",
@@ -588,6 +873,18 @@ def main() -> int:
         "replaces": "simpledsp_tpu/kernels/pfb.py:475",
         "launches": frames_launches, "max_abs_err": fr_err,
         "ms": fr_ms, "plain_ms": fr_plain,
+    }, {
+        "name": "ols", "route": "cuda",
+        "source": "simpledsp_tpu_torch/csrc/ols.cu",
+        "replaces": "simpledsp_tpu/kernels/ols.py:83",
+        "launches": ols_launches, "max_abs_err": ols_err,
+        "ms": ols_ms, "plain_ms": ols_plain,
+    }, {
+        "name": "conv2d", "route": "cuda",
+        "source": "simpledsp_tpu_torch/csrc/conv2d.cu",
+        "replaces": "simpledsp_tpu/kernels/conv2d.py:52",
+        "launches": conv2d_launches, "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": k2_plain,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

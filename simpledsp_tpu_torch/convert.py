@@ -15,6 +15,11 @@ an identical state.  The receiver banks cross the same way::
     state = sdr_state_from_numpy(*(np.asarray(a) for a in (
         js.chan.hist_r, js.chan.hist_i, js.demod.prev_r, js.demod.prev_i,
         js.audio.hist)), dc=js.dc)
+
+and an FIR history (``FIRFilter`` / ``OverlapSaveFIR``; the taps are numpy
+on both sides)::
+
+    state = fir_state_from_numpy(np.asarray(jax_fir_state.hist), device="cuda")
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from simpledsp_tpu_torch.ops.iir import IIRState
 
 __all__ = ["design_from_numpy", "state_from_numpy", "state_to_numpy",
            "prototype_from_branch", "sdr_state_from_numpy",
-           "sdr_state_to_numpy"]
+           "sdr_state_to_numpy", "fir_state_from_numpy", "fir_state_to_numpy"]
 
 
 def design_from_numpy(b, a, gain, ftype, f0, fs,
@@ -56,6 +61,17 @@ def state_from_numpy(y_hist, device=None, dtype=torch.float32) -> IIRState:
 def state_to_numpy(state: IIRState) -> np.ndarray:
     """The state's (..., M+1, 2) history as a host numpy array."""
     return state.y_hist.detach().cpu().numpy()
+
+
+def fir_state_from_numpy(hist, device=None, dtype=torch.float32) -> FIRState:
+    """A :class:`FIRState` holding a copy of a (..., hist_len) input
+    history, e.g. the JAX package's ``FIRState.hist``."""
+    return FIRState(torch.tensor(np.asarray(hist), dtype=dtype, device=device))
+
+
+def fir_state_to_numpy(state: FIRState) -> np.ndarray:
+    """The state's (..., hist_len) history as a host numpy array."""
+    return state.hist.detach().cpu().numpy()
 
 
 def prototype_from_branch(branch) -> np.ndarray:

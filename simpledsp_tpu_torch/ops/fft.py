@@ -11,6 +11,11 @@ applied recursively until a factor is <= _MAX_DFT, which is one dense
 matmul against a float64-built table.  Complex values are carried as
 explicit (re, im) planes, so every product is a real matmul, and the
 public boundary matches the JAX package's.  ``torch.fft`` is not used.
+
+The complex-dtype wrappers (:func:`fft`, :func:`ifft`, :func:`rfft`,
+:func:`irfft`, :func:`fft2`, :func:`ifft2`) take and return complex torch
+tensors at the boundary; inside, the planes stay the working form.  The
+2-D transforms run the engine per axis with one transpose between.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from simpledsp_tpu_torch.precision import ieee_fp32
 from simpledsp_tpu_torch.utils.intmath import is_power_of as _is_power_of
 
 __all__ = ["fft_ri", "ifft_ri", "rfft_ri", "irfft_ri", "pack_rfft_ri",
-           "unpack_rfft_ri", "fft_radix2", "fft_radix4", "dft_matrix"]
+           "unpack_rfft_ri", "fft_radix2", "fft_radix4", "dft_matrix",
+           "fft", "ifft", "rfft", "irfft", "fft2_ri", "ifft2_ri", "rfft2_ri",
+           "irfft2_ri", "fft2", "ifft2"]
 
 # Largest size computed as one dense DFT matmul.
 _MAX_DFT = 128
@@ -132,6 +139,24 @@ def _fft_ri(xr: torch.Tensor, xi: torch.Tensor, inverse: bool):
     xr = xr.transpose(-1, -2).reshape(xr.shape[:-2] + (n,))
     xi = xi.transpose(-1, -2).reshape(xi.shape[:-2] + (n,))
     return xr, xi
+
+
+def _as_ri(x: torch.Tensor, dtype: torch.dtype
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re, im) planes of ``x`` in the real ``dtype``; zeros for real x."""
+    if x.is_complex():
+        return x.real.to(dtype), x.imag.to(dtype)
+    return x.to(dtype), torch.zeros_like(x, dtype=dtype)
+
+
+def _pick_real_dtype(x: torch.Tensor, dtype=None) -> torch.dtype:
+    """The real working dtype: ``dtype`` if given, float64 for float64 or
+    complex128 input, float32 otherwise."""
+    if dtype is not None:
+        return dtype
+    if x.dtype in (torch.complex128, torch.float64):
+        return torch.float64
+    return torch.float32
 
 
 def fft_ri(xr: torch.Tensor, xi: torch.Tensor
@@ -259,3 +284,77 @@ def unpack_rfft_ri(pr: torch.Tensor, pi: torch.Tensor
     yr = torch.cat([pr, pi[..., :1]], dim=-1)
     yi = torch.cat([zero, pi[..., 1:], zero], dim=-1)
     return yr, yi
+
+
+def fft(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Forward complex FFT (unscaled) over the last axis, batched over
+    leading axes; complex64, or complex128 when computing in float64."""
+    yr, yi = fft_ri(*_as_ri(x, _pick_real_dtype(x, dtype)))
+    return torch.complex(yr, yi)
+
+
+def ifft(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Inverse complex FFT over the last axis, with the 1/N scaling."""
+    yr, yi = ifft_ri(*_as_ri(x, _pick_real_dtype(x, dtype)))
+    return torch.complex(yr, yi)
+
+
+def rfft(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """The N//2+1 non-negative-frequency bins of a real signal
+    (numpy.fft.rfft semantics), through :func:`rfft_ri`."""
+    yr, yi = rfft_ri(x.to(_pick_real_dtype(x, dtype)))
+    return torch.complex(yr, yi)
+
+
+def irfft(x: torch.Tensor, n: Optional[int] = None, *,
+          dtype=None) -> torch.Tensor:
+    """Inverse of :func:`rfft`: the length-n real signal from the half
+    spectrum."""
+    rdt = _pick_real_dtype(x, dtype)
+    xr, xi = _as_ri(x, rdt)
+    return irfft_ri(xr, xi, n)
+
+
+def fft2_ri(xr: torch.Tensor, xi: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2-D FFT over the last two axes on (re, im) planes (numpy.fft.fft2
+    semantics)."""
+    yr, yi = fft_ri(xr, xi)
+    yr, yi = fft_ri(yr.transpose(-1, -2), yi.transpose(-1, -2))
+    return yr.transpose(-1, -2), yi.transpose(-1, -2)
+
+
+def ifft2_ri(xr: torch.Tensor, xi: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse 2-D FFT over the last two axes on (re, im) planes."""
+    yr, yi = ifft_ri(xr, xi)
+    yr, yi = ifft_ri(yr.transpose(-1, -2), yi.transpose(-1, -2))
+    return yr.transpose(-1, -2), yi.transpose(-1, -2)
+
+
+def rfft2_ri(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2-D FFT of a real array over the last two axes, half spectrum on
+    the last axis (numpy.fft.rfft2 layout, (..., H, W//2+1) bins)."""
+    yr, yi = rfft_ri(x)
+    yr, yi = fft_ri(yr.transpose(-1, -2), yi.transpose(-1, -2))
+    return yr.transpose(-1, -2), yi.transpose(-1, -2)
+
+
+def irfft2_ri(xr: torch.Tensor, xi: torch.Tensor,
+              w: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`rfft2_ri`: the real (..., H, w) array from the
+    (..., H, W//2+1) half-spectrum planes; ``w`` defaults to 2 (bins - 1)."""
+    yr, yi = ifft_ri(xr.transpose(-1, -2), xi.transpose(-1, -2))
+    return irfft_ri(yr.transpose(-1, -2), yi.transpose(-1, -2), w)
+
+
+def fft2(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Complex-dtype wrapper over :func:`fft2_ri`."""
+    yr, yi = fft2_ri(*_as_ri(x, _pick_real_dtype(x, dtype)))
+    return torch.complex(yr, yi)
+
+
+def ifft2(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Complex-dtype wrapper over :func:`ifft2_ri`."""
+    yr, yi = ifft2_ri(*_as_ri(x, _pick_real_dtype(x, dtype)))
+    return torch.complex(yr, yi)

@@ -1,6 +1,6 @@
-"""Streaming FIR filtering and polyphase resampling on torch tensors.
+"""Streaming FIR filtering, polyphase resampling and overlap-save blocks.
 
-Port of the polyphase part of ``simpledsp_tpu/ops/fir.py``: one engine,
+Port of ``simpledsp_tpu/ops/fir.py``.  One engine,
 :class:`PolyphaseResampler`, covers the plain FIR (up = down = 1),
 decimation (up = 1), interpolation (down = 1) and rational resampling.
 Output m of y = upfirdn(h, x, up, down) is
@@ -14,9 +14,13 @@ float32 (:func:`simpledsp_tpu_torch.precision.ieee_fp32` also pins cuDNN's
 TF32 switch).  Streaming: the carried state is the last K - 1 input
 samples, and splitting a stream at multiples of ``down`` is exact.
 
-``upfirdn``, ``resample``, ``OverlapSaveFIR`` (and its overlap-save
-kernel), ``fir_filter``, ``decimate`` and ``resample_poly`` are not ported
-yet.
+Long taps take :class:`OverlapSaveFIR`: FFT-domain blocks on the port's
+four-step FFT (``ops/fft.fft_ri`` / ``ifft_ri``), plain torch as in the
+JAX package (the fused overlap-save kernel is ``kernels/ols.py``, reached
+from ``ops/conv.py``).  :func:`fir_filter` picks between the two.
+
+``upfirdn``, ``resample``, ``decimate`` and ``resample_poly`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,10 +32,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.precision import ieee_fp32
 
 __all__ = ["FIRState", "fir_init", "PolyphaseResampler", "FIRFilter",
-           "PolyphaseDecimator", "PolyphaseInterpolator"]
+           "PolyphaseDecimator", "PolyphaseInterpolator", "OverlapSaveFIR",
+           "fir_filter"]
 
 
 class FIRState(NamedTuple):
@@ -146,3 +152,97 @@ class PolyphaseInterpolator(PolyphaseResampler):
     def __init__(self, taps, p: int, dtype=torch.float32, device=None):
         super().__init__(taps, up=p, down=1, dtype=dtype, device=device)
         self.p = p
+
+
+class OverlapSaveFIR(nn.Module):
+    """FFT-domain block convolution (overlap-save) for long FIR filters.
+
+    Frames the history-prefixed input into hops of B with window
+    Nfft = B + L - 1 rounded up to a power of two, multiplies by the tap
+    spectrum (float64 on the host, held in ``dtype``) and keeps the last B
+    samples of each inverse transform.  Streaming-exact: identical to one
+    call for any split at multiples of B.
+    """
+
+    def __init__(self, taps: np.ndarray, block_size: int = 1024,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        taps = np.asarray(taps, dtype=np.float64)
+        L = taps.size
+        self.num_taps = L
+        self.hist_len = L - 1
+        self.block_size = int(block_size)
+        n = 1
+        while n < self.block_size + L - 1:
+            n <<= 1
+        self.nfft = n
+        self.dtype = dtype
+        H = np.fft.fft(taps, self.nfft)
+        self.register_buffer("Hr", torch.as_tensor(H.real, dtype=dtype,
+                                                   device=device))
+        self.register_buffer("Hi", torch.as_tensor(H.imag, dtype=dtype,
+                                                   device=device))
+
+    def _run(self, xp: torch.Tensor) -> torch.Tensor:
+        """xp: (..., L-1 + T) history-prefixed input, T % B == 0."""
+        B, L, N = self.block_size, self.num_taps, self.nfft
+        T = xp.shape[-1] - (L - 1)
+        S = T // B
+        # Gather-free framing: view xp as B-sample blocks; frame f spans
+        # blocks [f, f + q), assembled from q shifted block slices.  Samples
+        # past W = L - 1 + B leak in from the next hop, so a constant 0/1
+        # mask restores the exact zero padding: every frame holds its W
+        # samples and zeros whatever the split, which keeps streaming exact.
+        W = L - 1 + B
+        q = -(-W // B)
+        nb = S + q - 1
+        tail = nb * B - xp.shape[-1]
+        xb = F.pad(xp, (0, tail)) if tail else xp
+        xb = xb.reshape(xb.shape[:-1] + (nb, B))
+        frames = torch.cat([xb[..., j: j + S, :] for j in range(q)], -1)
+        if W < q * B:
+            mask = torch.zeros(q * B, dtype=frames.dtype, device=frames.device)
+            mask[:W] = 1.0
+            frames = frames * mask
+        if N > q * B:
+            frames = F.pad(frames, (0, N - q * B))
+        elif N < q * B:
+            frames = frames[..., :N]      # only masked zeros beyond W dropped
+        frames = frames.to(self.dtype)
+        fr, fi = _fft.fft_ri(frames, torch.zeros_like(frames))
+        pr = fr * self.Hr - fi * self.Hi
+        pi = fr * self.Hi + fi * self.Hr
+        yr, _ = _fft.ifft_ri(pr, pi)
+        y = yr[..., L - 1:L - 1 + B].to(xp.dtype)    # the non-aliased samples
+        return y.reshape(y.shape[:-2] + (S * B,))
+
+    def forward(self, x: torch.Tensor, state: Optional[FIRState] = None
+                ) -> Tuple[torch.Tensor, FIRState]:
+        T = x.shape[-1]
+        if T % self.block_size != 0:
+            raise ValueError(
+                f"block length {T} must be a multiple of {self.block_size}")
+        x = x.to(self.dtype)
+        if state is None:
+            state = fir_init(self.hist_len, tuple(x.shape[:-1]),
+                             dtype=self.dtype, device=x.device)
+        xp = torch.cat([state.hist.to(x.dtype), x], -1)
+        y = self._run(xp)
+        return y, FIRState(xp[..., xp.shape[-1] - self.hist_len:].contiguous())
+
+
+def fir_filter(taps, x: torch.Tensor, state: Optional[FIRState] = None, *,
+               method: str = "auto", block_size: int = 1024, dtype=None):
+    """One-shot streaming FIR.  method: 'direct' (:class:`FIRFilter`), 'fft'
+    (:class:`OverlapSaveFIR`) or 'auto' (overlap-save for more than 96 taps
+    when the block divides the length).  Returns (y, state)."""
+    if method not in ("auto", "direct", "fft"):
+        raise ValueError(f"unknown method {method!r} "
+                         "(use 'direct', 'fft', or 'auto')")
+    dtype = dtype or x.dtype
+    L = np.asarray(taps).size
+    if method == "fft" or (method == "auto" and L > 96
+                           and x.shape[-1] % block_size == 0):
+        return OverlapSaveFIR(taps, block_size=block_size, dtype=dtype,
+                              device=x.device)(x, state)
+    return FIRFilter(taps, dtype=dtype, device=x.device)(x, state)

@@ -12,7 +12,11 @@ the float64 plain version <= max(1.5e-6 max(1, scale), 2 x the float32
 plain version's own max |err|) per output, 1.5e-6 being the bank parity
 gate the TPU kernels were held to; outputs for two tile sizes are equal
 bit for bit.  The banks on the card: the same bar against the float64
-composable path.
+composable path.  The overlap-save kernel: >= 100 dB SNR against its plain
+version in float64 on the same float32 frames (the JAX package's on-chip
+bar for ``convolve``), and no more than 6 dB below the float32 plain
+version's own SNR.  The conv2d kernel: equal bit for bit to its float32
+plain version.
 """
 
 import numpy as np
@@ -23,10 +27,16 @@ import torch
 from simpledsp_tpu_torch.design.biquad import sos_matrix
 from simpledsp_tpu_torch.design.fir import lowpass_taps
 from simpledsp_tpu_torch.kernels import chain as tchain
+from simpledsp_tpu_torch.kernels import conv2d as tk2d
+from simpledsp_tpu_torch.kernels import ols as tols
 from simpledsp_tpu_torch.kernels import pfb as tpfb
+from simpledsp_tpu_torch.kernels.fft import _best_split
 from simpledsp_tpu_torch.models import sdr as tsdr
 from simpledsp_tpu_torch.models.northstar import NorthStarChain, default_design
+from simpledsp_tpu_torch.ops import conv as tconv
+from simpledsp_tpu_torch.ops import conv2d as tconv2d
 from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
+from simpledsp_tpu_torch.ops.fir import OverlapSaveFIR
 
 pytestmark = pytest.mark.cuda
 
@@ -193,3 +203,125 @@ def test_banks_on_the_card_match_float64_composable(kind, cuda_device):
         own = float((p32.double() - ref).abs().max())
         assert err <= max(1.5e-6 * max(1.0, float(ref.abs().max())),
                           2 * own), (err, own)
+
+
+def _ols_snr(got, ref):
+    err = ((got.double() - ref) ** 2).sum()
+    return 10 * torch.log10((ref ** 2).sum() / err).item()
+
+
+@pytest.mark.parametrize("nfft,m,rows,t", [(4096, 301, 3, 20000),
+                                           (8192, 1000, 1, 30000),
+                                           (16384, 2000, 2, 40000),
+                                           (1024, 65, 1, 5000)])
+def test_ols_kernel_matches_plain_version(nfft, m, rows, t, cuda_device):
+    """Both entries (the unpadded signal, and a strided frames view of the
+    padded signal) launch the kernel once and give the same bits; the
+    8192 case has 5 frames, so its last pair is half empty; nfft 8192 and
+    16384 need the shared-memory opt-in."""
+    rng = np.random.default_rng(nfft + m)
+    x = torch.as_tensor(rng.standard_normal((rows, t)), dtype=torch.float32,
+                        device=cuda_device)
+    h = rng.standard_normal(m)
+    n2 = _best_split(nfft)[1]
+    o1 = -(-(m - 1) // n2)
+    hop = nfft - o1 * n2
+    nf = -(-(t + m - 1) // hop)
+    launches = tols.ols_kernel.launches
+    y = tols.convolve_ols_fused(x, h, nfft=nfft)
+    frames = torch.nn.functional.pad(x, (o1 * n2, nf * hop - t)).unfold(
+        -1, nfft, hop)
+    yf = tols.conv_ols_frames(frames, h, overlap_rows=o1)
+    torch.cuda.synchronize()
+    assert tols.ols_kernel.launches == launches + 2
+    assert torch.equal(y, yf.reshape(rows, -1)[:, : t + m - 1])
+    ref64 = tols.conv_ols_frames_reference(
+        frames.double(), tols.ols_tables(nfft, h, torch.float64, cuda_device), o1)
+    ref32 = tols.conv_ols_frames_reference(
+        frames, tols.ols_tables(nfft, h, torch.float32, cuda_device), o1)
+    snr = _ols_snr(yf, ref64)
+    assert snr >= 100.0 and snr >= _ols_snr(ref32, ref64) - 6.0
+    full = np.stack([np.convolve(r, h) for r in x.cpu().double().numpy()])
+    assert _ols_snr(y.cpu(), torch.as_tensor(full)) >= 100.0
+
+
+def test_ols_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(2, 4096, device=cuda_device)
+    with pytest.raises(ValueError, match="power of two"):
+        tols.conv_ols_frames(torch.zeros(3, 1000, device=cuda_device),
+                             np.ones(9), overlap_rows=1)
+    with pytest.raises(ValueError, match="float32"):
+        tols.convolve_ols_fused(x.double(), np.ones(9), nfft=1024)
+
+
+CONV2D_SHAPES = [((2, 70, 90), (9, 9)), ((1, 130, 200), (5, 7)),
+                 ((3, 2, 40, 50), (3, 3)), ((1, 128, 128), (13, 13)),
+                 ((1, 17, 33), (4, 2)), ((1, 8, 130), (1, 3)),
+                 ((2, 200, 40), (169, 1)), ((1, 40, 300), (1, 169))]
+
+
+@pytest.mark.parametrize("shape,ks", CONV2D_SHAPES)
+def test_conv2d_kernel_bit_exact(shape, ks, cuda_device):
+    rng = np.random.default_rng(shape[-1] + ks[0])
+    x = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=cuda_device)
+    k = rng.standard_normal(ks)
+    launches = tk2d.conv2d_kernel.launches
+    got = tk2d.conv2d_valid_fused(x, k)
+    torch.cuda.synchronize()
+    assert tk2d.conv2d_kernel.launches == launches + 1
+    ref = tk2d.conv2d_valid_reference(
+        x, torch.as_tensor(k, dtype=torch.float32, device=cuda_device))
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+def test_public_entries_reach_the_kernels(cuda_device):
+    """A CUDA float32 convolve on the overlap-save route and a convolve2d
+    with host taps each launch their kernel once, and hold against scipy."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 20000))
+    h = rng.standard_normal(301)
+    launches = tols.ols_kernel.launches
+    y = tconv.convolve(torch.as_tensor(x, dtype=torch.float32,
+                                       device=cuda_device), h, "same")
+    assert tols.ols_kernel.launches == launches + 1
+    ref = np.stack([sig.convolve(r, h, "same") for r in
+                    x.astype(np.float32).astype(np.float64)])
+    assert _ols_snr(y.cpu(), torch.as_tensor(ref)) >= 100.0
+    img = rng.standard_normal((2, 64, 80))
+    k = rng.standard_normal((5, 5))
+    launches = tk2d.conv2d_kernel.launches
+    z = tconv2d.convolve2d(torch.as_tensor(img, dtype=torch.float32,
+                                           device=cuda_device), k, "same",
+                           boundary="symm")
+    assert tk2d.conv2d_kernel.launches == launches + 1
+    want = sig.convolve2d(img[1].astype(np.float32).astype(np.float64), k,
+                          "same", boundary="symm")
+    assert np.abs(z[1].cpu().double().numpy() - want).max() <= \
+        1e-5 * np.abs(want).max()
+
+
+def test_complex_convolve2d_launches_once_per_real_plane(cuda_device):
+    rng = np.random.default_rng(12)
+    img = rng.standard_normal((3, 40, 50)) + 1j * rng.standard_normal((3, 40, 50))
+    k = rng.standard_normal((4, 3)) + 1j * rng.standard_normal((4, 3))
+    launches = tk2d.conv2d_kernel.launches
+    z = tconv2d.correlate2d(torch.as_tensor(img, dtype=torch.complex64,
+                                            device=cuda_device), k, "same")
+    assert tk2d.conv2d_kernel.launches == launches + 4
+    want = sig.correlate2d(img[2].astype(np.complex64).astype(np.complex128),
+                           k, "same")
+    assert np.abs(z[2].cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_overlap_save_fir_streams_bit_exact_on_the_card(cuda_device):
+    rng = np.random.default_rng(3)
+    h = rng.standard_normal(301)
+    x = torch.as_tensor(rng.standard_normal((4, 8 * 4096)), dtype=torch.float32,
+                        device=cuda_device)
+    ols = OverlapSaveFIR(h, block_size=4096, device=cuda_device)
+    whole, _ = ols(x)
+    a, st = ols(x[:, : 3 * 4096])
+    b, _ = ols(x[:, 3 * 4096:], st)
+    assert torch.equal(torch.cat([a, b], -1), whole)

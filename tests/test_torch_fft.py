@@ -127,3 +127,63 @@ def test_dft_matrix_and_twiddles_bitwise():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(tfft._half_twiddle_f64(4096), jfft._half_twiddle_f64(4096)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [8, 9, 256, 4096])
+def test_complex_wrappers_match_jax_and_numpy(n, rng):
+    x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    xt = torch.as_tensor(x)
+    for name, ref in (("fft", np.fft.fft(x)), ("ifft", np.fft.ifft(x))):
+        got = getattr(tfft, name)(xt)
+        assert got.dtype == torch.complex128
+        _close(got.numpy(), getattr(jfft, name)(jnp.asarray(x)))
+        _close(got.numpy(), ref)
+    r = x.real
+    got = tfft.rfft(torch.as_tensor(r))
+    _close(got.numpy(), jfft.rfft(jnp.asarray(r)))
+    _close(got.numpy(), np.fft.rfft(r))
+    back = tfft.irfft(got, n)
+    _close(back.numpy(), jfft.irfft(jnp.asarray(got.numpy()), n))
+    _close(back.numpy(), r)
+
+
+def test_complex_wrappers_working_dtype(rng):
+    x = rng.standard_normal((2, 64)).astype(np.float32)
+    assert tfft.fft(torch.as_tensor(x)).dtype == torch.complex64
+    assert tfft.rfft(torch.as_tensor(x)).dtype == torch.complex64
+    assert tfft.fft(torch.as_tensor(x), dtype=torch.float64).dtype == \
+        torch.complex128
+    assert tfft.fft2(torch.as_tensor(x)).dtype == torch.complex64
+
+
+@pytest.mark.parametrize("shape", [(8, 16), (3, 12, 20), (2, 31, 17),
+                                   (2, 128, 256)])
+def test_fft2_ifft2_match_jax_and_numpy(shape, rng):
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    got = tfft.fft2(torch.as_tensor(x))
+    _close(got.numpy(), jfft.fft2(jnp.asarray(x)))
+    _close(got.numpy(), np.fft.fft2(x))
+    inv = tfft.ifft2(got)
+    _close(inv.numpy(), jfft.ifft2(jnp.asarray(got.numpy())))
+    _close(inv.numpy(), x)
+    yr, yi = tfft.fft2_ri(torch.as_tensor(x.real), torch.as_tensor(x.imag))
+    _close(yr.numpy(), got.real.numpy())
+    _close(yi.numpy(), got.imag.numpy())
+    br, bi = tfft.ifft2_ri(yr, yi)
+    jr, ji = jfft.ifft2_ri(jnp.asarray(yr.numpy()), jnp.asarray(yi.numpy()))
+    _close(br.numpy(), jr)
+    _close(bi.numpy(), ji)
+
+
+@pytest.mark.parametrize("shape", [(8, 16), (5, 12, 21), (2, 9, 32),
+                                   (2, 640, 640)])
+def test_rfft2_ri_irfft2_ri_match_jax_and_numpy(shape, rng):
+    x = rng.standard_normal(shape)
+    yr, yi = tfft.rfft2_ri(torch.as_tensor(x))
+    jr, ji = jfft.rfft2_ri(jnp.asarray(x))
+    ref = np.fft.rfft2(x)
+    for got, want in ((yr, jr), (yi, ji), (yr, ref.real), (yi, ref.imag)):
+        _close(got.numpy(), want)
+    back = tfft.irfft2_ri(yr, yi, shape[-1])
+    _close(back.numpy(), jfft.irfft2_ri(jr, ji, shape[-1]))
+    _close(back.numpy(), x)

@@ -181,6 +181,11 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.models.sdr\n"
             "import simpledsp_tpu_torch.kernels.pfb\n"
             "import simpledsp_tpu_torch.design.optimal_fir\n"
+            "import simpledsp_tpu_torch.kernels.ols\n"
+            "import simpledsp_tpu_torch.kernels.conv2d\n"
+            "import simpledsp_tpu_torch.ops.conv\n"
+            "import simpledsp_tpu_torch.ops.conv2d\n"
+            "import simpledsp_tpu_torch.ops.fir\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
             "assert not bad, bad\n")
@@ -195,9 +200,13 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
                CUDA_PATH=str(tmp_path))
     code = ("import simpledsp_tpu_torch.kernels.chain as kc\n"
             "import simpledsp_tpu_torch.kernels.pfb as kp\n"
+            "import simpledsp_tpu_torch.kernels.ols as ko\n"
+            "import simpledsp_tpu_torch.kernels.conv2d as k2\n"
             "from simpledsp_tpu_torch.kernels import _build\n"
             "assert kc.chain_kernel.launches == 0\n"
             "assert kp.pfb_flat_kernel.launches == 0\n"
+            "assert ko.ols_kernel.launches == 0\n"
+            "assert k2.conv2d_kernel.launches == 0\n"
             "try:\n"
             "    _build._nvcc()\n"
             "except RuntimeError as e:\n"
