@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 checks each against its plain version, drives the north-star chain, both
-SDR receiver banks and the 1-D and 2-D convolution paths end to end, and
-times them.
+SDR receiver banks, the 1-D and 2-D convolution paths, the spectral
+transforms and the pulse-Doppler radar end to end, and times them.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,8 @@ Phases (any failure exits nonzero before the result line):
 
 1. Device: a CUDA device is required; prints the card's name and power limit.
 2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``pfb.cu``,
-   ``ols.cu`` and ``conv2d.cu`` into ``build/``, one nvcc for each, started
-   together.
+   ``ols.cu``, ``conv2d.cu`` and ``fft.cu`` into ``build/``, one nvcc for
+   each, started together.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -82,6 +82,41 @@ Phases (any failure exits nonzero before the result line):
     float64: <= 1e-5 relative max error on the direct route, >= 100 dB on
     the FFT route.  ms/call.
     Phases 10-13 time windows of 10 back-to-back calls, as phases 6 and 9 do.
+14. Frames FFT kernel against its plain version at N = 100, 256, 384, 1152,
+    2048, 4096, 8192 and 16384, 1024 x 4096 samples' worth of frames at each
+    (seed 14), forward complex (``fft_frames_ri``), inverse complex scaled
+    by 1/N and forward real (``rfft_frames``): >= 120 dB SNR against
+    ``fft_frames_reference`` in float64 on the same float32 frames, and no
+    more than 6 dB below the float32 plain version's own SNR.  rfft_ri's
+    even / odd strided views of 1024 x 8192 give the bits of their
+    contiguous copies.  Kernel, float32 plain and ``torch.fft`` (cuFFT, a
+    yardstick the port never calls) ms, and the bound.
+15. Transform path at the JAX package's on-chip sizes
+    (``tools/ab_fused.py:78-92``, ``tools/verify_fused_transforms.py``):
+    ``dct(x, 2, norm="ortho")`` and ``analytic_ri`` on 1024 x 4096, ``fft_ri``
+    on 512 x 4099 (Bluestein), ``rfft_ri`` / ``irfft_ri`` on 4 x 8192,
+    ``stft_ri(x, 4096, hop=2048)`` on 64 x 262144, ``istft_ri`` back
+    (interior samples) and ``welch_psd(x, 4096)``: each >= 100 dB against
+    scipy / numpy in float64 on the same float32 input, and each call
+    launches the frames kernel as often as the code implies; the stft's
+    direct and FFT routes timed at nfft 1024 and 4096.  ms/call and
+    Msamples/s, and ms/call with the engine's kernel routing off (the plain
+    four-step), the A/B behind the port's routing default.
+16. Radar path: ``range_doppler_map`` and ``cfar_ca(guard=2, train=12,
+    pfa=1e-5)`` on 16 CPIs x 256 pulses x 4096 range cells of complex
+    float32 I/Q (seed 0; two targets, a 512-sample ``lfm_chirp(512, 0.8)``):
+    the map >= 100 dB against a float64 numpy oracle, both targets detected
+    in every CPI, a detection-cell fraction below 5e-3, three kernel
+    launches a call (8192-point forward and inverse, 256-point Doppler).
+    ms/call, and with the kernel routing off.
+    Phases 14-16 time windows of 10 back-to-back calls (3 for the radar).
+
+Every kernel's record gives its bound: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (float32 outside the tensor cores; an FFT counts
+5 N log2 N a complex frame), the H100 SXM data sheet's peaks; and the time
+of one PyTorch call that computes the same function (``F.conv1d`` /
+``F.conv2d`` with TF32 off, ``torch.fft.fft``), or null where there is none.
 
 The line before the last is a JSON object with the kernels' records; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -116,6 +151,16 @@ MIN_CONV_DB = 100.0
 IB, IH = 32, 512            # 2-D convolution: images, height = width
 DIRECT_REL = 1e-5
 
+FFT_SIZES = (256, 384, 1152, 2048, 4096, 8192, 16384, 100)
+FFT_SAMPLES = 1024 * 4096   # frames FFT: samples per size
+MIN_FFT_DB = 120.0
+MIN_TRANSFORM_DB = 100.0
+RC, RP, RS = 16, 256, 4096  # radar: CPIs, pulses, range cells
+RADAR_TARGETS = ((1000, 40, 1.0), (2900, -70, 0.7))   # (delay, Doppler bin, amp)
+
+HBM_BPS = 3.35e12           # H100 SXM: HBM3 bytes/s (NVIDIA's data sheet)
+FP32_FLOPS = 67e12          # float32 FLOP/s outside the tensor cores
+
 
 KERNELS = []                # every kernel wrapper with a launch count
 
@@ -137,6 +182,19 @@ def snr_db_dev(ref: torch.Tensor, got: torch.Tensor) -> float:
     ref = ref.double()
     err = float(((got.double() - ref) ** 2).sum())
     return float(10 * np.log10(float((ref ** 2).sum()) / max(err, 1e-300)))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(list(tensors))
+               if t is not None)
+
+
+def bound(moved: int, flops: float) -> dict:
+    """The least time the card could take for a function that moves
+    ``moved`` bytes and does ``flops`` float32 operations."""
+    t_bytes, t_ops = moved / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
 
 
 def check(ok: bool, what: str) -> None:
@@ -264,6 +322,13 @@ def chain_phases(dev, kchain, NorthStarChain, design):
         ms = median_ms(lambda: kchain.chain_frames(x3, s3, tabs))
         plain_ms = median_ms(lambda: kchain.chain_frames_reference(x3, s3, tabs))
         per_size[n] = dict(snr=snr, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+        if n == MAIN_N:
+            # IIR: the lower-triangular block product and the state term
+            # (n2 + 1 + 2 D flops a sample); the real FFT 2.5 N log2 N a frame.
+            nf3, _, n2_, d3 = *x3.shape, s3.shape[1]
+            per_size[n].update(bound(
+                nbytes(x3, s3, tabs, kr, ki),
+                x3.numel() * (n2_ + 1 + 2 * d3) + nf3 * 2.5 * n * np.log2(n)))
         print(f"kernel N={n} ({ops.n1} x {ops.n2}) frames={x3.shape[0]}: "
               f"{snr:.2f} dB vs float64 plain (float32 plain {plain_snr:.2f} "
               f"dB), max |err| {max_err:.3e}; kernel {ms:.3f} ms, plain "
@@ -341,14 +406,29 @@ def chain_phases(dev, kchain, NorthStarChain, design):
             "source": "simpledsp_tpu_torch/csrc/chain.cu",
             "replaces": "simpledsp_tpu/kernels/chain.py:362",
             "launches": launches, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"]}
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None}
 
 
 # -- the PFB kernels and the receiver banks ---------------------------------
 
+def pfb_flops(mode: str, samples: int, m: int, k: int) -> float:
+    """Operations of a PFB mode on ``samples`` complex input samples: the
+    FIR (4 K a sample), the M-point DFT (5 log2 M a sample), the demod (6
+    for FM's conjugate product, 3 for AM's magnitude) and the decimator
+    (2 KD / decim a channel sample)."""
+    per = 4 * k + 5 * np.log2(m)
+    if mode != "chan":
+        per += 6 if mode.startswith("fm") else 3
+    if mode.endswith("_dec") or mode == "am_sum":
+        per += 2 * KD / DECIM
+    return samples * per
+
+
 def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
-    """Phase 6; returns {layout: (max |err|, kernel ms, plain ms)} at the
-    main mode of each layout (flat fm_dec, frames chan)."""
+    """Phase 6; returns {(layout, mode): (max |err|, kernel ms, plain ms,
+    bound)}."""
     g = TB // M
     chan = PFBChannelizer(M, taps_per_channel=K, device=dev)
     ops = chan.kernel_ops
@@ -408,7 +488,8 @@ def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
         print(f"pfb {layout} {mode}: max |err| {err:.3e} vs float64 plain, "
               f"tile seams bitwise equal; kernel {ms:.3f} ms, float32 plain "
               f"{plain_ms:.3f} ms")
-        results[(layout, mode)] = (err, ms, plain_ms)
+        results[(layout, mode)] = (err, ms, plain_ms, bound(
+            nbytes(x, args, tabs, got), pfb_flops(mode, B * M * g, M, K)))
         del got, other, ref32
     del ftr, fti, xpr, xpi
     for m, k in PFB_CONFIGS:
@@ -568,7 +649,9 @@ def bank_phases(dev, kpfb, sdr, PFBChannelizer):
 # -- the convolution paths ----------------------------------------------------
 
 def ols_kernel_phase(dev, kols):
-    """Phase 10; returns {nfft: (max |err|, kernel ms, plain ms)}."""
+    """Phase 10; returns {nfft: (max |err|, kernel ms, plain ms, bound,
+    library ms)}: the library call is ``F.conv1d`` of the signal, the same
+    full convolution."""
     from simpledsp_tpu_torch.kernels.fft import _best_split
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (CB, CT), dtype=np.float32), device=dev)
@@ -603,7 +686,21 @@ def ols_kernel_phase(dev, kols):
         check(snr >= MIN_CONV_DB and snr >= plain_snr - 6.0,
               f"ols kernel nfft={nfft}: {snr:.2f} dB (float32 plain "
               f"{plain_snr:.2f} dB)")
-        results[nfft] = (err, ms, plain_ms)
+        # Forward and inverse FFT of a real frame (2 x 2.5 nfft log2 nfft)
+        # and the half-spectrum product (3 nfft) a frame; the padded signal
+        # the frames view covers, the tables and the outputs.
+        padded = x.shape[0] * (frames.shape[1] * hop + o1 * n2) * 4
+        flops = frames.shape[0] * frames.shape[1] * (
+            5 * nfft * np.log2(nfft) + 3 * nfft)
+        b = bound(padded + nbytes(t32, got), flops)
+        w = torch.as_tensor(taps[::-1].copy(), dtype=torch.float32,
+                            device=dev).view(1, 1, -1)
+        lib_ms = median_ms(lambda: torch.nn.functional.conv1d(
+            x[:, None], w, padding=m - 1), per=STEADY)
+        print(f"ols kernel nfft={nfft}: bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); F.conv1d of the same convolution "
+              f"{lib_ms:.3f} ms")
+        results[nfft] = (err, ms, plain_ms, b, lib_ms)
         del got, frames
     return results
 
@@ -702,7 +799,8 @@ def conv1d_path(dev, kols, conv, OverlapSaveFIR):
 
 
 def conv2d_kernel_phase(dev, k2d):
-    """Phase 12; returns {(kh, kw): (max |err|, kernel ms, plain ms)}."""
+    """Phase 12; returns {(kh, kw): (max |err|, kernel ms, plain ms, bound,
+    library ms)}: the library call is ``F.conv2d``, VALID."""
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(
         (IB, IH, IH), dtype=np.float32), device=dev)
     results = {}
@@ -730,7 +828,14 @@ def conv2d_kernel_phase(dev, k2d):
               f"{IH + ks[0] - 1} and {IH + 2 * (ks[0] - 1)} square: bit for "
               f"bit its float32 plain version; kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms on {IH} x {IH}")
-        results[ks] = (err, ms, plain_ms)
+        b = bound(nbytes(x, k32, got), 2 * ks[0] * ks[1] * got.numel())
+        kflip = k32.flip(0, 1).reshape(1, 1, *ks).contiguous()
+        lib_ms = median_ms(lambda: torch.nn.functional.conv2d(x[:, None],
+                                                              kflip),
+                           per=STEADY)
+        print(f"conv2d kernel {ks[0]}x{ks[1]}: bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); F.conv2d (TF32 off) {lib_ms:.3f} ms")
+        results[ks] = (err, ms, plain_ms, b, lib_ms)
     return results
 
 
@@ -792,6 +897,268 @@ def conv2d_path(dev, k2d, conv2d):
     return launches
 
 
+# -- the spectral transforms and the radar -----------------------------------
+
+def snr_planes(ref, got) -> float:
+    """SNR in dB of (re, im) planes ``got`` against ``ref``, in float64 on
+    the device."""
+    sig2 = sum(float((r.double() ** 2).sum()) for r in ref)
+    err2 = sum(float(((g.double() - r.double()) ** 2).sum())
+               for r, g in zip(ref, got))
+    return float(10 * np.log10(sig2 / max(err2, 1e-300)))
+
+
+def fft_kernel_phase(dev, kfft):
+    """Phase 14; returns the record's numbers at N = 4096, forward complex."""
+    rng = np.random.default_rng(14)
+    main = None
+    for n in FFT_SIZES:
+        f = FFT_SAMPLES // n
+        xr, xi = (torch.as_tensor(rng.standard_normal((f, n), dtype=np.float32),
+                                  device=dev) for _ in range(2))
+        xc = torch.complex(xr, xi)
+        for form in ("forward", "inverse", "real"):
+            inv = form == "inverse"
+            if form == "real":
+                planes = (xr, None)
+
+                def run():
+                    return kfft.rfft_frames(xr)
+
+                def lib():
+                    return torch.fft.fft(xr)
+            else:
+                planes = (xr, xi)
+
+                def run(inv=inv):
+                    return kfft.fft_frames_ri(xr, xi, inverse=inv)
+
+                def lib(inv=inv):
+                    return (torch.fft.ifft if inv else torch.fft.fft)(xc)
+            s = 1.0 / n if inv else 1.0
+
+            def plain(dtype):
+                p = [None if v is None else v.to(dtype) for v in planes]
+                return [v * s for v in kfft.fft_frames_reference(
+                    *p, inverse=inv)]
+
+            got = run()
+            torch.cuda.synchronize()
+            ref64 = plain(torch.float64)
+            snr = snr_planes(ref64, got)
+            plain_snr = snr_planes(ref64, plain(torch.float32))
+            err = max(float((g.double() - r).abs().max())
+                      for g, r in zip(got, ref64))
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"frames FFT N={n} {form} not finite")
+            del ref64
+            ms = median_ms(run, per=STEADY)
+            plain_ms = median_ms(lambda: plain(torch.float32), reps=3,
+                                 per=STEADY)
+            lib_ms = median_ms(lib, per=STEADY)
+            ops = (2.5 if form == "real" else 5.0) * n * np.log2(n) * f
+            b = bound(nbytes(planes, got), ops)
+            print(f"frames FFT N={n} {form} F={f}: {snr:.2f} dB vs float64 "
+                  f"plain (float32 plain {plain_snr:.2f} dB), max |err| "
+                  f"{err:.3e}; kernel {ms:.4f} ms, float32 plain "
+                  f"{plain_ms:.3f} ms, torch.fft {lib_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            check(snr >= MIN_FFT_DB and snr >= plain_snr - 6.0,
+                  f"frames FFT N={n} {form}: {snr:.2f} dB (float32 plain "
+                  f"{plain_snr:.2f} dB)")
+            if n == 4096 and form == "forward":
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, **b)
+            del got
+        del xr, xi, xc
+    # rfft_ri's even / odd samples, read in place as strided planes.
+    x = torch.as_tensor(rng.standard_normal((1024, 8192), dtype=np.float32),
+                        device=dev)
+    ev, od = x[:, 0::2], x[:, 1::2]
+    got = kfft._fft_frames(ev, od, inverse=False)
+    want = kfft._fft_frames(ev.contiguous(), od.contiguous(), inverse=False)
+    snr = snr_planes(kfft.fft_frames_reference(ev.double(), od.double(),
+                                               inverse=False), got)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "frames FFT: strided even / odd planes differ from their copies")
+    check(snr >= MIN_FFT_DB, f"frames FFT strided: {snr:.2f} dB")
+    print(f"frames FFT strided even / odd views of 1024 x 8192: bit for bit "
+          f"their contiguous copies, {snr:.2f} dB vs float64 plain")
+    return main
+
+
+def plain_engine_ms(tfft, run, per=STEADY) -> float:
+    """ms/call of ``run`` with the FFT engine's kernel routing off (the plain
+    four-step matmuls): the A/B behind the port's routing default."""
+    tfft._FUSED_DISPATCH = False
+    try:
+        return median_ms(run, reps=3, per=per)
+    finally:
+        tfft._FUSED_DISPATCH = True
+
+
+def transform_path(dev, kfft, tfft, ttr, tsp):
+    """Phase 15; returns the frames kernel's launches on the path."""
+    import scipy.fft as sfft
+    import scipy.signal as ss
+
+    rng = np.random.default_rng(15)
+
+    def dev32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def cplx(pair):
+        return (pair[0].double().cpu().numpy()
+                + 1j * pair[1].double().cpu().numpy())
+
+    x1 = rng.standard_normal((1024, 4096)).astype(np.float32)
+    xp = rng.standard_normal((512, 4099)).astype(np.float32)
+    x2 = rng.standard_normal((4, 8192)).astype(np.float32)
+    xs = rng.standard_normal((64, 262144)).astype(np.float32)
+    t1, tp, t2, ts = (dev32(a) for a in (x1, xp, x2, xs))
+    zp = torch.zeros_like(tp)
+    spec = np.fft.rfft(x2.astype(np.float64))
+    sr2, si2 = dev32(spec.real), dev32(spec.imag)
+    sq = np.asarray(sr2.cpu(), np.float64) + 1j * np.asarray(si2.cpu(),
+                                                              np.float64)
+    sts = tsp.stft_ri(ts, 4096, hop=2048)
+    win = tsp.window_taps("hann", 4096)
+    edge = slice(2048, xs.shape[-1] - 2048)
+    # (name, call, launches a call, output -> numpy, float64 oracle,
+    #  input samples)
+    cases = [
+        ("dct(x, 2, norm='ortho') 1024 x 4096",
+         lambda: ttr.dct(t1, 2, norm="ortho"), 1,
+         lambda o: o.double().cpu().numpy(),
+         lambda: sfft.dct(x1.astype(np.float64), 2, norm="ortho"), x1.size),
+        ("analytic_ri 1024 x 4096", lambda: ttr.analytic_ri(t1), 2, cplx,
+         lambda: ss.hilbert(x1.astype(np.float64), axis=-1), x1.size),
+        ("fft_ri 512 x 4099 (Bluestein)", lambda: tfft.fft_ri(tp, zp), 2,
+         cplx, lambda: np.fft.fft(xp.astype(np.float64)), xp.size),
+        ("rfft_ri 4 x 8192", lambda: tfft.rfft_ri(t2), 1, cplx,
+         lambda: spec, x2.size),
+        ("irfft_ri 4 x 8192", lambda: tfft.irfft_ri(sr2, si2), 1,
+         lambda o: o.double().cpu().numpy(),
+         lambda: np.fft.irfft(sq, 8192), x2.size),
+        ("stft_ri(x, 4096, hop=2048) 64 x 262144",
+         lambda: tsp.stft_ri(ts, 4096, hop=2048), 1, cplx,
+         lambda: np.fft.rfft(np.lib.stride_tricks.sliding_window_view(
+             xs.astype(np.float64), 4096, -1)[:, ::2048] * win), xs.size),
+        ("istft_ri (interior) 64 x 262144",
+         lambda: tsp.istft_ri(*sts, 4096, hop=2048), 1,
+         lambda o: o[:, edge].double().cpu().numpy(),
+         lambda: xs[:, edge].astype(np.float64), xs.size),
+        ("welch_psd(x, 4096) 64 x 262144",
+         lambda: tsp.welch_psd(ts, 4096)[1], 1,
+         lambda o: o.double().cpu().numpy(),
+         lambda: ss.welch(xs.astype(np.float64), nperseg=4096,
+                          noverlap=2048)[1], xs.size),
+    ]
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = []
+    for name, run, want, *_ in cases:
+        before = kfft.fft_frames_kernel.launches
+        outs.append(run())
+        n = kfft.fft_frames_kernel.launches - before
+        check(n == want, f"{name} launched the frames FFT kernel {n} times, "
+                         f"not {want}")
+    torch.cuda.synchronize()
+    launches = kfft.fft_frames_kernel.launches
+    for (name, run, want, get, oracle, samples), out in zip(cases, outs):
+        got, ref = get(out), oracle()
+        check(got.shape == ref.shape and np.isfinite(got).all(),
+              f"{name}: shape {got.shape} != {ref.shape} or not finite")
+        snr = snr_db(ref, got)
+        ms = median_ms(run, per=STEADY)
+        plain_ms = plain_engine_ms(tfft, run)
+        print(f"transform path {name}: {want} kernel launch(es); {snr:.2f} dB "
+              f"vs float64 scipy / numpy; {ms:.3f} ms/call "
+              f"({samples / ms / 1e3:.1f} Msamples/s); plain four-step "
+              f"engine {plain_ms:.3f} ms/call")
+        check(snr >= MIN_TRANSFORM_DB, f"{name}: {snr:.2f} dB")
+    # The stft's two routes at nfft 1024 and 4096: "auto" keeps the JAX
+    # package's crossover (direct matmul up to 2048).
+    routes = []
+    for nfft in (1024, 4096):
+        for method in ("direct", "fft"):
+            ms = median_ms(lambda: tsp.spectrogram_ri(
+                ts, nfft, hop=nfft // 2, onesided=True, method=method),
+                per=STEADY)
+            routes.append(f"nfft {nfft} {method} {ms:.3f} ms")
+    print(f"transform path stft routes on 64 x 262144: {'; '.join(routes)}")
+    # The float64 oracles of the engine never reach the kernel.
+    before = kfft.fft_frames_kernel.launches
+    tfft.fft_ri(t1.double(), torch.zeros_like(t1, dtype=torch.float64))
+    check(kfft.fft_frames_kernel.launches == before,
+          "a float64 transform launched the frames FFT kernel")
+    return launches
+
+
+def radar_path(dev, kfft, tfft, radar):
+    """Phase 16; returns the frames kernel's launches on the path."""
+    rng = np.random.default_rng(0)
+    tx_re, tx_im = radar.lfm_chirp(512, 0.8)
+    tx = tx_re + 1j * tx_im
+    z = (rng.standard_normal((RC, RP, RS))
+         + 1j * rng.standard_normal((RC, RP, RS))) * 0.05
+    p = np.arange(RP)
+    for delay, dop, amp in RADAR_TARGETS:
+        z[:, :, delay: delay + tx.size] += (
+            amp * np.exp(2j * np.pi * dop * p / RP)[:, None] * tx[None, :])
+    zr, zi = z.real.astype(np.float32), z.imag.astype(np.float32)
+    del z
+    xr = torch.as_tensor(zr, device=dev)
+    xi = torch.as_tensor(zi, device=dev)
+
+    def run():
+        rdm = radar.range_doppler_map(xr, xi, tx_re, tx_im)
+        return rdm, radar.cfar_ca(rdm, guard=2, train=12, pfa=1e-5)[0]
+
+    torch.cuda.synchronize()
+    zero_counts()
+    rdm, det = run()
+    torch.cuda.synchronize()
+    launches = kfft.fft_frames_kernel.launches
+    check(launches == 3, f"range_doppler_map launched the frames FFT kernel "
+                         f"{launches} times, not 3")
+    check(rdm.shape == (RC, RP, RS) and bool(torch.isfinite(rdm).all()),
+          f"range-Doppler map shape {tuple(rdm.shape)} or values")
+    # float64 numpy oracle on the same float32 I/Q, one CPI at a time.
+    m = 1 << (RS + tx.size - 2).bit_length()
+    hspec = np.conj(np.fft.fft(tx, m))
+    w = radar.window_taps("hann", RP)[:, None]
+    sig2 = err2 = 0.0
+    for c in range(RC):
+        zc = zr[c].astype(np.float64) + 1j * zi[c].astype(np.float64)
+        y = np.fft.ifft(np.fft.fft(zc, m, axis=-1) * hspec)[:, :RS]
+        d = np.fft.fft(y * w, axis=0)
+        ref = np.roll(np.abs(d) ** 2, RP // 2, axis=0)
+        got = rdm[c].double().cpu().numpy()
+        sig2 += float((ref ** 2).sum())
+        err2 += float(((got - ref) ** 2).sum())
+    snr = 10 * np.log10(sig2 / err2)
+    dets = det.cpu().numpy()
+    hits = []
+    for delay, dop, _ in RADAR_TARGETS:
+        row = (dop + RP // 2) % RP
+        patch = dets[:, max(0, row - 1): row + 2, max(0, delay - 2): delay + 3]
+        hits.append(int(patch.any(axis=(1, 2)).sum()))
+    frac = float(dets.mean())
+    ms = median_ms(run, per=3)
+    plain_ms = plain_engine_ms(tfft, run, per=3)
+    print(f"radar path: {RC} CPIs x {RP} pulses x {RS} cells complex float32, "
+          f"{launches} kernel launches a call; map {snr:.2f} dB vs float64 "
+          f"numpy; targets detected in {hits} of {RC} CPIs; detection-cell "
+          f"fraction {frac:.3e}; {ms:.3f} ms/call "
+          f"({RC * RP * RS / ms / 1e3:.1f} Msamples/s); plain four-step "
+          f"engine {plain_ms:.3f} ms/call")
+    check(snr >= MIN_TRANSFORM_DB, f"radar map {snr:.2f} dB")
+    check(all(h == RC for h in hits), f"radar targets detected in {hits} CPIs")
+    check(frac < 5e-3, f"radar detection-cell fraction {frac:.3e}")
+    return launches
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -821,16 +1188,23 @@ def main() -> int:
     from simpledsp_tpu_torch.kernels import _build
     from simpledsp_tpu_torch.kernels import chain as kchain
     from simpledsp_tpu_torch.kernels import conv2d as k2d
+    from simpledsp_tpu_torch.kernels import fft as kfft
     from simpledsp_tpu_torch.kernels import ols as kols
     from simpledsp_tpu_torch.kernels import pfb as kpfb
-    from simpledsp_tpu_torch.models import sdr
+    from simpledsp_tpu_torch.models import radar, sdr
     from simpledsp_tpu_torch.models.northstar import NorthStarChain, default_design
     from simpledsp_tpu_torch.ops import conv, conv2d
+    from simpledsp_tpu_torch.ops import fft as tfft
+    from simpledsp_tpu_torch.ops import spectral as tsp
+    from simpledsp_tpu_torch.ops import transforms as ttr
     from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
     from simpledsp_tpu_torch.ops.fir import OverlapSaveFIR
 
     KERNELS[:] = [kchain.chain_kernel, kpfb.pfb_flat_kernel,
-                  kpfb.pfb_frames_kernel, kols.ols_kernel, k2d.conv2d_kernel]
+                  kpfb.pfb_frames_kernel, kols.ols_kernel, k2d.conv2d_kernel,
+                  kfft.fft_frames_kernel]
+    # The library calls timed beside the kernels run in IEEE float32 too.
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -841,11 +1215,13 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     start = time.perf_counter()
     build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library,
-               kols.ols_kernel.library, k2d.conv2d_kernel.library])
+               kols.ols_kernel.library, k2d.conv2d_kernel.library,
+               kfft.fft_frames_kernel.library])
     secs = _build.build_seconds
     print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, pfb.cu "
-          f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s and "
-          f"conv2d.cu {secs['sdsp_conv2d']:.2f} s in nvcc, "
+          f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s, "
+          f"conv2d.cu {secs['sdsp_conv2d']:.2f} s and fft.cu "
+          f"{secs['sdsp_fft']:.2f} s in nvcc, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
     chain_record = chain_phases(dev, kchain, NorthStarChain, default_design())
@@ -856,35 +1232,45 @@ def main() -> int:
     ols_launches = conv1d_path(dev, kols, conv, OverlapSaveFIR)
     k2 = conv2d_kernel_phase(dev, k2d)
     conv2d_launches = conv2d_path(dev, k2d, conv2d)
-    flat_err, flat_ms, flat_plain = pfb[("flat", "fm_dec")]
-    fr_err, fr_ms, fr_plain = pfb[("frames", "chan")]
-    ols_err, ols_ms, ols_plain = ols[4096]
-    k2_err, k2_ms, k2_plain = k2[(9, 9)]
+    fft_main = fft_kernel_phase(dev, kfft)
+    fft_launches = transform_path(dev, kfft, tfft, ttr, tsp)
+    fft_launches += radar_path(dev, kfft, tfft, radar)
+    flat_err, flat_ms, flat_plain, flat_bound = pfb[("flat", "fm_dec")]
+    fr_err, fr_ms, fr_plain, fr_bound = pfb[("frames", "chan")]
+    ols_err, ols_ms, ols_plain, ols_bound, ols_lib = ols[4096]
+    k2_err, k2_ms, k2_plain, k2_bound, k2_lib = k2[(9, 9)]
     print(smi)
     print(json.dumps({"kernels": [chain_record, {
         "name": "pfb_flat", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/pfb.cu",
         "replaces": "simpledsp_tpu/kernels/pfb.py:298",
         "launches": flat_launches, "max_abs_err": flat_err,
-        "ms": flat_ms, "plain_ms": flat_plain,
+        "ms": flat_ms, "plain_ms": flat_plain, **flat_bound,
+        "library_ms": None,
     }, {
         "name": "pfb_frames", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/pfb.cu",
         "replaces": "simpledsp_tpu/kernels/pfb.py:475",
         "launches": frames_launches, "max_abs_err": fr_err,
-        "ms": fr_ms, "plain_ms": fr_plain,
+        "ms": fr_ms, "plain_ms": fr_plain, **fr_bound, "library_ms": None,
     }, {
         "name": "ols", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/ols.cu",
         "replaces": "simpledsp_tpu/kernels/ols.py:83",
         "launches": ols_launches, "max_abs_err": ols_err,
-        "ms": ols_ms, "plain_ms": ols_plain,
+        "ms": ols_ms, "plain_ms": ols_plain, **ols_bound,
+        "library_ms": ols_lib,
     }, {
         "name": "conv2d", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/conv2d.cu",
         "replaces": "simpledsp_tpu/kernels/conv2d.py:52",
         "launches": conv2d_launches, "max_abs_err": k2_err,
-        "ms": k2_ms, "plain_ms": k2_plain,
+        "ms": k2_ms, "plain_ms": k2_plain, **k2_bound, "library_ms": k2_lib,
+    }, {
+        "name": "fft_frames", "route": "cuda",
+        "source": "simpledsp_tpu_torch/csrc/fft.cu",
+        "replaces": "simpledsp_tpu/kernels/fft.py:79",
+        "launches": fft_launches, **fft_main,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

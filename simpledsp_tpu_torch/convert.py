@@ -20,6 +20,10 @@ and an FIR history (``FIRFilter`` / ``OverlapSaveFIR``; the taps are numpy
 on both sides)::
 
     state = fir_state_from_numpy(np.asarray(jax_fir_state.hist), device="cuda")
+
+The transforms, spectral functions and the radar carry no state: ``CZT`` and
+``ZoomFFT`` are built from the same arguments on both sides, and nothing
+else crosses.
 """
 
 from __future__ import annotations

@@ -15,6 +15,9 @@ Two paths compute the same function:
 
 There is no silent fallback: a CUDA chain that cannot run the kernel raises
 at construction, and a chain asked for CUDA where there is none raises.
+``device=None`` means CUDA (:func:`simpledsp_tpu_torch.device.resolve_device`);
+a CPU caller passes ``device="cpu"``.  The input is moved to the chain's
+device.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign, design_lowpass
+from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.kernels import chain as _kchain
 from simpledsp_tpu_torch.ops.fft import pack_rfft_ri, rfft_ri
 from simpledsp_tpu_torch.ops.iir import BlockIIR, IIRState, iir_init
@@ -56,10 +60,7 @@ class NorthStarChain(nn.Module):
                  use_kernel: Optional[bool] = None,
                  projection: Optional[str] = None):
         super().__init__()
-        device = torch.device(device if device is not None else "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("NorthStarChain(device='cuda'): CUDA is not "
-                               "available")
+        device = resolve_device(device)
         self.design = design or default_design()
         self.fft_size = int(fft_size)
         if self.fft_size % 2:

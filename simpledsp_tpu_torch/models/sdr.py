@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from simpledsp_tpu_torch.design.fir import lowpass_taps
+from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.kernels import pfb as _pfb
 from simpledsp_tpu_torch.ops.channelizer import ChanStateRI, PFBChannelizer
 from simpledsp_tpu_torch.ops.demod import DemodStateRI, am_demod_ri, fm_demod_ri
@@ -65,7 +66,8 @@ class FMReceiverBank(nn.Module):
         designs ("kaiser" or "remez"), as in the JAX package.
       taps, dec_taps: given prototype (length M K) and audio decimator
         taps instead of the designs.
-      dtype, device: compute dtype and device (the kernel takes float32).
+      dtype, device: compute dtype and device (the kernel takes float32);
+        ``device=None`` means CUDA and raises where there is none.
       use_kernel: the fused CUDA kernel path; None means "on a CUDA device".
 
     Call with x: (B, T) complex, or a pair (xr, xi) of float planes, or
@@ -80,10 +82,7 @@ class FMReceiverBank(nn.Module):
                  taps: Optional[np.ndarray] = None,
                  dec_taps: Optional[np.ndarray] = None):
         super().__init__()
-        device = torch.device(device if device is not None else "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"{type(self).__name__}(device='cuda'): CUDA "
-                               f"is not available")
+        device = resolve_device(device)
         self.m = int(num_channels)
         self.fs = float(fs)
         self.decim = int(decim)

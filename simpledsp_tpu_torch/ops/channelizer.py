@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simpledsp_tpu_torch.design.fir import pfb_prototype_taps
+from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.kernels.pfb import PFBOperators
 from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.ops.fir import FIRState, fir_init
@@ -52,6 +53,8 @@ class PFBChannelizer(nn.Module):
         design of ``design.fir.pfb_prototype_taps``, cutoff at half the
         channel spacing).
       dtype: compute dtype (float32 on the card, float64 for parity).
+      device: where the tables live; None means CUDA (``device="cpu"`` for
+        the CPU).
 
     Call with x: (..., T) real or complex, T % M == 0; returns (y, state)
     with y: (..., T//M, M) complex, channel c centred at c fs/M.
@@ -61,6 +64,7 @@ class PFBChannelizer(nn.Module):
                  taps_per_channel: int = 16, dtype=torch.float32,
                  design: str = "kaiser", device=None):
         super().__init__()
+        device = resolve_device(device)
         self.m = int(num_channels)
         if taps is None:
             taps = pfb_prototype_taps(self.m, taps_per_channel,

@@ -12,6 +12,16 @@ matmul against a float64-built table.  Complex values are carried as
 explicit (re, im) planes, so every product is a real matmul, and the
 public boundary matches the JAX package's.  ``torch.fft`` is not used.
 
+On a CUDA tensor, a float32 transform of n = 128 m, 2 <= m <= 128, runs
+the frames FFT kernel (``kernels/fft._fft_frames``, ``csrc/fft.cu``)
+instead: :func:`_use_fused_kernel` is the JAX package's gate with "the
+tensor is on CUDA" for "the backend is a TPU", and ``_FUSED_DISPATCH`` is
+on here, where it is off in the JAX package (on the v5e the fused kernel
+lost to XLA's one batched einsum; on the card the alternative is the plain
+four-step above).  Larger sizes recurse with the inner transform on the
+kernel; float64 and CPU tensors never take it.  Sizes with a prime factor
+above 128 run Bluestein's chirp-z (``ops/transforms.czt_ri``).
+
 The complex-dtype wrappers (:func:`fft`, :func:`ifft`, :func:`rfft`,
 :func:`irfft`, :func:`fft2`, :func:`ifft2`) take and return complex torch
 tensors at the boundary; inside, the planes stay the working form.  The
@@ -81,8 +91,38 @@ def _split(n: int) -> Tuple[int, int]:
     raise ValueError(f"cannot factor N={n} into radices <= {_MAX_DFT}")
 
 
+# Largest host table _table caches on a CUDA device by value: hashing the
+# bytes costs more than the copy beyond this size.
+_CACHE_BYTES = 1 << 18
+
+
 def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    """Host table ``a`` in ``like``'s dtype on its device.  On a CUDA device
+    a table of up to 256 KB is cached by value (a copy from pageable host
+    memory waits for the stream); callers only read the tables.  Larger
+    tables that a caller reuses go through :func:`_cached_table`."""
+    a = np.ascontiguousarray(a)
+    if like.device.type != "cuda" or a.nbytes > _CACHE_BYTES:
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return _device_table(a.tobytes(), a.shape, a.dtype.str, like.dtype,
+                         like.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_table(buf: bytes, shape, np_dtype: str, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    host = np.frombuffer(buf, dtype=np_dtype).reshape(shape).copy()
+    return torch.as_tensor(host, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_table(build, key: tuple, dtype: torch.dtype,
+                  device: torch.device):
+    """The host tables ``build(*key)`` (a tuple of arrays) in ``dtype`` on
+    ``device``, made once per (key, dtype, device): for large tables,
+    which :func:`_table` does not cache."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(h), dtype=dtype,
+                                 device=device) for h in build(*key))
 
 
 def _cmatmul(wr, wi, xr, xi, axis: int):
@@ -100,12 +140,40 @@ def _cmatmul(wr, wi, xr, xi, axis: int):
     return yr, yi
 
 
+# Route this engine through the frames FFT kernel (kernels/fft.py) where
+# _use_fused_kernel admits the transform.  On in the port, off in the JAX
+# package (see the module docstring).
+_FUSED_DISPATCH = True
+
+
+def _use_fused_kernel(n: int, x: torch.Tensor) -> bool:
+    """Route this transform of ``x`` through the frames FFT kernel?
+
+    Requires ``_FUSED_DISPATCH``, a CUDA tensor, float32 and the JAX
+    package's size gate n = 128 m, 2 <= m <= 128 (n <= _MAX_DFT is
+    already one dense matmul)."""
+    if not _FUSED_DISPATCH or x.dtype != torch.float32:
+        return False
+    if n % 128 or not 2 <= n // 128 <= 128:
+        return False
+    return x.device.type == "cuda"
+
+
 def _fft_ri(xr: torch.Tensor, xi: torch.Tensor, inverse: bool):
     """Recursive four-step FFT over the LAST axis on (re, im) planes.
 
     No scaling is applied here (done once at the top level for inverse).
     """
     n = xr.shape[-1]
+
+    if _use_fused_kernel(n, xr):
+        # Every caller built on this engine: rfft/irfft packing, dct,
+        # hilbert, Bluestein's convolutions, istft, the 2-D transforms.
+        from simpledsp_tpu_torch.kernels.fft import _fft_frames
+        lead = xr.shape[:-1]
+        yr, yi = _fft_frames(xr.reshape(-1, n), xi.reshape(-1, n),
+                             inverse=inverse, scale=False)
+        return yr.reshape(lead + (n,)), yi.reshape(lead + (n,))
 
     if n <= _MAX_DFT:
         wr64, wi64 = dft_matrix(n, inverse=inverse)
@@ -114,11 +182,12 @@ def _fft_ri(xr: torch.Tensor, xi: torch.Tensor, inverse: bool):
     try:
         n1, n2 = _split(n)
     except ValueError:
-        # The JAX package runs Bluestein's chirp-z here (ops/transforms.czt_ri),
-        # which the port does not have yet.
-        raise NotImplementedError(
-            f"FFT size {n} has a prime factor above {_MAX_DFT}; it needs the "
-            f"Bluestein (czt_ri) path, which is not ported yet") from None
+        # Sizes with a prime factor above _MAX_DFT: Bluestein's chirp-z over
+        # a power-of-two convolution, unscaled either way like this function.
+        from simpledsp_tpu_torch.ops.transforms import czt_ri
+        sgn = 1.0 if inverse else -1.0
+        return czt_ri(xr, xi, n, w=np.exp(sgn * 2j * np.pi / n),
+                      _exact_denom=n)
     xr = xr.reshape(xr.shape[:-1] + (n1, n2))
     xi = xi.reshape(xi.shape[:-1] + (n1, n2))
 

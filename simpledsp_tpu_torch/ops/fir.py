@@ -19,6 +19,9 @@ four-step FFT (``ops/fft.fft_ri`` / ``ifft_ri``), plain torch as in the
 JAX package (the fused overlap-save kernel is ``kernels/ols.py``, reached
 from ``ops/conv.py``).  :func:`fir_filter` picks between the two.
 
+The filter objects hold their taps on ``device``; ``device=None`` means CUDA
+and raises where there is none (``device="cpu"`` for the CPU).
+
 ``upfirdn``, ``resample``, ``decimate`` and ``resample_poly`` are not
 ported yet.
 """
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.precision import ieee_fp32
 
@@ -65,6 +69,7 @@ class PolyphaseResampler(nn.Module):
         super().__init__()
         if up < 1 or down < 1:
             raise ValueError("up/down must be >= 1")
+        device = resolve_device(device)
         taps = np.asarray(taps, dtype=np.float64)
         if taps.ndim != 1:
             raise ValueError("taps must be 1-D")
@@ -167,6 +172,7 @@ class OverlapSaveFIR(nn.Module):
     def __init__(self, taps: np.ndarray, block_size: int = 1024,
                  dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         taps = np.asarray(taps, dtype=np.float64)
         L = taps.size
         self.num_taps = L

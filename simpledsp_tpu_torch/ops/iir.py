@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign
+from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.precision import ieee_fp32
 
 __all__ = [
@@ -247,6 +248,7 @@ class BlockIIR(nn.Module):
         super().__init__()
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
+        device = resolve_device(device)
         self.design = design
         self.block_size = int(block_size)
         H, Phi, K, F, *_ = block_operators_f64(design, self.block_size)

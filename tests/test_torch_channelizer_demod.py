@@ -21,6 +21,7 @@ TOL = 1e-12
 
 def _pair(m=16, k=8, **kw):
     return (tch.PFBChannelizer(m, taps_per_channel=k, dtype=torch.float64,
+                               device="cpu",
                                **kw),
             jch.PFBChannelizer(m, taps_per_channel=k, dtype=jnp.float64,
                                **kw))
@@ -77,7 +78,8 @@ def test_carrier_lands_in_its_channel(c0):
     """A tone at c0 fs/M comes out of channel c0, the others stay > 60 dB
     below it."""
     m = 16
-    ch = tch.PFBChannelizer(m, taps_per_channel=16, dtype=torch.float64)
+    ch = tch.PFBChannelizer(m, taps_per_channel=16, dtype=torch.float64,
+                            device="cpu")
     n = np.arange(m * 512)
     x = torch.as_tensor(np.exp(2j * np.pi * (c0 / m) * n))
     y, _ = ch(x[None])
@@ -88,7 +90,7 @@ def test_carrier_lands_in_its_channel(c0):
 
 
 def test_rejects_partial_frames():
-    ch = tch.PFBChannelizer(16, dtype=torch.float64)
+    ch = tch.PFBChannelizer(16, dtype=torch.float64, device="cpu")
     z = torch.zeros(1, 20, dtype=torch.float64)
     for call in (ch.process_ri, ch.process_ri_cm):
         with pytest.raises(ValueError, match="multiple of M"):

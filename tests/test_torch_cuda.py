@@ -16,7 +16,11 @@ composable path.  The overlap-save kernel: >= 100 dB SNR against its plain
 version in float64 on the same float32 frames (the JAX package's on-chip
 bar for ``convolve``), and no more than 6 dB below the float32 plain
 version's own SNR.  The conv2d kernel: equal bit for bit to its float32
-plain version.
+plain version.  The frames FFT kernel: >= 120 dB SNR against its plain
+version in float64 on the same float32 frames (the convolution kernel bar)
+and no more than 6 dB below the float32 plain version's own SNR; the paths
+on the engine >= 100 dB against numpy / scipy in float64 (the JAX package's
+on-chip bar for the fused transforms).
 """
 
 import numpy as np
@@ -28,13 +32,18 @@ from simpledsp_tpu_torch.design.biquad import sos_matrix
 from simpledsp_tpu_torch.design.fir import lowpass_taps
 from simpledsp_tpu_torch.kernels import chain as tchain
 from simpledsp_tpu_torch.kernels import conv2d as tk2d
+from simpledsp_tpu_torch.kernels import fft as tkfft
 from simpledsp_tpu_torch.kernels import ols as tols
 from simpledsp_tpu_torch.kernels import pfb as tpfb
 from simpledsp_tpu_torch.kernels.fft import _best_split
+from simpledsp_tpu_torch.models import radar as trd
 from simpledsp_tpu_torch.models import sdr as tsdr
 from simpledsp_tpu_torch.models.northstar import NorthStarChain, default_design
 from simpledsp_tpu_torch.ops import conv as tconv
 from simpledsp_tpu_torch.ops import conv2d as tconv2d
+from simpledsp_tpu_torch.ops import fft as tfft
+from simpledsp_tpu_torch.ops import spectral as tsp
+from simpledsp_tpu_torch.ops import transforms as ttr
 from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
 from simpledsp_tpu_torch.ops.fir import OverlapSaveFIR
 
@@ -325,3 +334,124 @@ def test_overlap_save_fir_streams_bit_exact_on_the_card(cuda_device):
     a, st = ols(x[:, : 3 * 4096])
     b, _ = ols(x[:, 3 * 4096:], st)
     assert torch.equal(torch.cat([a, b], -1), whole)
+
+
+def _frames_snr(got, ref):
+    return _snr_db(ref, got)
+
+
+@pytest.mark.parametrize("n", [1, 6, 64, 100, 256, 384, 1152, 4096, 8192,
+                               16384, 16256])
+@pytest.mark.parametrize("form", ["forward", "inverse", "real"])
+def test_fft_frames_kernel_matches_plain_version(n, form, cuda_device):
+    rng = np.random.default_rng(n)
+    f = max(3, (1 << 16) // n)
+    xr, xi = (torch.as_tensor(rng.standard_normal((f, n)), dtype=torch.float32,
+                              device=cuda_device) for _ in range(2))
+    if form == "real":
+        xi = None
+    inverse = form == "inverse"
+    launches = tkfft.fft_frames_kernel.launches
+    got = tkfft._fft_frames(xr, xi, inverse=inverse)
+    torch.cuda.synchronize()
+    assert tkfft.fft_frames_kernel.launches == launches + 1
+    s = 1.0 / n if inverse else 1.0
+    ref64 = [v * s for v in tkfft.fft_frames_reference(
+        xr.double(), None if xi is None else xi.double(), inverse=inverse)]
+    ref32 = [v * s for v in tkfft.fft_frames_reference(xr, xi,
+                                                       inverse=inverse)]
+    snr = _frames_snr(got, ref64)
+    assert snr >= 120.0 and snr >= _frames_snr(ref32, ref64) - 6.0, snr
+
+
+def test_fft_frames_kernel_reads_strided_planes(cuda_device):
+    """rfft_ri's even / odd views are read in place: the same bits as their
+    contiguous copies, with no copy made by the wrapper."""
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((64, 8192)),
+                        dtype=torch.float32, device=cuda_device)
+    ev, od = x[:, 0::2], x[:, 1::2]
+    got = tkfft._fft_frames(ev, od, inverse=False)
+    want = tkfft._fft_frames(ev.contiguous(), od.contiguous(), inverse=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    cols = x.t()[:256]                     # elements 8192 apart
+    got = tkfft._fft_frames(cols, None, inverse=True, scale=False)
+    want = tkfft._fft_frames(cols.contiguous(), None, inverse=True,
+                             scale=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fft_frames_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tkfft.fft_frames_kernel(x.double(), None, inverse=False, scale=False)
+    with pytest.raises(ValueError, match="131"):
+        tkfft._fft_frames(torch.zeros(4, 131, device=cuda_device), None,
+                          inverse=False)
+    with pytest.raises(ValueError, match="shape"):
+        tkfft.fft_frames_kernel(x, x[:2], inverse=False, scale=False)
+    with pytest.raises(ValueError, match="float32"):
+        tkfft.fft_frames_kernel(x, x.cpu(), inverse=False, scale=False)
+
+
+def test_engine_paths_launch_the_frames_kernel(cuda_device):
+    """fft / ifft / rfft / irfft, Bluestein, dct, the analytic signal, the
+    stft / istft engine route and the radar map launch the kernel as many
+    times as the code implies, and hold >= 100 dB against numpy / scipy;
+    float64 never launches it."""
+    import scipy.fft as sfft
+    rng = np.random.default_rng(21)
+    x64 = rng.standard_normal((4, 8192))
+    x = torch.as_tensor(x64, dtype=torch.float32, device=cuda_device)
+    xq = x.double().cpu().numpy()
+    z = torch.zeros_like(x)
+
+    def runs(fn):
+        before = tkfft.fft_frames_kernel.launches
+        out = fn()
+        return out, tkfft.fft_frames_kernel.launches - before
+
+    def cplx(pair):
+        return (pair[0].double().cpu().numpy()
+                + 1j * pair[1].double().cpu().numpy())
+
+    cases = [
+        (lambda: tfft.fft_ri(x, z), 1, lambda o: cplx(o),
+         lambda: np.fft.fft(xq)),
+        (lambda: tfft.ifft_ri(x, z), 1, lambda o: cplx(o),
+         lambda: np.fft.ifft(xq)),
+        (lambda: tfft.rfft_ri(x), 1, lambda o: cplx(o),
+         lambda: np.fft.rfft(xq)),
+        (lambda: tfft.irfft_ri(*tfft.rfft_ri(x)), 2,
+         lambda o: o.double().cpu().numpy(), lambda: xq),
+        (lambda: tfft.fft_ri(x[:, :4099], z[:, :4099]), 2, lambda o: cplx(o),
+         lambda: np.fft.fft(xq[:, :4099])),
+        (lambda: ttr.dct(x[:, :4096], 2, norm="ortho"), 1,
+         lambda o: o.double().cpu().numpy(),
+         lambda: sfft.dct(xq[:, :4096], 2, norm="ortho")),
+        (lambda: ttr.analytic_ri(x[:, :4096]), 2, lambda o: cplx(o),
+         lambda: sig.hilbert(xq[:, :4096], axis=-1)),
+        (lambda: tsp.stft_ri(x, 4096, hop=2048), 1, lambda o: cplx(o),
+         lambda: np.fft.rfft(
+             np.lib.stride_tricks.sliding_window_view(xq, 4096, -1)[:, ::2048]
+             * tsp.window_taps("hann", 4096))),
+    ]
+    for i, (fn, want, get, oracle) in enumerate(cases):
+        out, n = runs(fn)
+        assert n == want, (i, n, want)
+        got, ref = get(out), oracle()
+        assert got.shape == ref.shape, i
+        err = np.abs(got - ref) ** 2
+        assert 10 * np.log10((np.abs(ref) ** 2).sum() / err.sum()) >= 100.0, i
+    sr, si = tsp.stft_ri(x, 4096, hop=2048)
+    y, n = runs(lambda: tsp.istft_ri(sr, si, 4096, hop=2048))
+    assert n == 1
+    inner = slice(2048, y.shape[-1] - 2048)
+    err = ((y[:, inner].double().cpu().numpy() - xq[:, inner]) ** 2).sum()
+    assert 10 * np.log10((xq[:, inner] ** 2).sum() / err) >= 100.0
+    _, n = runs(lambda: tfft.fft_ri(x.double(), z.double()))
+    assert n == 0
+    tx = trd.lfm_chirp(64, 0.8)
+    p = torch.as_tensor(rng.standard_normal((2, 256, 512)), dtype=torch.float32,
+                        device=cuda_device)
+    _, n = runs(lambda: trd.range_doppler_map(p, p, *tx))
+    assert n == 3

@@ -95,13 +95,138 @@ def test_radix_gates_raise_as_in_jax(entry, n):
                              torch.zeros(n, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("n,factor", [(257, 257), (262, 131), (524, 131)])
-def test_prime_factor_above_128_not_ported(n, factor):
-    """The JAX package runs Bluestein's chirp-z for these sizes; the port
-    raises, naming the size it cannot factor, until czt_ri is ported."""
-    x = torch.zeros(1, n, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=f"size {factor} "):
-        tfft.fft_ri(x, x)
+@pytest.mark.parametrize("n,factor", [(257, 257), (262, 131), (524, 131),
+                                      (1031, 1031), (4099, 4099)])
+def test_prime_factor_above_128_not_ported(n, factor, rng):
+    """Sizes with a prime factor above 128 (``factor``) run Bluestein's
+    chirp-z (``ops/transforms.czt_ri``), as in the JAX package: forward
+    and inverse against JAX and numpy."""
+    assert n % factor == 0 and tkfft._best_split(factor) is None
+    xr, xi = rng.standard_normal((2, 2, n))
+    yr, yi = tfft.fft_ri(_t(xr), _t(xi))
+    jr, ji = jfft.fft_ri(jnp.asarray(xr), jnp.asarray(xi))
+    ref = np.fft.fft(xr + 1j * xi)
+    for got, want in ((yr, jr), (yi, ji), (yr, ref.real), (yi, ref.imag)):
+        _close(got.numpy(), want)
+    br, bi = tfft.ifft_ri(yr, yi)
+    _close(br.numpy() + 1j * bi.numpy(), xr + 1j * xi)
+
+
+# -- the frames FFT (kernels/fft.py): plain version against the JAX kernel in
+# interpret mode, at tests/test_kernels.py's sizes plus 100 and 384, float64,
+# atol n 1e-13 as that file holds the JAX kernel to numpy.
+
+FRAME_SIZES = [64, 100, 256, 384, 1024, 4096]
+
+
+@pytest.mark.parametrize("n", FRAME_SIZES)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_frames_ri_matches_jax_kernel(n, inverse, rng):
+    xr, xi = rng.standard_normal((2, 5, n))
+    yr, yi = tkfft.fft_frames_ri(_t(xr), _t(xi), inverse=inverse)
+    jr, ji = jkfft.fft_frames_ri(jnp.asarray(xr), jnp.asarray(xi),
+                                 inverse=inverse, interpret=True)
+    ref = (np.fft.ifft if inverse else np.fft.fft)(xr + 1j * xi)
+    for got, want in ((yr, jr), (yi, ji), (yr, ref.real), (yi, ref.imag)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=n * 1e-13)
+
+
+@pytest.mark.parametrize("n", FRAME_SIZES)
+def test_rfft_frames_matches_jax_kernel(n, rng):
+    x = rng.standard_normal((2, 5, n))
+    yr, yi = tkfft.rfft_frames(_t(x))
+    jr, ji = jkfft.rfft_frames(jnp.asarray(x), interpret=True)
+    ref = np.fft.fft(x)
+    assert yr.shape == x.shape
+    for got, want in ((yr, jr), (yi, ji), (yr, ref.real), (yi, ref.imag)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=n * 1e-13)
+
+
+@pytest.mark.parametrize("n", [64, 384, 4096])
+def test_fft_frames_unscaled_and_strided(n, rng):
+    """``scale=False`` leaves the inverse unscaled; the even/odd strided
+    views rfft_ri hands the engine give the same bins as copies."""
+    x = rng.standard_normal((3, 2 * n))
+    xt = _t(x)
+    yr, yi = tkfft._fft_frames(xt[:, 0::2], xt[:, 1::2], inverse=True,
+                               scale=False)
+    ref = np.fft.ifft(x[:, 0::2] + 1j * x[:, 1::2]) * n
+    np.testing.assert_allclose(yr.numpy(), ref.real, rtol=0, atol=n * 1e-13)
+    np.testing.assert_allclose(yi.numpy(), ref.imag, rtol=0, atol=n * 1e-13)
+
+
+def test_fft_frames_rejects_what_it_cannot_run():
+    z = torch.zeros(2, 131, dtype=torch.float64)
+    with pytest.raises(ValueError, match="131"):
+        tkfft._fft_frames(z, z, inverse=False)
+    z = torch.zeros(2, 64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="HIGHEST"):
+        tkfft.fft_frames_ri(z, z, precision="default")
+    with pytest.raises(ValueError, match="frames_per_tile"):
+        tkfft.rfft_frames(z, frames_per_tile=0)
+    with pytest.raises(ValueError, match=r"\(F, N\)"):
+        tkfft._fft_frames(z[None], None, inverse=False)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 64, 100, 127, 384, 1152, 4096,
+                               16256, 16384])
+def test_kernel_plan_and_table_compute_the_dft(n, rng):
+    """``csrc/fft.cu``'s pass plan and twiddle / small-DFT table, walked in
+    numpy in the kernel's Stockham order, give numpy's DFT."""
+    tab = tkfft._kernel_table_f64(n)
+    tab = tab[:, 0] + 1j * tab[:, 1]
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    s, ns, off = x.copy(), 1, 0
+    assert int(np.prod(tkfft._plan(n))) == n
+    for r in tkfft._plan(n):
+        tw = tab[off: off + (r - 1) * ns]
+        off += (r - 1) * ns
+        q = n // r
+        j = np.arange(q)
+        k = j % ns
+        v = np.stack([s[j + i * q] for i in range(r)])
+        for i in range(1, r):
+            v[i] = v[i] * tw[(i - 1) * ns + k]
+        if r in (2, 4):
+            d = np.fft.fft(v, axis=0)
+        else:
+            w = tab[off: off + r]
+            off += r
+            d = w[np.outer(np.arange(r), np.arange(r)) % r] @ v
+        out = np.empty_like(s)
+        for m in range(r):
+            out[(j - k) * r + k + m * ns] = d[m]
+        s, ns = out, ns * r
+    assert off == len(tab)
+    _close(s, np.fft.fft(x))
+
+
+@pytest.mark.parametrize("n", [128, 256, 384, 4096, 16384, 16512, 32768])
+def test_dispatch_gate(n):
+    """The kernel gate is the JAX package's size gate (n = 128 m,
+    2 <= m <= 128), float32 and a CUDA tensor: no CPU or float64 tensor
+    is admitted."""
+    for dtype in (torch.float32, torch.float64):
+        assert not tfft._use_fused_kernel(n, torch.zeros(1, dtype=dtype))
+    meta = torch.empty(1, dtype=torch.float32, device="meta")
+    assert not tfft._use_fused_kernel(n, meta)
+    assert tfft._FUSED_DISPATCH
+
+
+@pytest.mark.parametrize("n", [256, 4096, 32768])
+def test_cpu_float32_never_reaches_the_kernel(n, rng, monkeypatch):
+    """CPU tensors take the plain four-step, never the wrapper's CUDA
+    branch, also at the sizes the kernel takes on the card."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA frames kernel was called")
+    monkeypatch.setattr(tkfft, "fft_frames_kernel", refuse)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    yr, yi = tfft.fft_ri(_t(x), torch.zeros(2, n))
+    ref = np.fft.fft(x.astype(np.float64))
+    scale = np.abs(ref).max()
+    assert np.abs(yr.numpy() + 1j * yi.numpy() - ref).max() < 1e-5 * scale
 
 
 @pytest.mark.parametrize("n", [8, 9, 128, 1000, 1024, 4096, 16384, 32768])

@@ -77,7 +77,8 @@ CASES = [(1, 1, 31), (1, 4, 64), (3, 1, 24), (3, 2, 24), (2, 3, 40)]
 def test_resampler_matches_jax_and_upfirdn(up, down, ntaps, rng):
     h = rng.standard_normal(ntaps)
     x = rng.standard_normal((2, 3, 60 * down))
-    y, st = tops.PolyphaseResampler(h, up, down, dtype=torch.float64)(
+    y, st = tops.PolyphaseResampler(h, up, down, dtype=torch.float64,
+                                    device="cpu")(
         torch.as_tensor(x))
     jy, jst = jops.PolyphaseResampler(h, up, down, dtype=jnp.float64)(
         jnp.asarray(x))
@@ -96,7 +97,8 @@ def test_wrappers_match_jax(cls, arg, rng):
     jcls = getattr(jops, cls.__name__)
     args = (h,) if arg is None else (h, arg)
     x = rng.standard_normal((4, 96))
-    ours, _ = cls(*args, dtype=torch.float64)(torch.as_tensor(x))
+    ours, _ = cls(*args, dtype=torch.float64, device="cpu")(
+        torch.as_tensor(x))
     theirs, _ = jcls(*args, dtype=jnp.float64)(jnp.asarray(x))
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0,
                                atol=1e-12)
@@ -107,7 +109,8 @@ def test_blockwise_equals_whole(up, down, rng):
     """Streaming at multiples of ``down`` equals one call (1e-12)."""
     h = rng.standard_normal(37)
     x = torch.as_tensor(rng.standard_normal((2, 48 * down)))
-    rs = tops.PolyphaseResampler(h, up, down, dtype=torch.float64)
+    rs = tops.PolyphaseResampler(h, up, down, dtype=torch.float64,
+                                 device="cpu")
     whole, _ = rs(x)
     parts, st = [], None
     for lo, hi in ((0, 5 * down), (5 * down, 30 * down), (30 * down, 48 * down)):
@@ -119,8 +122,9 @@ def test_blockwise_equals_whole(up, down, rng):
 
 def test_rejects_bad_arguments():
     with pytest.raises(ValueError, match="up/down"):
-        tops.PolyphaseResampler(np.ones(4), 0, 1)
+        tops.PolyphaseResampler(np.ones(4), 0, 1, device="cpu")
     with pytest.raises(ValueError, match="1-D"):
-        tops.PolyphaseResampler(np.ones((2, 2)))
+        tops.PolyphaseResampler(np.ones((2, 2)), device="cpu")
     with pytest.raises(ValueError, match="multiple of down"):
-        tops.PolyphaseDecimator(np.ones(8), 4)(torch.zeros(1, 10))
+        tops.PolyphaseDecimator(np.ones(8), 4, device="cpu")(
+            torch.zeros(1, 10))

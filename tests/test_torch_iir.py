@@ -70,12 +70,13 @@ def test_block_iir_matches_jax_and_scipy(name, rng):
     jd, td = _designs(name)
     x = rng.standard_normal((2, 4096))
     # Cold start against scipy.
-    y, _ = tiir.BlockIIR(td, 256, dtype=torch.float64)(torch.as_tensor(x))
+    y, _ = tiir.BlockIIR(td, 256, dtype=torch.float64, device="cpu")(
+        torch.as_tensor(x))
     ref = sig.sosfilt(jbq.sos_matrix(jd), x, axis=-1)
     np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=TOL)
     # Warm start against JAX, state crossing through convert.
     s0 = _warm_state(jd, rng)
-    y_t, st_t = tiir.BlockIIR(td, 256, dtype=torch.float64)(
+    y_t, st_t = tiir.BlockIIR(td, 256, dtype=torch.float64, device="cpu")(
         torch.as_tensor(x), state_from_numpy(s0, dtype=torch.float64))
     y_j, st_j = jiir.BlockIIR(jd, 256, dtype=jnp.float64)(
         jnp.asarray(x), jiir.IIRState(jnp.asarray(s0)))
@@ -117,7 +118,8 @@ def test_blocks_of_32_equal_whole_signal(method, rng):
         def run(seg, st):
             return tiir.sosfilt_scan(coeffs, seg, st)
     else:
-        f = tiir.BlockIIR(td, block_size=32, dtype=torch.float64)
+        f = tiir.BlockIIR(td, block_size=32, dtype=torch.float64,
+                          device="cpu")
 
         def run(seg, st):
             return f(seg, st)
@@ -142,7 +144,8 @@ def test_block_iir_ragged_tail_matches_scan(rng):
     """T not a multiple of block_size: the tail runs through the scan."""
     jd, td = _designs("lowpass")
     x = rng.standard_normal((3, 1000))
-    y, st = tiir.BlockIIR(td, 256, dtype=torch.float64)(torch.as_tensor(x))
+    y, st = tiir.BlockIIR(td, 256, dtype=torch.float64, device="cpu")(
+        torch.as_tensor(x))
     y_j, st_j = jiir.BlockIIR(jd, 256, dtype=jnp.float64)(jnp.asarray(x))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=0, atol=TOL)
     np.testing.assert_allclose(st.y_hist.numpy(), np.asarray(st_j.y_hist),
@@ -175,7 +178,7 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError):
         tiir.sosfilt(td, torch.zeros(2, 64), method="fast")
     with pytest.raises(ValueError):
-        tiir.BlockIIR(td, block_size=0)
+        tiir.BlockIIR(td, block_size=0, device="cpu")
     with pytest.raises(ValueError):
         state_from_numpy(np.zeros((2, 5, 3)))
     with pytest.raises(ValueError):

@@ -43,7 +43,7 @@ def _chain(use_kernel, **kw):
     jd = jns.default_design()
     design = design_from_numpy(jd.b, jd.a, jd.gain, jd.ftype, jd.f0, jd.fs,
                                jd.q)
-    return NorthStarChain(design=design, dtype=torch.float64,
+    return NorthStarChain(design=design, dtype=torch.float64, device="cpu",
                           use_kernel=use_kernel, **kw)
 
 
@@ -154,9 +154,9 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="pre-framed"):
         _chain(False)(torch.zeros(1, 2, 32, 128, dtype=torch.float64))
     with pytest.raises(ValueError, match="even"):
-        NorthStarChain(fft_size=4095)
+        NorthStarChain(fft_size=4095, device="cpu")
     with pytest.raises(ValueError, match="32768"):
-        NorthStarChain(fft_size=32768, use_kernel=True)
+        NorthStarChain(fft_size=32768, use_kernel=True, device="cpu")
 
 
 def test_cuda_device_raises_without_cuda():
@@ -186,6 +186,11 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.ops.conv\n"
             "import simpledsp_tpu_torch.ops.conv2d\n"
             "import simpledsp_tpu_torch.ops.fir\n"
+            "import simpledsp_tpu_torch.device\n"
+            "import simpledsp_tpu_torch.kernels.fft\n"
+            "import simpledsp_tpu_torch.ops.transforms\n"
+            "import simpledsp_tpu_torch.ops.spectral\n"
+            "import simpledsp_tpu_torch.models.radar\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
             "assert not bad, bad\n")
@@ -202,11 +207,13 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
             "import simpledsp_tpu_torch.kernels.pfb as kp\n"
             "import simpledsp_tpu_torch.kernels.ols as ko\n"
             "import simpledsp_tpu_torch.kernels.conv2d as k2\n"
+            "import simpledsp_tpu_torch.kernels.fft as kf\n"
             "from simpledsp_tpu_torch.kernels import _build\n"
             "assert kc.chain_kernel.launches == 0\n"
             "assert kp.pfb_flat_kernel.launches == 0\n"
             "assert ko.ols_kernel.launches == 0\n"
             "assert k2.conv2d_kernel.launches == 0\n"
+            "assert kf.fft_frames_kernel.launches == 0\n"
             "try:\n"
             "    _build._nvcc()\n"
             "except RuntimeError as e:\n"

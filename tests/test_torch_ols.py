@@ -128,7 +128,8 @@ def test_overlap_save_fir_matches_jax_chained(m, block, rng):
     (1e-12) and against one call over all three (equal bits)."""
     h = rng.standard_normal(m)
     x = rng.standard_normal((2, 3, 6 * block))
-    ours = tfir.OverlapSaveFIR(h, block_size=block, dtype=torch.float64)
+    ours = tfir.OverlapSaveFIR(h, block_size=block, dtype=torch.float64,
+                               device="cpu")
     theirs = jfir.OverlapSaveFIR(h, block_size=block, dtype=jnp.float64)
     assert ours.nfft == theirs.nfft
     st = jst = None
@@ -146,7 +147,8 @@ def test_overlap_save_fir_matches_jax_chained(m, block, rng):
 
 def test_overlap_save_fir_rejects_ragged_block():
     with pytest.raises(ValueError, match="multiple of 256"):
-        tfir.OverlapSaveFIR(np.ones(9), block_size=256)(torch.zeros(1, 300))
+        tfir.OverlapSaveFIR(np.ones(9), block_size=256, device="cpu")(
+            torch.zeros(1, 300))
 
 
 @pytest.mark.parametrize("method,m,t", [("auto", 129, 2048), ("auto", 33, 2048),
@@ -175,7 +177,8 @@ def test_state_carried_from_jax_continues_the_jax_stream(rng):
     jy, jst2 = jols_fir(jnp.asarray(x[:, 1024:]), jst)
     st = convert.fir_state_from_numpy(np.asarray(jst.hist),
                                       dtype=torch.float64)
-    y, st2 = tfir.OverlapSaveFIR(h, block_size=512, dtype=torch.float64)(
+    y, st2 = tfir.OverlapSaveFIR(h, block_size=512, dtype=torch.float64,
+                                  device="cpu")(
         torch.as_tensor(x[:, 1024:]), st)
     _close(y.numpy(), jy)
     back = convert.fir_state_to_numpy(st2)

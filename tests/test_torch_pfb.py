@@ -28,7 +28,7 @@ TOL = 1e-10
 def _ops(m, k, dtype=torch.float64):
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
     jch = JChannelizer(m, taps_per_channel=k, dtype=jdt)
-    tch = PFBChannelizer(m, taps_per_channel=k, dtype=dtype)
+    tch = PFBChannelizer(m, taps_per_channel=k, dtype=dtype, device="cpu")
     return jch, tch
 
 

@@ -44,7 +44,8 @@ def _bank(kind, remove_dc, use_kernel, **kw):
     if kind == "am":
         kw["remove_dc"] = remove_dc
     cls = tsdr.FMReceiverBank if kind == "fm" else tsdr.AMReceiverBank
-    return cls(16, fs=FS, dtype=torch.float64, use_kernel=use_kernel, **kw)
+    return cls(16, fs=FS, dtype=torch.float64, device="cpu",
+               use_kernel=use_kernel, **kw)
 
 
 def _iq(rng, t, b=2):
@@ -64,7 +65,8 @@ def _jax_state_arrays(st):
 def test_default_designs_equal_jax_bitwise(design):
     jb = jsdr.FMReceiverBank(16, fs=FS, dtype=jnp.float64, use_pallas=False,
                              design=design)
-    tb = tsdr.FMReceiverBank(16, fs=FS, dtype=torch.float64, design=design)
+    tb = tsdr.FMReceiverBank(16, fs=FS, dtype=torch.float64, device="cpu",
+                             design=design)
     np.testing.assert_array_equal(tb.chan._branch, jb.chan._branch)
     np.testing.assert_array_equal(tb._ataps, jb._ataps)
     assert tb.fm_gain == jb.fm_gain
@@ -182,13 +184,15 @@ def test_rejects_what_it_cannot_run():
     call length that is not a multiple of M decim, and CUDA where there is
     none all raise."""
     with pytest.raises(ValueError, match="M \\| 128"):
-        tsdr.FMReceiverBank(12, fs=FS, dtype=torch.float64, use_kernel=True)
+        tsdr.FMReceiverBank(12, fs=FS, dtype=torch.float64, device="cpu",
+                            use_kernel=True)
     with pytest.raises(ValueError, match="K <= 32"):
-        tsdr.AMReceiverBank(16, fs=FS, taps_per_channel=40, use_kernel=True)
+        tsdr.AMReceiverBank(16, fs=FS, taps_per_channel=40, use_kernel=True,
+                            device="cpu")
     bank = _bank("fm", None, True)
     with pytest.raises(ValueError, match="M\\*decim"):
         bank(np.zeros((1, 16 * 3), np.complex128))
-    assert not tsdr.FMReceiverBank(12, fs=FS).use_kernel
+    assert not tsdr.FMReceiverBank(12, fs=FS, device="cpu").use_kernel
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device='cuda' is valid here")
     for cls in (tsdr.FMReceiverBank, tsdr.AMReceiverBank):
