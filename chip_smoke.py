@@ -1,16 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 checks each against its plain version, drives the north-star chain, both
 SDR receiver banks, the 1-D and 2-D convolution paths, the spectral
-transforms and the pulse-Doppler radar end to end, and times them.
+transforms, the pulse-Doppler radar and the chain's full spectrum and
+layouts end to end, and times them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero before the result line):
 
 1. Device: a CUDA device is required; prints the card's name and power limit.
-2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``pfb.cu``,
-   ``ols.cu``, ``conv2d.cu`` and ``fft.cu`` into ``build/``, one nvcc for
-   each, started together.
+2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``chain_tc.cu``,
+   ``pfb.cu``, ``ols.cu``, ``conv2d.cu`` and ``fft.cu`` into ``build/``, one
+   nvcc for each, started together.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -110,6 +111,25 @@ Phases (any failure exits nonzero before the result line):
     launches a call (8192-point forward and inverse, 256-point Doppler).
     ms/call, and with the kernel routing off.
     Phases 14-16 time windows of 10 back-to-back calls (3 for the radar).
+17. The rest of the chain kernel family against its float64 plain versions
+    on the frames and starts of 16 x 2^20 float32 noise (seed 17): the
+    full-spectrum kernel at N = 1000 (odd n2), 1024, 4096, 16384 against
+    ``chain_frames_full_reference``, and every half-spectrum layout (reg,
+    k1, regs, regw, reg2, reg4, regp, fmajor, pair) at N = 200, 1024, 4096,
+    16384 through its wrapper against ``chain_frames_reference``: >= 130 dB,
+    finite.  Kernel and float32 plain ms (median of 5 / 3), the group size
+    g of the grouped layouts, and the bound.
+18. Full-spectrum main path: ``fused_chain_frames(ops, x, s0)`` with its
+    defaults (``FusedNorthStarOperators`` built with no device: CUDA) at
+    N = 4096 on 64 x 2^20 float32 samples a call, 4 calls with the state
+    chained: one full-spectrum launch a call and no other chain launch;
+    channels 0-1 of call 0 and the channel-0 spectra of calls 0-1 >= 130
+    dB against float64 scipy ``sosfilt`` + numpy ``fft``.  ms/call beside
+    ``NorthStarChain``'s half-spectrum ms/call from phase 5.
+19. Layout path: ``fused_chain_frames(..., half_spectrum=True, layout=L)``
+    on call 0 for L = regs, regw, fmajor, reg2, reg4, regp, pair: one
+    launch of L's kernel a call, channels 0-1 >= 130 dB against the packed
+    float64 oracle; ms/call for regs, regw, reg2 and pair.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -117,6 +137,11 @@ operations over 67 TFLOP/s (float32 outside the tensor cores; an FFT counts
 5 N log2 N a complex frame), the H100 SXM data sheet's peaks; and the time
 of one PyTorch call that computes the same function (``F.conv1d`` /
 ``F.conv2d`` with TF32 off, ``torch.fft.fft``), or null where there is none.
+
+The chain family's records (chain_full, chain_regs, chain_grouped with the
+"reg2" numbers, chain_store with the "regw" numbers) take ms, plain ms,
+error and bound from phase 17 at N = 4096 and launches from phases 18-19;
+like the chain, they have no library call (the function carries state).
 
 The line before the last is a JSON object with the kernels' records; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -278,7 +303,8 @@ def carriers(b, m, t0, t, dev, seed=0):
 # -- the chain ---------------------------------------------------------------
 
 def chain_phases(dev, kchain, NorthStarChain, design):
-    """Phases 3-5; returns the chain kernel's record."""
+    """Phases 3-5; returns the chain kernel's record and the main path's
+    ms/call."""
     # The prepass runs in IEEE float32 whatever the caller set: with TF32
     # enabled it gives the same starts bit for bit, and the flag survives.
     ops = kchain.FusedNorthStarOperators(design, MAIN_N, device=dev)
@@ -323,12 +349,7 @@ def chain_phases(dev, kchain, NorthStarChain, design):
         plain_ms = median_ms(lambda: kchain.chain_frames_reference(x3, s3, tabs))
         per_size[n] = dict(snr=snr, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
         if n == MAIN_N:
-            # IIR: the lower-triangular block product and the state term
-            # (n2 + 1 + 2 D flops a sample); the real FFT 2.5 N log2 N a frame.
-            nf3, _, n2_, d3 = *x3.shape, s3.shape[1]
-            per_size[n].update(bound(
-                nbytes(x3, s3, tabs, kr, ki),
-                x3.numel() * (n2_ + 1 + 2 * d3) + nf3 * 2.5 * n * np.log2(n)))
+            per_size[n].update(chain_bound(x3, s3, tabs, (kr, ki), n))
         print(f"kernel N={n} ({ops.n1} x {ops.n2}) frames={x3.shape[0]}: "
               f"{snr:.2f} dB vs float64 plain (float32 plain {plain_snr:.2f} "
               f"dB), max |err| {max_err:.3e}; kernel {ms:.3f} ms, plain "
@@ -408,7 +429,7 @@ def chain_phases(dev, kchain, NorthStarChain, design):
             "launches": launches, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None}
+            "library_ms": None}, chain_ms
 
 
 # -- the PFB kernels and the receiver banks ---------------------------------
@@ -1159,6 +1180,235 @@ def radar_path(dev, kfft, tfft, radar):
     return launches
 
 
+# -- the rest of the chain kernel family ----------------------------------------
+
+FULL_SIZES = (1000, 1024, 4096, 16384)
+LAYOUT_SIZES = (200, 1024, 4096, 16384)
+FAMILY_C = 16               # channels of T samples per size in phase 17
+# (record name, form timed in phase 17, source, TPU kernel replaced)
+FAMILY_RECORDS = (
+    ("chain_full", "full", "chain.cu", "simpledsp_tpu/kernels/chain.py:425"),
+    ("chain_regs", "regs", "chain_tc.cu",
+     "simpledsp_tpu/kernels/chain_variants.py:67"),
+    ("chain_grouped", "reg2", "chain.cu",
+     "simpledsp_tpu/kernels/chain_variants.py:227"),
+    ("chain_store", "regw", "chain.cu",
+     "simpledsp_tpu/kernels/chain_variants.py:144"),
+)
+
+
+def chain_bound(x3, s3, tabs, outs, n) -> dict:
+    """The chain's bound: its inputs, tables and output planes once; the IIR
+    (n2 + 1 + 2 D flops a sample) and the real FFT (2.5 N log2 N a frame)."""
+    nf, _, n2 = x3.shape
+    return bound(nbytes(x3, s3, tabs, outs),
+                 x3.numel() * (n2 + 1 + 2 * s3.shape[1])
+                 + nf * 2.5 * n * np.log2(n))
+
+
+def natural(planes):
+    """(F, n1, n2/2) k1-major rows ("fmajor") as (F, N/2) natural order."""
+    return tuple(p.transpose(1, 2).reshape(p.shape[0], -1) if p.dim() == 3
+                 else p for p in planes)
+
+
+def chain_family_phase(dev, kchain, kcv, design):
+    """Phase 17; returns {(form, n): numbers}: form "full" or a layout."""
+    rng = np.random.default_rng(17)
+    x_noise = torch.as_tensor(rng.standard_normal((FAMILY_C, T),
+                                                  dtype=np.float32), device=dev)
+    results = {}
+    for n in sorted(set(FULL_SIZES + LAYOUT_SIZES)):
+        ops = kchain.FusedNorthStarOperators(design, n, device=dev)
+        s0 = torch.zeros(FAMILY_C, ops.state_dim, device=dev)
+        x3, s3, _ = kchain.chain_prepass(
+            ops, x_noise[:, : T - T % n].contiguous(), s0)
+        x64, s64 = x3.double(), s3.double()
+        tabs = ops.tables()
+        ftabs = ops.tables(full=True)
+        # (form, tables, kernel run, float32 plain run, float64 plain run)
+        cases = []
+        if n in FULL_SIZES:
+            cases.append((
+                "full", ftabs, lambda: kchain.chain_frames_full(x3, s3, ftabs),
+                lambda: kchain.chain_frames_full_reference(x3, s3, ftabs),
+                lambda: kchain.chain_frames_full_reference(
+                    x64, s64, kchain.ChainTables(*(t.double() for t in ftabs)))))
+        groups = {}
+        if n in LAYOUT_SIZES:
+            r = kchain._tile_frames(x3.shape[0], n, 4, 64)
+
+            def half64():
+                return kchain.chain_frames_reference(
+                    x64, s64, kchain.ChainTables(*(t.double() for t in tabs)))
+
+            def plain():
+                return kchain.chain_frames_reference(x3, s3, tabs)
+
+            for layout in kchain.LAYOUTS:
+                own_plain = plain
+                if layout in ("reg", "k1"):
+                    def run():
+                        return kchain.chain_frames(x3, s3, tabs)
+                elif layout == "regs":
+                    def run():
+                        return kcv.chain_frames_regs(x3, s3, tabs)
+
+                    def own_plain():
+                        return kcv.chain_frames_regs_reference(x3, s3, tabs)
+                elif layout in ("regw", "fmajor"):
+                    def run(mode="wide" if layout == "regw" else "fmajor"):
+                        return kcv.chain_frames_store(x3, s3, tabs, mode)
+                else:
+                    g = groups[layout] = kcv.group_frames(
+                        layout, ops.n1, r, ops.state_dim)
+
+                    def run(g=g):
+                        return kcv.chain_frames_grouped(x3, s3, tabs, g)
+                cases.append((layout, tabs, run, own_plain, half64))
+        refs = {}
+        for form, tb, run, plain32, plain64 in cases:
+            got = natural(run())
+            torch.cuda.synchronize()
+            key = "full" if form == "full" else "half"
+            if key not in refs:
+                refs[key] = plain64()
+            ref = refs[key]
+            snr = snr_planes(ref, got)
+            own = snr_planes(ref, natural(plain32()))
+            err = max(float((g_.double() - r_).abs().max())
+                      for g_, r_ in zip(got, ref))
+            finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+            ms = median_ms(run)
+            plain_ms = median_ms(plain32, reps=3)
+            rec = dict(snr=snr, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       **chain_bound(x3, s3, tb, got, n))
+            results[(form, n)] = rec
+            extra = f", g = {groups[form]}" if form in groups else ""
+            print(f"chain family {form} N={n} ({ops.n1} x {ops.n2}{extra}) "
+                  f"frames={x3.shape[0]}: {snr:.2f} dB vs float64 plain "
+                  f"(float32 plain {own:.2f} dB), max |err| {err:.3e}; kernel "
+                  f"{ms:.4f} ms, float32 plain {plain_ms:.3f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            check(finite and snr >= MIN_SNR_DB,
+                  f"chain family {form} N={n}: {snr:.2f} dB < {MIN_SNR_DB} dB "
+                  f"or not finite")
+            del got
+        del refs, x3, s3, x64, s64
+    return results
+
+
+def full_path(dev, kchain, kcv, design, chain_ms):
+    """Phases 18-19; returns (full-spectrum launches, {kernel name: layout
+    path launches})."""
+    import scipy.signal as ss
+
+    from simpledsp_tpu_torch.design.biquad import sos_matrix
+    ops = kchain.FusedNorthStarOperators(design, MAIN_N)
+    check(ops.H.device.type == "cuda", "FusedNorthStarOperators default "
+                                       "device is not CUDA")
+    rng = np.random.default_rng(18)
+    x_host = [rng.standard_normal((C, T)).astype(np.float32)
+              for _ in range(CALLS)]
+    xs = [torch.as_tensor(x, device=dev) for x in x_host]
+    nf, n1, n2 = T // MAIN_N, ops.n1, ops.n2
+    family = [kchain.chain_kernel, kchain.chain_full_kernel,
+              kcv.chain_regs_kernel, kcv.chain_grouped_kernel,
+              kcv.chain_store_kernel]
+    torch.cuda.synchronize()
+    zero_counts()
+    outs, state = [], torch.zeros(C, ops.state_dim, device=dev)
+    for i, x in enumerate(xs):
+        before = kchain.chain_full_kernel.launches
+        (yr, yi), state = kchain.fused_chain_frames(ops, x, state)
+        check(kchain.chain_full_kernel.launches == before + 1,
+              f"full path call {i} launched the full-spectrum kernel "
+              f"{kchain.chain_full_kernel.launches - before} times")
+        outs.append((yr[:2], yi[:2]))
+    torch.cuda.synchronize()
+    launches = kchain.chain_full_kernel.launches
+    others = sum(k.launches for k in family) - launches
+    check(launches == CALLS and others == 0,
+          f"full path: {launches} full-spectrum launches, {others} others")
+    for i, (yr, yi) in enumerate(outs):
+        check(yr.shape == yi.shape == (2, nf, n2, n1)
+              and bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
+              f"full path call {i}: shape {tuple(yr.shape)} or values")
+
+    def oracle(x64):
+        y = ss.sosfilt(sos_matrix(design), x64, axis=-1)
+        return np.fft.fft(y.reshape(x64.shape[0], -1, MAIN_N))
+
+    def spectrum(yr, yi):
+        return (yr.double() + 1j * yi.double()).reshape(
+            yr.shape[0], nf, MAIN_N).cpu().numpy()
+
+    ref0 = oracle(x_host[0][:2].astype(np.float64))
+    snr_call0 = snr_db(ref0, spectrum(*outs[0]))
+    x01 = np.concatenate([x_host[0][:1], x_host[1][:1]], -1).astype(np.float64)
+    got01 = np.concatenate([spectrum(yr[:1], yi[:1]) for yr, yi in outs[:2]],
+                           axis=1)
+    snr_stream = snr_db(oracle(x01), got01)
+    print(f"full path: fused_chain_frames(ops, x, s0) at N={MAIN_N}, {CALLS} "
+          f"calls of {C} x {T} float32, full-spectrum launches {launches}; "
+          f"call 0 channels 0-1 {snr_call0:.2f} dB, calls 0-1 channel 0 "
+          f"continuity {snr_stream:.2f} dB vs float64 scipy + numpy fft")
+    check(snr_call0 >= MIN_SNR_DB, f"full path {snr_call0:.2f} dB")
+    check(snr_stream >= MIN_SNR_DB, f"full path continuity {snr_stream:.2f} dB")
+    del outs
+    s0 = torch.zeros(C, ops.state_dim, device=dev)
+    full_ms = median_ms(lambda: kchain.fused_chain_frames(ops, xs[0], s0))
+    print(f"full path timing: {full_ms:.3f} ms/call "
+          f"({C * T / full_ms / 1e3:.1f} Msamples/s); NorthStarChain half "
+          f"spectrum {chain_ms:.3f} ms/call in this run")
+
+    # -- 19. the layouts through the same entry, one call each
+    ref_half = ref0[..., : MAIN_N // 2].copy()
+    ref_half[..., 0] += 1j * ref0[..., MAIN_N // 2].real
+    variants = {"regs": kcv.chain_regs_kernel, "regw": kcv.chain_store_kernel,
+                "fmajor": kcv.chain_store_kernel,
+                "reg2": kcv.chain_grouped_kernel,
+                "reg4": kcv.chain_grouped_kernel,
+                "regp": kcv.chain_grouped_kernel,
+                "pair": kcv.chain_grouped_kernel}
+    torch.cuda.synchronize()
+    zero_counts()
+    quality = []
+    for layout, kernel in variants.items():
+        before = sum(k.launches for k in family)
+        mine = kernel.launches
+        (zr, zi), _ = kchain.fused_chain_frames(ops, xs[0], s0,
+                                                half_spectrum=True,
+                                                layout=layout)
+        check(kernel.launches == mine + 1
+              and sum(k.launches for k in family) == before + 1,
+              f"layout {layout}: not one launch of its kernel")
+        check(zr.shape == (C, nf, n2 // 2, n1), f"layout {layout}: shape "
+                                                f"{tuple(zr.shape)}")
+        got = (zr[:2].double() + 1j * zi[:2].double()).reshape(
+            2, nf, -1).cpu().numpy()
+        snr = snr_db(ref_half, got)
+        extra = (f", g = {kcv.chain_grouped_kernel.last_g}"
+                 if kernel is kcv.chain_grouped_kernel else "")
+        check(snr >= MIN_SNR_DB, f"layout {layout}: {snr:.2f} dB")
+        quality.append(f"{layout} {snr:.2f} dB{extra}")
+        del zr, zi
+    torch.cuda.synchronize()
+    counts = {"chain_regs": kcv.chain_regs_kernel.launches,
+              "chain_grouped": kcv.chain_grouped_kernel.launches,
+              "chain_store": kcv.chain_store_kernel.launches}
+    print(f"layout path: fused_chain_frames(half_spectrum=True, layout=...) "
+          f"on call 0, channels 0-1 vs float64 oracle: {'; '.join(quality)}; "
+          f"launches {counts}")
+    times = []
+    for lay in ("regs", "regw", "reg2", "pair"):
+        ms = median_ms(lambda: kchain.fused_chain_frames(
+            ops, xs[0], s0, half_spectrum=True, layout=lay), reps=3)
+        times.append(f"{lay} {ms:.3f} ms/call")
+    print(f"layout path timing: {'; '.join(times)}")
+    return launches, counts
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -1187,6 +1437,7 @@ def main() -> int:
     from simpledsp_tpu_torch.design.fir import lowpass_taps
     from simpledsp_tpu_torch.kernels import _build
     from simpledsp_tpu_torch.kernels import chain as kchain
+    from simpledsp_tpu_torch.kernels import chain_variants as kcv
     from simpledsp_tpu_torch.kernels import conv2d as k2d
     from simpledsp_tpu_torch.kernels import fft as kfft
     from simpledsp_tpu_torch.kernels import ols as kols
@@ -1202,7 +1453,9 @@ def main() -> int:
 
     KERNELS[:] = [kchain.chain_kernel, kpfb.pfb_flat_kernel,
                   kpfb.pfb_frames_kernel, kols.ols_kernel, k2d.conv2d_kernel,
-                  kfft.fft_frames_kernel]
+                  kfft.fft_frames_kernel, kchain.chain_full_kernel,
+                  kcv.chain_regs_kernel, kcv.chain_grouped_kernel,
+                  kcv.chain_store_kernel]
     # The library calls timed beside the kernels run in IEEE float32 too.
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1216,15 +1469,20 @@ def main() -> int:
     start = time.perf_counter()
     build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library,
                kols.ols_kernel.library, k2d.conv2d_kernel.library,
-               kfft.fft_frames_kernel.library])
+               kfft.fft_frames_kernel.library, kcv.chain_regs_kernel.library])
     secs = _build.build_seconds
-    print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, pfb.cu "
+    print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, chain_tc.cu "
+          f"{secs['sdsp_chain_tc']:.2f} s, pfb.cu "
           f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s, "
           f"conv2d.cu {secs['sdsp_conv2d']:.2f} s and fft.cu "
           f"{secs['sdsp_fft']:.2f} s in nvcc, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
-    chain_record = chain_phases(dev, kchain, NorthStarChain, default_design())
+    chain_record, chain_ms = chain_phases(dev, kchain, NorthStarChain,
+                                          default_design())
+    family = chain_family_phase(dev, kchain, kcv, default_design())
+    full_launches, layout_launches = full_path(dev, kchain, kcv,
+                                               default_design(), chain_ms)
     pfb = pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps)
     flat_launches, frames_launches, _ = bank_phases(dev, kpfb, sdr,
                                                     PFBChannelizer)
@@ -1271,7 +1529,15 @@ def main() -> int:
         "source": "simpledsp_tpu_torch/csrc/fft.cu",
         "replaces": "simpledsp_tpu/kernels/fft.py:79",
         "launches": fft_launches, **fft_main,
-    }]}))
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": f"simpledsp_tpu_torch/csrc/{src}", "replaces": replaces,
+        "launches": (full_launches if form == "full"
+                     else layout_launches[name]),
+        **{k: family[(form, MAIN_N)][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    } for name, form, src, replaces in FAMILY_RECORDS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -46,13 +46,16 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[str],
+                 headers: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile ``sources`` (file names under ``csrc/``) into one shared
-    library, unless a build of the same sources and flags exists, and load
-    it.  Raises RuntimeError with nvcc's output when the build fails."""
+    library, unless a build of the same sources, ``headers`` (the files
+    under ``csrc/`` they include, hashed but not compiled on their own) and
+    flags exists, and load it.  Raises RuntimeError with nvcc's output when
+    the build fails."""
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + [CSRC_DIR / h for h in headers]:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -1,10 +1,10 @@
-"""Fused north-star chain: block IIR + framed half-spectrum FFT, one kernel.
+"""Fused north-star chain: block IIR + framed FFT, one kernel per call.
 
-Port of ``simpledsp_tpu/kernels/chain.py`` (``fused_chain_frames`` with
-``half_spectrum=True``).  Each frame of N = n1 * n2 samples (n2 <= 128 even,
-the IIR sub-block; ``_best_split``) is viewed as x (n1, n2).  A prepass of plain matmuls gives
-every sub-block its incoming IIR state (the "starts"); then one kernel per
-frame computes, without writing the filtered signal to device memory,
+Port of ``simpledsp_tpu/kernels/chain.py`` (``fused_chain_frames``).  Each
+frame of N = n1 * n2 samples (n2 <= 128, the IIR sub-block; ``_best_split``)
+is viewed as x (n1, n2).  A prepass of plain matmuls gives every sub-block
+its incoming IIR state (the "starts"); then one kernel computes, per frame
+and without writing the filtered signal to device memory,
 
     y   = x H^T + starts^T Phi^T                 (IIR block)
     c,s = [W1c; W1s] y                           (four-step FFT, step 1)
@@ -12,11 +12,15 @@ frame computes, without writing the filtered signal to device memory,
     out = tr P^T + ti Q^T                        (step 3, packed [Re | Im])
 
 and writes the packed one-sided spectrum in natural bin order, with the
-Nyquist bin X[N/2].re in the imaginary plane's bin-0 slot.
+Nyquist bin X[N/2].re in the imaginary plane's bin-0 slot; or, with the
+full-spectrum step 3 (Re X = tr W2c^T - ti W2s^T, Im X = ti W2c^T +
+tr W2s^T), the full complex spectrum, the JAX function's default.
 
-The kernel is ``csrc/chain.cu`` (:func:`chain_frames` launches it on CUDA
-tensors); :func:`chain_frames_reference` is the same function in plain
-PyTorch, used for CPU tensors and as the kernel's oracle on the card.
+The kernels are ``csrc/chain.cu`` (:func:`chain_frames`,
+:func:`chain_frames_full`, and the layouts of ``kernels/chain_variants.py``)
+and ``csrc/chain_tc.cu`` ("regs"); :func:`chain_frames_reference` and
+:func:`chain_frames_full_reference` are the same functions in plain
+PyTorch, used for CPU tensors and as the kernels' oracles on the card.
 
 All operator tables are built on the host in float64 (carried over verbatim
 from the JAX package) and cast once to the working dtype.  The prepass
@@ -35,19 +39,28 @@ import torch
 from torch import nn
 
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign
+from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.kernels import _build
 from simpledsp_tpu_torch.kernels.fft import _best_split, _consts
 from simpledsp_tpu_torch.ops.iir import block_operators_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
 
-__all__ = ["ChainTables", "FusedNorthStarOperators", "chain_frames",
-           "chain_frames_reference", "chain_kernel", "chain_prepass",
-           "fused_chain_frames", "kernel_supports"]
+__all__ = ["ChainTables", "FusedNorthStarOperators", "LAYOUTS",
+           "chain_frames", "chain_frames_full", "chain_frames_full_reference",
+           "chain_frames_reference", "chain_full_kernel", "chain_kernel",
+           "chain_prepass", "fused_chain_frames", "kernel_supports",
+           "resolve_layout"]
+
+# The half-spectrum layouts of the JAX function.  "reg" and "k1" differ on
+# the TPU only in output layout; here both are the natural-order kernel.
+LAYOUTS = ("reg", "regp", "regs", "regw", "reg2", "reg4", "k1", "fmajor",
+           "pair")
 
 
 def kernel_supports(n1: int, n2: int) -> bool:
-    """Frames the CUDA kernel takes: every split ``_best_split`` yields
-    (n1, n2 <= 128) with n2 even, which the one-sided packing needs."""
+    """Frames the half-spectrum CUDA kernels take: every split
+    ``_best_split`` yields (n1, n2 <= 128) with n2 even, which the one-sided
+    packing needs.  The full-spectrum kernel also takes odd n2."""
     return 1 <= n1 <= 128 and 2 <= n2 <= 128 and n2 % 2 == 0
 
 
@@ -82,17 +95,21 @@ class ChainTables(NamedTuple):
     W1cs: torch.Tensor   # (2 n1, n1)  [W1c; W1s], step-1 DFT
     Tc: torch.Tensor     # (n1, n2)    twiddle cos
     Ts: torch.Tensor     # (n1, n2)    twiddle -sin
-    PQT: torch.Tensor    # (2 n2, n2)  [P^T; Q^T], packed step-3 DFT
+    PQT: torch.Tensor    # (2 n2, n2)  [P^T; Q^T], packed step-3 DFT; for
+    #                      the full spectrum (4 n2, n2), [W2c^T; -W2s^T;
+    #                      W2s^T; W2c^T] (Re rows, then Im rows)
 
 
 class FusedNorthStarOperators(nn.Module):
     """Host-built float64 operators for one design and frame size, held as
-    buffers in ``dtype`` on ``device``.
+    buffers in ``dtype`` on ``device`` (``None``: CUDA, raising where there
+    is none; CPU callers pass ``device="cpu"``).
 
     Same tables, built by the same float64 code, as the JAX package's
-    ``FusedNorthStarOperators``.  The JAX package's grouped ``KTg`` table
-    (a block-diagonal copy of ``KT`` that only shrank TPU lane padding) is
-    not carried: the two-step projection multiplies by ``KT`` directly.
+    ``FusedNorthStarOperators``, plus the full-spectrum step-3 table ``FT``.
+    The JAX package's grouped ``KTg`` table (a block-diagonal copy of ``KT``
+    that only shrank TPU lane padding) is not carried: the two-step
+    projection multiplies by ``KT`` directly.
     """
 
     def __init__(self, design: BiquadCascadeDesign, fft_size: int,
@@ -103,6 +120,7 @@ class FusedNorthStarOperators(nn.Module):
             raise ValueError(
                 f"fused chain needs fft_size = n1 * n2 with factors <= 128; "
                 f"got {fft_size}")
+        device = resolve_device(device)
         self.n1, self.n2 = split
         self.fft_size = int(fft_size)
         self.design = design
@@ -154,16 +172,19 @@ class FusedNorthStarOperators(nn.Module):
         host = dict(
             H=H, Phi=Phi, K=K, Ff=pw[nb], TKt=TKt, KT=K.T, TO=TO, FpT=FpT,
             HT=H.T, PhiT=Phi.T, W1cs=np.concatenate([w1c, w1s], 0),
-            Tc=tc.T, Ts=ts.T, PQT=np.concatenate([p_tab.T, q_tab.T], 0))
+            Tc=tc.T, Ts=ts.T, PQT=np.concatenate([p_tab.T, q_tab.T], 0),
+            FT=np.concatenate([w2c.T, -w2s.T, w2s.T, w2c.T], 0))
         npdt = torch.empty((), dtype=dtype).numpy().dtype
         for name, a in host.items():
             self.register_buffer(name, torch.as_tensor(
                 np.ascontiguousarray(a).astype(npdt), device=device))
         self._ptabs = {}
 
-    def tables(self) -> ChainTables:
+    def tables(self, full: bool = False) -> ChainTables:
+        """The kernel's tables: packed half-spectrum step 3, or with
+        ``full`` the full-spectrum one."""
         return ChainTables(self.HT, self.PhiT, self.W1cs, self.Tc, self.Ts,
-                           self.PQT)
+                           self.FT if full else self.PQT)
 
     def frame_prefix_tables(self, F: int) -> dict:
         """Tables for the two-level frame-state prefix over F frames (see
@@ -252,27 +273,35 @@ def _frame_prefix_finish(tabs: dict, L: torch.Tensor, W: torch.Tensor,
     return s_after[:, :F]                                 # (C, F, D)
 
 
-def chain_frames_reference(x3: torch.Tensor, s3: torch.Tensor,
-                           tables: ChainTables
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the chain kernel.
+def _iir_block(x3: torch.Tensor, s3: torch.Tensor,
+               tables: ChainTables) -> torch.Tensor:
+    """The IIR block of every frame: y (F, n1, n2) = x H^T + starts^T Phi^T."""
+    with ieee_fp32():
+        return (torch.einsum("fpj,ji->fpi", x3, tables.HT)
+                + torch.einsum("fep,ei->fpi", s3, tables.PhiT))
 
-    x3 (F, n1, n2) frames, s3 (F, D, n1) sub-block starts (D-major).
-    Returns (spec_re, spec_im), each (F, N/2), packed one-sided spectra in
-    natural bin order with X[N/2].re in spec_im[:, 0].
-    """
-    nf, n1, n2 = x3.shape
+
+def _twiddled(cs: torch.Tensor, tables: ChainTables):
+    """Step 2 on the step-1 output cs (F, 2 n1, n2): (tr, ti)."""
+    n1 = cs.shape[1] // 2
+    c, s = cs[:, :n1], cs[:, n1:]
+    return c * tables.Tc - s * tables.Ts, s * tables.Tc + c * tables.Ts
+
+
+def _step1(y: torch.Tensor, tables: ChainTables) -> torch.Tensor:
+    with ieee_fp32():
+        return torch.einsum("kp,fpt->fkt", tables.W1cs, y)
+
+
+def _packed_spectrum(tr: torch.Tensor, ti: torch.Tensor, tables: ChainTables
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed step 3 and the Nyquist bin: (F, N/2) planes, natural order."""
+    nf, n1, n2 = tr.shape
     h = n2 // 2
     with ieee_fp32():
-        y = (torch.einsum("fpj,ji->fpi", x3, tables.HT)
-             + torch.einsum("fep,ei->fpi", s3, tables.PhiT))
-        cs = torch.einsum("kp,fpt->fkt", tables.W1cs, y)
-        c, s = cs[:, :n1], cs[:, n1:]
-        tr = c * tables.Tc - s * tables.Ts
-        ti = s * tables.Tc + c * tables.Ts
         out = (torch.einsum("fkt,tl->fkl", tr, tables.PQT[:n2])
                + torch.einsum("fkt,tl->fkl", ti, tables.PQT[n2:]))
-    alt = torch.ones(n2, dtype=x3.dtype, device=x3.device)
+    alt = torch.ones(n2, dtype=tr.dtype, device=tr.device)
     alt[1::2] = -1.0
     nyq = (tr[:, 0] * alt).sum(-1)
     # (F, k1, k2) -> (F, k2, k1): bin k = k1 + n1 k2 in natural order.
@@ -282,78 +311,160 @@ def chain_frames_reference(x3: torch.Tensor, s3: torch.Tensor,
     return spec_re, spec_im
 
 
+def chain_frames_reference(x3: torch.Tensor, s3: torch.Tensor,
+                           tables: ChainTables
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the half-spectrum chain kernel.
+
+    x3 (F, n1, n2) frames, s3 (F, D, n1) sub-block starts (D-major).
+    Returns (spec_re, spec_im), each (F, N/2), packed one-sided spectra in
+    natural bin order with X[N/2].re in spec_im[:, 0].
+    """
+    y = _iir_block(x3, s3, tables)
+    return _packed_spectrum(*_twiddled(_step1(y, tables), tables), tables)
+
+
+def chain_frames_full_reference(x3: torch.Tensor, s3: torch.Tensor,
+                                tables: ChainTables
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the full-spectrum chain kernel.
+
+    As :func:`chain_frames_reference`, with ``tables.PQT`` the full table
+    (``FusedNorthStarOperators.tables(full=True)``).  Returns (re, im),
+    each (F, N): the complex spectrum of every frame in natural bin order.
+    """
+    nf, n1, n2 = x3.shape
+    tr, ti = _twiddled(_step1(_iir_block(x3, s3, tables), tables), tables)
+    t = tables.PQT
+    with ieee_fp32():
+        yr = (torch.einsum("fkt,tl->fkl", tr, t[:n2])
+              + torch.einsum("fkt,tl->fkl", ti, t[n2:2 * n2]))
+        yi = (torch.einsum("fkt,tl->fkl", tr, t[2 * n2:3 * n2])
+              + torch.einsum("fkt,tl->fkl", ti, t[3 * n2:]))
+    return (yr.transpose(1, 2).reshape(nf, n1 * n2),
+            yi.transpose(1, 2).reshape(nf, n1 * n2))
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """``csrc/chain.cu`` built and loaded, its entry point typed."""
-    lib = _build.load_library("sdsp_chain", ("chain.cu",))
-    fn = lib.sdsp_chain_frames_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """``csrc/chain.cu`` built and loaded, its entry points typed."""
+    lib = _build.load_library("sdsp_chain", ("chain.cu",),
+                              ("chain_common.cuh",))
+    for fn in (lib.sdsp_chain_frames_f32, lib.sdsp_chain_grouped_f32):
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-class _ChainKernel:
-    """The CUDA chain kernel: built from ``csrc/chain.cu`` at first launch;
-    ``launches`` counts the launches made through :func:`chain_frames`."""
+# The output forms of ``sdsp_chain_frames_f32`` (enum Mode in chain.cu).
+_MODES = {"natural": 0, "wide": 1, "fmajor": 2, "full": 3}
 
-    def __init__(self):
+
+def _check_operands(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables,
+                    t3_rows: int, what: str) -> None:
+    """Raises ValueError unless every operand is contiguous float32 on x3's
+    device in the shape the kernel reads."""
+    nf, n1, n2 = x3.shape
+    d = s3.shape[1]
+    expect = {"x3": (x3, (nf, n1, n2)), "s3": (s3, (nf, d, n1)),
+              "HT": (tables.HT, (n2, n2)), "PhiT": (tables.PhiT, (d, n2)),
+              "W1cs": (tables.W1cs, (2 * n1, n1)),
+              "Tc": (tables.Tc, (n1, n2)), "Ts": (tables.Ts, (n1, n2)),
+              "PQT": (tables.PQT, (t3_rows, n2))}
+    for name, (t, shape) in expect.items():
+        if t.device != x3.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: the CUDA {what} kernel takes float32 "
+                             f"on {x3.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+class _ChainKernel:
+    """A form of the CUDA chain kernel in ``csrc/chain.cu`` (``modes``: the
+    output forms it launches), built at first launch; ``launches`` counts
+    its launches."""
+
+    def __init__(self, *modes: str):
+        self.modes = modes
         self.launches = 0
 
     def library(self) -> ctypes.CDLL:
         return _library()
 
     def __call__(self, x3: torch.Tensor, s3: torch.Tensor,
-                 tables: ChainTables) -> Tuple[torch.Tensor, torch.Tensor]:
+                 tables: ChainTables, mode: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Launch in ``mode`` (default: the first of ``modes``).  Returns
+        (re, im): (F, N/2) natural-order planes, (F, n1, n2/2) k1-major rows
+        for "fmajor", (F, N) for "full"."""
+        mode = mode or self.modes[0]
+        if mode not in self.modes:
+            raise ValueError(f"this kernel launches {self.modes}, not {mode!r}")
         nf, n1, n2 = x3.shape
-        if not kernel_supports(n1, n2):
+        full = mode == "full"
+        if full:
+            if not (1 <= n1 <= 128 and 1 <= n2 <= 128):
+                raise ValueError(f"the CUDA chain kernel needs frames of n1 x "
+                                 f"n2 samples, n1 <= 128 and n2 <= 128; got "
+                                 f"{tuple(x3.shape)}")
+        elif not kernel_supports(n1, n2):
             raise ValueError(f"the CUDA chain kernel needs frames of n1 x n2 "
                              f"samples, n1 <= 128 and n2 <= 128 even; got "
                              f"{tuple(x3.shape)}")
-        d = s3.shape[1]
-        expect = {"x3": (x3, (nf, n1, n2)), "s3": (s3, (nf, d, n1)),
-                  "HT": (tables.HT, (n2, n2)), "PhiT": (tables.PhiT, (d, n2)),
-                  "W1cs": (tables.W1cs, (2 * n1, n1)),
-                  "Tc": (tables.Tc, (n1, n2)), "Ts": (tables.Ts, (n1, n2)),
-                  "PQT": (tables.PQT, (2 * n2, n2))}
-        for name, (t, shape) in expect.items():
-            if t.device != x3.device or t.dtype != torch.float32:
-                raise ValueError(f"{name}: the CUDA chain kernel takes float32 "
-                                 f"on {x3.device}, got {t.dtype} on {t.device}")
-            if tuple(t.shape) != shape or not t.is_contiguous():
-                raise ValueError(f"{name}: expected a contiguous {shape}, got "
-                                 f"{tuple(t.shape)}")
+        _check_operands(x3, s3, tables, (4 if full else 2) * n2, "chain")
         tables = _padded_tables(tables, n1, n2)
-        spec_re = torch.empty((nf, n1 * n2 // 2), dtype=x3.dtype,
-                              device=x3.device)
+        shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
+            mode, (nf, n1 * n2 // 2))
+        spec_re = torch.empty(shape, dtype=x3.dtype, device=x3.device)
         spec_im = torch.empty_like(spec_re)
-        fn = self.library().sdsp_chain_frames_f32
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
-        rc = fn(x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
-                tables.PhiT.data_ptr(), tables.W1cs.data_ptr(),
-                tables.Tc.data_ptr(), tables.Ts.data_ptr(),
-                tables.PQT.data_ptr(), spec_re.data_ptr(), spec_im.data_ptr(),
-                nf, n1, n2, d, x3.device.index, stream)
+        rc = self.library().sdsp_chain_frames_f32(
+            x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
+            tables.PhiT.data_ptr(), tables.W1cs.data_ptr(),
+            tables.Tc.data_ptr(), tables.Ts.data_ptr(), tables.PQT.data_ptr(),
+            spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2, s3.shape[1],
+            _MODES[mode], x3.device.index, _stream(x3))
         if rc != 0:
             raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
         self.launches += 1
         return spec_re, spec_im
 
 
-chain_kernel = _ChainKernel()
+chain_kernel = _ChainKernel("natural")
+chain_full_kernel = _ChainKernel("full")
+
+
+def _on_device(x3: torch.Tensor, kernel, reference, *args):
+    """The kernel on CUDA tensors, its plain version on CPU tensors; any
+    other device raises.  There is no fallback from a kernel to its plain
+    version."""
+    if x3.device.type == "cuda":
+        return kernel(*args)
+    if x3.device.type == "cpu":
+        return reference(*args)
+    raise ValueError(f"the chain runs on CUDA or CPU tensors, got "
+                     f"{x3.device}")
 
 
 def chain_frames(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The per-frame chain: the CUDA kernel on CUDA tensors, its plain
-    version on CPU tensors.  Any other device raises; there is no fallback
-    from the kernel to the plain version."""
-    if x3.device.type == "cuda":
-        return chain_kernel(x3, s3, tables)
-    if x3.device.type == "cpu":
-        return chain_frames_reference(x3, s3, tables)
-    raise ValueError(f"chain_frames runs on CUDA or CPU tensors, got "
-                     f"{x3.device}")
+    """The per-frame half-spectrum chain: the CUDA kernel on CUDA tensors,
+    its plain version on CPU tensors."""
+    return _on_device(x3, chain_kernel, chain_frames_reference, x3, s3, tables)
+
+
+def chain_frames_full(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-frame full-spectrum chain (``tables`` from
+    ``ops.tables(full=True)``): the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors."""
+    return _on_device(x3, chain_full_kernel, chain_frames_full_reference,
+                      x3, s3, tables)
 
 
 def chain_prepass(ops: FusedNorthStarOperators, x: torch.Tensor,
@@ -403,15 +514,100 @@ def chain_prepass(ops: FusedNorthStarOperators, x: torch.Tensor,
     return xsub.reshape(f_total, n1, n2), starts.reshape(f_total, D, n1), s_fin
 
 
-def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
-                       s0: torch.Tensor, *, projection: Optional[str] = None):
-    """Run the fused chain (:func:`chain_prepass`, then :func:`chain_frames`)
-    over x (C, T) or (C, F, n1, n2) from the flat state s0 (C, D).
+def resolve_layout(n1: int) -> str:
+    """The JAX package's default half-spectrum layout for a step-1 factor
+    n1: "reg" at n1 >= 32, else "k1".  Both run the same natural-order
+    kernel here; the name decides only the shape ``flat_out`` gives."""
+    return "reg" if n1 >= 32 else "k1"
 
-    Returns ((spec_re, spec_im) each (C, F, N/2), s_final (C, D)).
+
+def _tile_frames(f_total: int, n: int, itemsize: int,
+                 frames_per_tile: int) -> int:
+    """The JAX kernel's frames per grid step r (``chain.py:675-689``): the
+    grouped layouts take their group size from it."""
+    max_r = max(1, (13 << 20) // (6 * n * itemsize))
+    r = min(frames_per_tile, 1 << (max_r.bit_length() - 1), 64)
+    if r < 1:
+        raise ValueError(f"frames_per_tile must be positive, got "
+                         f"{frames_per_tile}")
+    while f_total % r:
+        r //= 2
+    return r
+
+
+def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
+                       s0: torch.Tensor, *, frames_per_tile: int = 64,
+                       half_spectrum: bool = False,
+                       layout: Optional[str] = None, flat_out: bool = False,
+                       projection: Optional[str] = None):
+    """Run the fused chain (:func:`chain_prepass`, then one kernel launch)
+    over x (C, T), T a multiple of fft_size, or pre-framed (C, F, n1, n2),
+    from the flat state s0 (C, D).  The JAX function's signature and shapes.
+
+    half_spectrum: False (default) gives the full complex spectrum of every
+      frame; True the packed one-sided spectrum (bins k < N/2, X[N/2].re in
+      the imaginary plane's bin 0), which needs an even n2.
+    layout: the half-spectrum kernel variant, one of :data:`LAYOUTS`
+      (default :func:`resolve_layout`).  Every layout computes the same
+      function; they differ in how the kernel is scheduled:
+      "reg" / "k1" the chain kernel; "regs" step 1 as exact split-bf16
+      products on the tensor cores (float32 only); "reg2" / "reg4" /
+      "regp" / "pair" g frames a block (:func:`chain_variants.group_frames`);
+      "regw" 16-byte stores; "fmajor" k1-major rows, reordered here by a
+      transpose as the JAX package does outside its kernel.
+    frames_per_tile: the JAX kernel's tile, from which the grouped layouts
+      take their group size.
+    flat_out: half spectrum with "reg*" or "k1": (C F, n2/2/qf, qf n1)
+      planes, qf = ``chain_variants._regw_qf`` for "regw", else 1.
+    projection: "two_step" (default) or "dense", see :func:`chain_prepass`.
+
+    Returns ((re, im), s_final (C, D)): re and im (C, F, n2, n1) for the
+    full spectrum, (C, F, n2/2, n1) for the half one (or the flat form);
+    flattening the last two axes gives natural bin order k = k1 + n1 k2.
+
+    Not taken from the JAX signature: ``axis_name`` / ``shard_powers`` (the
+    sequence-parallel chain, with the port's ``parallel/``), and the TPU
+    hooks ``precision`` (IEEE float32 only), ``interpret``,
+    ``_debug_stage`` and ``_proj_prec``.
     """
+    n1, n2, N = ops.n1, ops.n2, ops.fft_size
+    if layout is None:
+        layout = resolve_layout(n1)
+    if half_spectrum:
+        if n2 % 2:
+            raise ValueError(f"half_spectrum requires even n2, got {n2}")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}")
+        if layout == "regs" and x.dtype != torch.float32:
+            raise ValueError("layout 'regs' requires float32 (the split "
+                             "targets a 24-bit significand)")
     c = x.shape[0]
     x3, s3, s_fin = chain_prepass(ops, x, s0, projection)
-    spec_re, spec_im = chain_frames(x3, s3, ops.tables())
-    h = ops.fft_size // 2
-    return (spec_re.reshape(c, -1, h), spec_im.reshape(c, -1, h)), s_fin
+    f_total = x3.shape[0]
+    nf = f_total // c
+    if not half_spectrum:
+        yr, yi = chain_frames_full(x3, s3, ops.tables(full=True))
+        return (yr.reshape(c, nf, n2, n1), yi.reshape(c, nf, n2, n1)), s_fin
+
+    from simpledsp_tpu_torch.kernels import chain_variants as cv
+    h = n2 // 2
+    tables = ops.tables()
+    if layout in ("reg", "k1"):
+        zr, zi = chain_frames(x3, s3, tables)
+    elif layout == "regs":
+        zr, zi = cv.chain_frames_regs(x3, s3, tables)
+    elif layout in ("regw", "fmajor"):
+        zr, zi = cv.chain_frames_store(
+            x3, s3, tables, "wide" if layout == "regw" else "fmajor")
+        if layout == "fmajor":     # (F, n1, n2/2) -> (F, n2/2, n1)
+            zr, zi = zr.transpose(1, 2), zi.transpose(1, 2)
+    else:
+        r = _tile_frames(f_total, N, x3.element_size(), frames_per_tile)
+        g = cv.group_frames(layout, n1, r, ops.state_dim)
+        zr, zi = cv.chain_frames_grouped(x3, s3, tables, g)
+    if flat_out and layout not in ("pair", "fmajor"):
+        qf = cv._regw_qf(n1, h) if layout == "regw" else 1
+        shape = (f_total, h // qf, qf * n1)
+    else:
+        shape = (c, nf, h, n1)
+    return (zr.reshape(shape), zi.reshape(shape)), s_fin

@@ -118,7 +118,10 @@ class NorthStarChain(nn.Module):
         s0 = state.y_hist.to(dtype=self.dtype, device=self.device).reshape(c, -1)
         if self.ops is not None:
             (sr, si), s_fin = _kchain.fused_chain_frames(
-                self.ops, x, s0, projection=self.projection)
+                self.ops, x, s0, half_spectrum=True, projection=self.projection)
+            # (C, F, N/2 / n1, n1) planes flatten to natural bin order.
+            sr = sr.reshape(c, -1, self.fft_size // 2)
+            si = si.reshape(c, -1, self.fft_size // 2)
         else:
             y, s_fin = self.iir.run_blocks(
                 x.reshape(c, -1, self.iir.block_size), s0)

@@ -36,7 +36,7 @@ def _ops(n, dtype):
     jd, td = _designs()
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
     return (jchain.FusedNorthStarOperators(jd, n, dtype=jdt),
-            tchain.FusedNorthStarOperators(td, n, dtype=dtype))
+            tchain.FusedNorthStarOperators(td, n, dtype=dtype, device="cpu"))
 
 
 def _warm_state(rng, c):
@@ -107,12 +107,12 @@ def test_fused_chain_frames_matches_jax_interpret(n, projection, rng):
         jops, jnp.asarray(x), jnp.asarray(s0), half_spectrum=True,
         interpret=True, projection=projection)
     (tr, ti), ts = tchain.fused_chain_frames(
-        tops, torch.as_tensor(x), torch.as_tensor(s0), projection=projection)
-    assert tr.shape == ti.shape == (c, frames, n // 2)
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jr).reshape(tr.shape),
-                               rtol=0, atol=1e-9)
-    np.testing.assert_allclose(ti.numpy(), np.asarray(ji).reshape(ti.shape),
-                               rtol=0, atol=1e-9)
+        tops, torch.as_tensor(x), torch.as_tensor(s0), half_spectrum=True,
+        projection=projection)
+    assert tr.shape == ti.shape == jr.shape == (c, frames, tops.n2 // 2,
+                                                tops.n1)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=0, atol=1e-9)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-10)
 
 
@@ -150,8 +150,8 @@ def test_chain_frames_runs_only_on_cpu_or_cuda():
 def test_rejects_unsupported_fft_size():
     _, td = _designs()
     with pytest.raises(ValueError, match="32768"):
-        tchain.FusedNorthStarOperators(td, 32768)
-    ops = tchain.FusedNorthStarOperators(td, 1000)
+        tchain.FusedNorthStarOperators(td, 32768, device="cpu")
+    ops = tchain.FusedNorthStarOperators(td, 1000, device="cpu")
     assert (ops.n1, ops.n2) == (8, 125)
 
 

@@ -1,0 +1,281 @@
+"""The half-spectrum layouts of the port's fused chain
+(``fused_chain_frames(half_spectrum=True, layout=...)``,
+``simpledsp_tpu_torch.kernels.chain_variants``) against the JAX package's,
+in Pallas interpret mode, and against the scipy + numpy oracle, on the CPU.
+
+On the CPU each layout runs its kernel's plain version; the kernels
+themselves are checked against it in ``test_torch_cuda.py``.  The grouped
+and "regs" kernels' index arithmetic is emulated here on the CPU.
+
+Tolerances: float64 layouts agree with JAX and the packed oracle to 1e-11
+of the largest bin (sums in different orders); "regs" is a float32 scheme:
+>= 125 dB against the float64 oracle (the JAX package's own bar for it) and
+within 2e-6 of the largest bin of the JAX "regs" result (float32 sums in
+another order).  Host tables bit for bit.
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import scipy.signal as sig
+import torch
+
+from simpledsp_tpu.design.biquad import sos_matrix
+from simpledsp_tpu.kernels import chain as jchain
+from simpledsp_tpu.kernels import chain_variants as jcv
+from simpledsp_tpu.models.northstar import default_design as j_default_design
+from simpledsp_tpu.ops.fft import _dft_mats_f64 as j_dft_mats
+from simpledsp_tpu_torch.convert import design_from_numpy
+from simpledsp_tpu_torch.kernels import chain as tchain
+from simpledsp_tpu_torch.kernels import chain_variants as tcv
+
+HALF_LAYOUTS = ["reg", "regp", "regw", "reg2", "reg4", "k1", "fmajor", "pair"]
+
+
+def _ops(n, dtype=torch.float64):
+    jd = j_default_design()
+    td = design_from_numpy(jd.b, jd.a, jd.gain, jd.ftype, jd.f0, jd.fs, jd.q)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    return (jchain.FusedNorthStarOperators(jd, n, dtype=jdt),
+            tchain.FusedNorthStarOperators(td, n, dtype=dtype, device="cpu"))
+
+
+def _packed_oracle(design, x, n):
+    y = sig.sosfilt(sos_matrix(design), x, axis=-1)
+    full = np.fft.rfft(y.reshape(x.shape[0], -1, n))
+    packed = full[..., : n // 2].copy()
+    packed[..., 0] += 1j * full[..., n // 2].real
+    return packed
+
+
+def _both(n, x, s0, dtype=torch.float64, **kw):
+    jops, tops = _ops(n, dtype)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    (jr, ji), _ = jchain.fused_chain_frames(
+        jops, jnp.asarray(x, jdt), jnp.asarray(s0, jdt), half_spectrum=True,
+        interpret=True, frames_per_tile=4, **kw)
+    (tr, ti), _ = tchain.fused_chain_frames(
+        tops, torch.as_tensor(x, dtype=dtype), torch.as_tensor(s0, dtype=dtype),
+        half_spectrum=True, frames_per_tile=4, **kw)
+    return (np.asarray(jr), np.asarray(ji)), (tr.numpy(), ti.numpy()), jops
+
+
+@pytest.mark.parametrize("layout,n", [(lay, 1024) for lay in HALF_LAYOUTS]
+                         + [("reg", 4096), ("regp", 4096), ("pair", 4096)])
+def test_layout_matches_jax_and_oracle(layout, n, rng):
+    x = rng.standard_normal((2, 8 * n))
+    s0 = np.zeros((2, 10))
+    (jr, ji), (tr, ti), jops = _both(n, x, s0, layout=layout)
+    assert tr.shape == ti.shape == jr.shape == (2, 8, n // 2 // jops.n1,
+                                                jops.n1)
+    packed = _packed_oracle(jops.design, x, n)
+    scale = float(np.abs(packed).max())
+    for got, want in ((tr, jr), (ti, ji)):
+        assert np.abs(got - want).max() <= 1e-11 * scale
+    got = (tr + 1j * ti).reshape(packed.shape)
+    assert np.abs(got - packed).max() <= 1e-11 * scale
+
+
+@pytest.mark.parametrize("layout", HALF_LAYOUTS)
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_flat_out_shapes_match_jax(layout, n, rng):
+    """flat_out gives the JAX shapes for every layout: (C F, n2/2/qf,
+    qf n1) for "reg*" and "k1", the (C, F, n2/2, n1) planes for "pair" and
+    "fmajor", which ignore it."""
+    x = rng.standard_normal((2, 4 * n))
+    s0 = 0.1 * rng.standard_normal((2, 10))
+    (jr, ji), (tr, ti), _ = _both(n, x, s0, layout=layout, flat_out=True)
+    assert tr.shape == ti.shape == jr.shape
+    scale = float(np.abs(jr).max())
+    assert np.abs(tr - jr).max() <= 1e-11 * scale
+    assert np.abs(ti - ji).max() <= 1e-11 * scale
+
+
+@pytest.mark.parametrize("n1", [1, 2, 4, 6, 8, 16, 32, 64, 128])
+def test_bf16_split3_equals_jax_bit_for_bit(n1):
+    w = np.concatenate(j_dft_mats(n1), axis=0)
+    want = np.asarray(jcv._bf16_split3(w)).astype(np.float64)
+    got = tcv._bf16_split3(w)
+    assert got.shape == want.shape == (6 * n1, 3 * n1)
+    np.testing.assert_array_equal(got, want)
+    h, m, low = got[:2 * n1, :n1], got[2 * n1:4 * n1, :n1], got[4 * n1:, :n1]
+    assert np.abs(h + m + low - w).max() <= 2.0 ** -24
+
+
+def test_bf16_round_near_ties_as_ml_dtypes(rng):
+    """float64 -> bfloat16 as JAX casts it (through float32), also at and
+    just beside bfloat16 ties, where one direct rounding would differ."""
+    base = rng.standard_normal(20000).astype(ml_dtypes.bfloat16).astype(
+        np.float64)
+    ulp = np.abs(base) * 2.0 ** -7
+    v = np.concatenate([base + ulp / 2, base - ulp / 2,
+                        base + ulp / 2 * (1 + 2.0 ** -30),
+                        base + ulp / 2 * (1 - 2.0 ** -30),
+                        rng.standard_normal(20000) * 1e-20])
+    np.testing.assert_array_equal(
+        tcv._bf16_round(v), v.astype(ml_dtypes.bfloat16).astype(np.float64))
+
+
+@pytest.mark.parametrize("n1", [1, 2, 3, 5, 8, 16, 24, 32, 100, 128])
+def test_regw_qf_and_resolve_layout_match_jax(n1):
+    for n2h in (1, 3, 50, 63, 64):
+        assert tcv._regw_qf(n1, n2h) == jcv._regw_qf(n1, n2h)
+    assert tchain.resolve_layout(n1) == jchain.resolve_layout(n1)
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_regs_float32_snr_and_jax(n, rng):
+    """"regs" in float32: the split step 1 holds >= 125 dB against the
+    float64 oracle and stays within float32 rounding of the JAX "regs"."""
+    x = rng.standard_normal((2, 8 * n))
+    (jr, ji), (tr, ti), jops = _both(n, x, np.zeros((2, 10)),
+                                     dtype=torch.float32, layout="regs")
+    assert tr.shape == jr.shape and tr.dtype == np.float32
+    packed = _packed_oracle(jops.design, x, n)
+    got = (tr.astype(np.float64) + 1j * ti.astype(np.float64)).reshape(
+        packed.shape)
+    snr = 10 * np.log10((np.abs(packed) ** 2).sum()
+                        / (np.abs(got - packed) ** 2).sum())
+    assert snr >= 125.0
+    scale = float(np.abs(packed).max())
+    assert np.abs(tr - jr).max() <= 2e-6 * scale
+    assert np.abs(ti - ji).max() <= 2e-6 * scale
+
+
+def test_regs_needs_float32_and_unknown_layouts_raise(rng):
+    _, tops = _ops(1024)
+    x = torch.as_tensor(rng.standard_normal((2, 4096)))
+    s0 = torch.zeros(2, tops.state_dim, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        tchain.fused_chain_frames(tops, x, s0, half_spectrum=True,
+                                  layout="regs")
+    with pytest.raises(ValueError, match="unknown layout"):
+        tchain.fused_chain_frames(tops, x, s0, half_spectrum=True,
+                                  layout="regq")
+    # The full spectrum ignores the layout, as in JAX.
+    (yr, _), _ = tchain.fused_chain_frames(tops, x, s0, layout="regq")
+    assert yr.shape == (2, 4, tops.n2, tops.n1)
+
+
+@pytest.mark.parametrize("layout,n1,r,want", [
+    ("reg2", 32, 64, 2), ("reg4", 32, 64, 4), ("reg4", 32, 2, 2),
+    ("reg4", 32, 1, 1), ("regp", 8, 64, 16), ("regp", 8, 4, 4),
+    ("regp", 6, 64, 2), ("regp", 2, 64, 64), ("regp", 128, 64, 1),
+    ("pair", 32, 64, 2), ("pair", 32, 3, 1), ("reg4", 128, 64, 1)])
+def test_group_frames(layout, n1, r, want):
+    """g as the JAX package resolves it from its tile r, then halved until
+    the block fits: 4 frames of 128 rows do not, 64 of 2 do."""
+    assert tcv.group_frames(layout, n1, r, 10) == want
+    assert tcv._group_smem_bytes(want, n1, 10) <= tcv._GROUP_SMEM
+
+
+@pytest.mark.parametrize("n,g", [(200, 16), (768, 3), (1024, 4), (4096, 2)])
+def test_grouped_stacking_reproduces_the_spectra(n, g, rng):
+    """The grouped kernel's arithmetic (``chain_grouped_kernel`` in
+    ``csrc/chain.cu``) emulated in float64: g frames' rows stacked with no
+    per-frame padding, padded tables, step 1 per frame against the unpadded
+    table, twiddle row = row mod n1, stores at column offset q n1; the last
+    block partial.  Gives the plain version's spectra (1e-12)."""
+    _, tops = _ops(n)
+    n1, n2 = tops.n1, tops.n2
+    nf = 2 * g + 1
+    x = torch.as_tensor(rng.standard_normal((1, nf * n)))
+    x3, s3, _ = tchain.chain_prepass(tops, x, torch.zeros(1, tops.state_dim,
+                                                          dtype=x.dtype))
+    ref_re, ref_im = tchain.chain_frames_reference(x3, s3, tops.tables())
+    tp = tchain._padded_tables(tops.tables(), n1, n2)._replace(
+        W1cs=tops.tables().W1cs)
+    alt = torch.tensor([(-1.0) ** t for t in range(128)], dtype=x3.dtype)
+    h = n1 * n2 // 2
+    got_re = torch.empty(nf, h, dtype=x3.dtype)
+    got_im = torch.empty_like(got_re)
+    for f0 in range(0, nf, g):
+        gv = min(g, nf - f0)
+        rows = torch.zeros(g * n1, 128, dtype=x3.dtype)
+        rows[:gv * n1, :n2] = x3[f0:f0 + gv].reshape(-1, n2)
+        st = torch.zeros(g * n1, tops.state_dim, dtype=x3.dtype)
+        st[:gv * n1] = s3[f0:f0 + gv].transpose(1, 2).reshape(-1,
+                                                             tops.state_dim)
+        y = rows[:, :n2] @ tp.HT + st @ tp.PhiT
+        c = torch.zeros_like(y)
+        s = torch.zeros_like(y)
+        for q in range(g):
+            cs = tp.W1cs @ y[q * n1:(q + 1) * n1]
+            c[q * n1:(q + 1) * n1], s[q * n1:(q + 1) * n1] = cs[:n1], cs[n1:]
+        k1_of_row = torch.arange(g * n1) % n1
+        tr = c * tp.Tc[k1_of_row] - s * tp.Ts[k1_of_row]
+        ti = s * tp.Tc[k1_of_row] + c * tp.Ts[k1_of_row]
+        out_t = (tr[:, :n2] @ tp.PQT[:n2] + ti[:, :n2] @ tp.PQT[n2:]).T
+        k = torch.arange(h)
+        for q in range(gv):
+            k1, k2 = k % n1 + q * n1, k // n1
+            got_re[f0 + q] = out_t[k2, k1]
+            got_im[f0 + q] = out_t[n2 // 2 + k2, k1]
+            got_im[f0 + q, 0] = (tr[q * n1] * alt).sum()
+    np.testing.assert_allclose(got_re.numpy(), ref_re.numpy(), rtol=0,
+                               atol=1e-12 * float(ref_re.abs().max()))
+    np.testing.assert_allclose(got_im.numpy(), ref_im.numpy(), rtol=0,
+                               atol=1e-12 * float(ref_re.abs().max()))
+
+
+@pytest.mark.parametrize("n1", [2, 6, 8, 32, 128])
+def test_regs_split_table_layout(n1):
+    """The tensor-core kernel's table: the three bfloat16 parts of
+    [W1c; W1s], cos rows at 0 and sin rows at n1p, zero-padded to
+    (2 n1p, K16); the parts sum to the float64 table within 2^-24."""
+    n1p = -(-n1 // 8) * 8
+    k16 = -(-n1p // 16) * 16
+    w3 = tcv.chain_regs_kernel.split_table(n1, torch.device("cpu"))
+    assert w3.dtype == torch.bfloat16 and w3.shape == (3, 2 * n1p, k16)
+    parts = w3.double().numpy()
+    np.testing.assert_array_equal(parts[:, :n1, :n1], tcv._w1_split3(n1)[:, :n1])
+    np.testing.assert_array_equal(parts[:, n1p:n1p + n1, :n1],
+                                  tcv._w1_split3(n1)[:, n1:])
+    full = parts.sum(0)
+    w1c, w1s = j_dft_mats(n1)
+    assert np.abs(full[:n1, :n1] - w1c).max() <= 2.0 ** -24
+    assert np.abs(full[n1p:n1p + n1, :n1] - w1s).max() <= 2.0 ** -24
+    mask = np.ones_like(full, dtype=bool)
+    mask[:n1, :n1] = mask[n1p:n1p + n1, :n1] = False
+    assert not full[mask].any()
+
+
+def test_variant_wrappers_refuse_before_any_build():
+    """The CUDA wrappers check their operands before they build or launch,
+    and the dispatchers take only CPU or CUDA tensors."""
+    _, tops = _ops(1024)
+    x3 = torch.zeros(4, tops.n1, tops.n2, dtype=torch.float64)
+    s3 = torch.zeros(4, tops.state_dim, tops.n1, dtype=torch.float64)
+    tabs = tops.tables()
+    kernels = (tcv.chain_regs_kernel, tcv.chain_grouped_kernel,
+               tcv.chain_store_kernel)
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="float32"):
+        tcv.chain_regs_kernel(x3, s3, tabs)
+    with pytest.raises(ValueError, match="float32"):
+        tcv.chain_grouped_kernel(x3, s3, tabs, 2)
+    with pytest.raises(ValueError, match="fit a block"):
+        tcv.chain_grouped_kernel(x3, s3, tabs, 64)
+    with pytest.raises(ValueError, match="float32"):
+        tcv.chain_store_kernel(x3, s3, tabs, "wide")
+    with pytest.raises(ValueError, match="launches"):
+        tcv.chain_store_kernel(x3, s3, tabs, "natural")
+    with pytest.raises(ValueError, match="unknown store"):
+        tcv.chain_frames_store(x3, s3, tabs, "narrow")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tcv.chain_frames_grouped(x3.to("meta"), s3.to("meta"), tabs, 2)
+    assert [k.launches for k in kernels] == before
+
+
+def test_fmajor_plain_rows_are_the_k1_major_spectrum(rng):
+    _, tops = _ops(1024)
+    x = torch.as_tensor(rng.standard_normal((1, 3 * 1024)))
+    x3, s3, _ = tchain.chain_prepass(tops, x, torch.zeros(1, tops.state_dim,
+                                                          dtype=x.dtype))
+    fr, fi = tcv.chain_frames_store(x3, s3, tops.tables(), "fmajor")
+    rr, ri = tchain.chain_frames_reference(x3, s3, tops.tables())
+    assert fr.shape == (3, tops.n1, tops.n2 // 2)
+    # Row k1, column k2 holds bin k1 + n1 k2.
+    assert torch.equal(fr.transpose(1, 2).reshape(3, -1), rr)
+    assert torch.equal(fi.transpose(1, 2).reshape(3, -1), ri)

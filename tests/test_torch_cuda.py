@@ -20,7 +20,9 @@ plain version.  The frames FFT kernel: >= 120 dB SNR against its plain
 version in float64 on the same float32 frames (the convolution kernel bar)
 and no more than 6 dB below the float32 plain version's own SNR; the paths
 on the engine >= 100 dB against numpy / scipy in float64 (the JAX package's
-on-chip bar for the fused transforms).
+on-chip bar for the fused transforms).  The full-spectrum chain kernel and
+the layout kernels (regs, grouped, store): >= 130 dB against the float64
+plain version, as the chain kernel.
 """
 
 import numpy as np
@@ -31,6 +33,7 @@ import torch
 from simpledsp_tpu_torch.design.biquad import sos_matrix
 from simpledsp_tpu_torch.design.fir import lowpass_taps
 from simpledsp_tpu_torch.kernels import chain as tchain
+from simpledsp_tpu_torch.kernels import chain_variants as tcv
 from simpledsp_tpu_torch.kernels import conv2d as tk2d
 from simpledsp_tpu_torch.kernels import fft as tkfft
 from simpledsp_tpu_torch.kernels import ols as tols
@@ -455,3 +458,125 @@ def test_engine_paths_launch_the_frames_kernel(cuda_device):
                         device=cuda_device)
     _, n = runs(lambda: trd.range_doppler_map(p, p, *tx))
     assert n == 3
+
+
+def _chain_frames(n, device):
+    ops = tchain.FusedNorthStarOperators(default_design(), n, device=device)
+    x = torch.as_tensor(np.random.default_rng(n).standard_normal(
+        (2, 8 * n)), dtype=torch.float32, device=device)
+    x3, s3, _ = tchain.chain_prepass(ops, x, torch.zeros(2, ops.state_dim,
+                                                         device=device))
+    return ops, x3, s3
+
+
+def _tables64(tables):
+    return tchain.ChainTables(*(t.double() for t in tables))
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 4096, 16384, 200])
+def test_full_kernel_matches_plain_version(n, cuda_device):
+    """The full-spectrum kernel, odd n2 (1000 = 8 x 125) included."""
+    ops, x3, s3 = _chain_frames(n, cuda_device)
+    tabs = ops.tables(full=True)
+    launches = tchain.chain_full_kernel.launches
+    got = tchain.chain_frames_full(x3, s3, tabs)
+    torch.cuda.synchronize()
+    assert tchain.chain_full_kernel.launches == launches + 1
+    assert got[0].shape == (x3.shape[0], n)
+    ref = tchain.chain_frames_full_reference(x3.double(), s3.double(),
+                                             _tables64(tabs))
+    assert _snr_db(ref, got) >= 130.0
+
+
+@pytest.mark.parametrize("layout", ["regs", "regw", "fmajor", "reg2", "reg4",
+                                    "regp", "pair"])
+@pytest.mark.parametrize("n", [200, 1024, 4096, 16384])
+def test_layout_kernels_match_plain_version(layout, n, cuda_device):
+    """Each layout's kernel against the float64 plain version of the chain
+    (the function every layout computes), launched once through its
+    wrapper."""
+    ops, x3, s3 = _chain_frames(n, cuda_device)
+    tabs = ops.tables()
+    if layout == "regs":
+        kernel, run = tcv.chain_regs_kernel, lambda: tcv.chain_frames_regs(
+            x3, s3, tabs)
+    elif layout in ("regw", "fmajor"):
+        mode = "wide" if layout == "regw" else "fmajor"
+        kernel, run = tcv.chain_store_kernel, lambda: tcv.chain_frames_store(
+            x3, s3, tabs, mode)
+    else:
+        g = tcv.group_frames(layout, ops.n1, 64, ops.state_dim)
+        kernel, run = tcv.chain_grouped_kernel, lambda: tcv.chain_frames_grouped(
+            x3, s3, tabs, g)
+    launches = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    if layout == "fmajor":
+        got = tuple(p.transpose(1, 2).reshape(x3.shape[0], -1) for p in got)
+    ref = tchain.chain_frames_reference(x3.double(), s3.double(),
+                                        _tables64(tabs))
+    assert _snr_db(ref, got) >= 130.0
+
+
+@pytest.mark.parametrize("g", [1, 3, 16])
+def test_grouped_kernel_partial_last_block(g, cuda_device):
+    """A frame count that g does not divide: the last block holds fewer
+    frames and writes only theirs."""
+    ops, x3, s3 = _chain_frames(768, cuda_device)
+    x3, s3 = x3[:13].contiguous(), s3[:13].contiguous()
+    tabs = ops.tables()
+    got = tcv.chain_frames_grouped(x3, s3, tabs, g)
+    ref = tchain.chain_frames_reference(x3.double(), s3.double(),
+                                        _tables64(tabs))
+    assert _snr_db(ref, got) >= 130.0
+
+
+@pytest.mark.parametrize("half,layout", [(False, None), (True, "reg"),
+                                         (True, "k1"), (True, "regs"),
+                                         (True, "regw"), (True, "reg2"),
+                                         (True, "reg4"), (True, "regp"),
+                                         (True, "fmajor"), (True, "pair")])
+def test_fused_chain_frames_on_the_card(half, layout, cuda_device):
+    """The public entry on the card: one launch a call, the JAX shapes, and
+    >= 130 dB against scipy sosfilt + numpy fft in float64."""
+    n = 4096
+    ops = tchain.FusedNorthStarOperators(default_design(), n)
+    assert ops.H.device.type == "cuda"
+    x = np.random.default_rng(9).standard_normal((3, 4 * n)).astype(np.float32)
+    kernels = [tchain.chain_kernel, tchain.chain_full_kernel,
+               tcv.chain_regs_kernel, tcv.chain_grouped_kernel,
+               tcv.chain_store_kernel]
+    before = sum(k.launches for k in kernels)
+    (sr, si), _ = tchain.fused_chain_frames(
+        ops, torch.as_tensor(x, device=cuda_device),
+        torch.zeros(3, ops.state_dim, device=cuda_device),
+        half_spectrum=half, layout=layout)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in kernels) == before + 1
+    y = sig.sosfilt(sos_matrix(ops.design), x.astype(np.float64), axis=-1)
+    full = np.fft.fft(y.reshape(3, -1, n))
+    if half:
+        assert sr.shape == (3, 4, 64, 32)
+        ref = full[..., : n // 2].copy()
+        ref[..., 0] += 1j * full[..., n // 2].real
+    else:
+        assert sr.shape == (3, 4, 128, 32)
+        ref = full
+    got = (sr.reshape(3, 4, -1).double() + 1j * si.reshape(3, 4, -1).double()
+           ).cpu().numpy()
+    err = (np.abs(got - ref) ** 2).sum()
+    assert 10 * np.log10((np.abs(ref) ** 2).sum() / err) >= 130.0
+
+
+def test_chain_variant_kernels_reject_what_they_do_not_take(cuda_device):
+    ops, x3, s3 = _chain_frames(1024, cuda_device)
+    tabs = ops.tables()
+    with pytest.raises(ValueError, match="float32"):
+        tcv.chain_regs_kernel(x3.double(), s3, tabs)
+    with pytest.raises(ValueError, match="fit a block"):
+        tcv.chain_grouped_kernel(x3, s3, tabs, 64)
+    with pytest.raises(ValueError, match="launches"):
+        tcv.chain_store_kernel(x3, s3, tabs, "full")
+    with pytest.raises(ValueError, match="expected"):
+        tchain.chain_full_kernel(x3, s3, tabs)     # the half table

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from simpledsp_tpu_torch.device import resolve_device
+from simpledsp_tpu_torch.kernels.chain import FusedNorthStarOperators
 from simpledsp_tpu_torch.models import sdr as tsdr
 from simpledsp_tpu_torch.models.northstar import NorthStarChain
 from simpledsp_tpu_torch.ops import fir as tfir
@@ -31,6 +32,8 @@ BUILDERS = {
     "PolyphaseDecimator": lambda **kw: tfir.PolyphaseDecimator(_TAPS, 4, **kw),
     "OverlapSaveFIR": lambda **kw: tfir.OverlapSaveFIR(_TAPS, block_size=64,
                                                        **kw),
+    "FusedNorthStarOperators": lambda **kw: FusedNorthStarOperators(
+        design_lowpass(4, 2000.0, 39000.0), 1024, **kw),
     "CZT": lambda **kw: ttr.CZT(64, **kw),
     "ZoomFFT": lambda **kw: ttr.ZoomFFT(64, [0.1, 0.4], **kw),
 }

@@ -178,6 +178,7 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.models.northstar\n"
             "import simpledsp_tpu_torch.convert\n"
             "import simpledsp_tpu_torch.kernels.chain\n"
+            "import simpledsp_tpu_torch.kernels.chain_variants\n"
             "import simpledsp_tpu_torch.models.sdr\n"
             "import simpledsp_tpu_torch.kernels.pfb\n"
             "import simpledsp_tpu_torch.design.optimal_fir\n"
@@ -208,12 +209,17 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
             "import simpledsp_tpu_torch.kernels.ols as ko\n"
             "import simpledsp_tpu_torch.kernels.conv2d as k2\n"
             "import simpledsp_tpu_torch.kernels.fft as kf\n"
+            "import simpledsp_tpu_torch.kernels.chain_variants as kv\n"
             "from simpledsp_tpu_torch.kernels import _build\n"
             "assert kc.chain_kernel.launches == 0\n"
             "assert kp.pfb_flat_kernel.launches == 0\n"
             "assert ko.ols_kernel.launches == 0\n"
             "assert k2.conv2d_kernel.launches == 0\n"
             "assert kf.fft_frames_kernel.launches == 0\n"
+            "assert kc.chain_full_kernel.launches == 0\n"
+            "assert kv.chain_regs_kernel.launches == 0\n"
+            "assert kv.chain_grouped_kernel.launches == 0\n"
+            "assert kv.chain_store_kernel.launches == 0\n"
             "try:\n"
             "    _build._nvcc()\n"
             "except RuntimeError as e:\n"
