@@ -2,7 +2,8 @@
 checks each against its plain version, drives the north-star chain, both
 SDR receiver banks, the 1-D and 2-D convolution paths, the spectral
 transforms, the pulse-Doppler radar and the chain's full spectrum and
-layouts end to end, and times them.
+layouts end to end, and times them; then runs the probes of the card
+(``simpledsp_tpu_torch/tools``) on their own kernels.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,8 @@ Phases (any failure exits nonzero before the result line):
 
 1. Device: a CUDA device is required; prints the card's name and power limit.
 2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``chain_tc.cu``,
-   ``pfb.cu``, ``ols.cu``, ``conv2d.cu`` and ``fft.cu`` into ``build/``, one
-   nvcc for each, started together.
+   ``pfb.cu``, ``ols.cu``, ``conv2d.cu``, ``fft.cu`` and ``probes.cu`` into
+   ``build/``, one nvcc for each, started together.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -68,7 +69,9 @@ Phases (any failure exits nonzero before the result line):
     ``convolve_ols_fused`` (frames read in place, zero history and tail)
     holds >= 100 dB on all rows against ``conv_ols_frames_reference`` in
     float64 on the padded frames.  ``OverlapSaveFIR(h, block_size=4096)``
-    over 2 chained calls equals one call over both, bit for bit.  ms/call
+    over 2 chained calls equals one call over both, bit for bit, and so
+    does ``OverlapSaveFIR`` with 40 taps and block 64 (nfft 128, the
+    engine's small-DFT route) over 3 chained calls.  ms/call
     and Msamples/s; the plain ``OverlapSaveFIR`` route and ``torch.fft``
     (cuFFT) as labelled baselines.
 12. conv2d kernel against its plain version at 32 x 512 x 512 float32 with
@@ -130,6 +133,16 @@ Phases (any failure exits nonzero before the result line):
     on call 0 for L = regs, regw, fmajor, reg2, reg4, regp, pair: one
     launch of L's kernel a call, channels 0-1 >= 130 dB against the packed
     float64 oracle; ms/call for regs, regw, reg2 and pair.
+20. Probes: ``run()`` of each of ``simpledsp_tpu_torch.tools.probe_dma_scale``,
+    ``probe_store``, ``probe_dispatch``, ``probe_hlo``, ``probe_transpose``,
+    ``probe_relayout`` and ``probe_mosaic``, the launch counts set to 0
+    before and read after: each of the four probe kernels (scale_copy,
+    permute, contract, row_sum) launches on that path.  Each probe holds
+    every launch to its plain version and raises otherwise: the copies and
+    transposes bit for bit, the products and the row sum (k1-k3) at >= 120
+    dB SNR against the float64 plain version and no more than 6 dB below
+    the float32 plain version.  A line of numbers a probe; the whole result
+    goes to ``chiprun_out/probes.json``.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -142,6 +155,11 @@ The chain family's records (chain_full, chain_regs, chain_grouped with the
 "reg2" numbers, chain_store with the "regw" numbers) take ms, plain ms,
 error and bound from phase 17 at N = 4096 and launches from phases 18-19;
 like the chain, they have no library call (the function carries state).
+The probe kernels' records take their numbers from phase 20: scale_copy
+from probe_dma_scale at f = 16384 (``torch.mul``), permute from
+probe_relayout's relayout kernel alone (``.permute(1, 2, 0).contiguous()``),
+contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
+(``torch.sum``).
 
 The line before the last is a JSON object with the kernels' records; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -802,6 +820,20 @@ def conv1d_path(dev, kols, conv, OverlapSaveFIR):
     b, _ = ols(x[:, CT // 2:], st)
     check(torch.equal(torch.cat([a, b], -1), whole),
           "OverlapSaveFIR: 2 chained calls differ from one call")
+    # nfft 128: the FFT engine's small-DFT route, whose rows must not take
+    # other bits in a call of other rows.
+    small = OverlapSaveFIR(taps[:40], block_size=64, device=dev)
+    check(small.nfft <= 128, f"OverlapSaveFIR(40 taps, block 64) nfft "
+                             f"{small.nfft}")
+    whole, _ = small(x)
+    parts, st = [], None
+    for lo, hi in ((0, 64), (64, 256), (256, CT)):
+        y, st = small(x[:, lo:hi], st)
+        parts.append(y)
+    check(torch.equal(torch.cat(parts, -1), whole),
+          f"OverlapSaveFIR(40 taps, block 64, nfft {small.nfft}): 3 chained "
+          f"calls differ from one call")
+    del whole, parts
     fir_ms = median_ms(lambda: ols(x), reps=3, per=STEADY)
     n = CT + taps.size - 1
     L = 1 << (n - 1).bit_length()
@@ -813,7 +845,9 @@ def conv1d_path(dev, kols, conv, OverlapSaveFIR):
 
     cufft_ms = median_ms(cufft, per=STEADY)
     print(f"1-D path: OverlapSaveFIR(block 4096) streams bit for bit over 2 "
-          f"chained calls; plain OverlapSaveFIR route {fir_ms:.3f} ms/call; "
+          f"chained calls, OverlapSaveFIR(40 taps, block 64, nfft "
+          f"{small.nfft}) over 3; plain OverlapSaveFIR route {fir_ms:.3f} "
+          f"ms/call; "
           f"torch.fft rfft/irfft (cuFFT) of the same convolution "
           f"{cufft_ms:.3f} ms")
     return launches
@@ -1409,6 +1443,76 @@ def full_path(dev, kchain, kcv, design, chain_ms):
     return launches, counts
 
 
+# -- the probes -------------------------------------------------------------------
+
+PROBES = ("probe_dma_scale", "probe_store", "probe_dispatch", "probe_hlo",
+          "probe_transpose", "probe_relayout", "probe_mosaic")
+# (record name, wrapper in kernels/probes.py, probe and key of its numbers,
+#  the TPU kernels it replaces)
+PROBE_RECORDS = (
+    ("scale_copy", "scale_copy_kernel", ("probe_dma_scale", "record"),
+     "tools/probe_dispatch.py:30, tools/probe_dma_scale.py:18, "
+     "tools/probe_store.py:59, tools/probe_hlo.py:17"),
+    ("permute", "permute_kernel", ("probe_relayout", "record"),
+     "tools/probe_store.py:68, tools/probe_relayout.py:33, "
+     "tools/probe_transpose.py:82, tools/probe_mosaic.py:129"),
+    ("contract", "contract_kernel", ("probe_mosaic", "k1"),
+     "tools/probe_mosaic.py:36, tools/probe_mosaic.py:62"),
+    ("row_sum", "row_sum_kernel", ("probe_mosaic", "k3"),
+     "tools/probe_mosaic.py:97"),
+)
+
+
+def brief(obj):
+    """A probe's result for the log: floats to 5 significant digits, each
+    call's trace events cut to the 4 longest."""
+    if isinstance(obj, float):
+        return float(f"{obj:.5g}")
+    if isinstance(obj, dict):
+        return {k: brief(v[:4] if k == "events" else v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [brief(v) for v in obj]
+    return obj
+
+
+def probe_phase(dev, kprobes):
+    """Phase 20; returns the probe kernels' records."""
+    import importlib
+    from pathlib import Path
+    torch.cuda.synchronize()
+    zero_counts()
+    results = {}
+    for name in PROBES:
+        start = time.perf_counter()
+        module = importlib.import_module(f"simpledsp_tpu_torch.tools.{name}")
+        results[name] = module.run(dev)
+        torch.cuda.synchronize()
+        print(f"probe {name} ({time.perf_counter() - start:.1f} s): "
+              f"{json.dumps(brief(results[name]))}")
+    launches = {rec: getattr(kprobes, attr).launches
+                for rec, attr, _, _ in PROBE_RECORDS}
+    check(all(n > 0 for n in launches.values()),
+          f"a probe kernel did not launch on the probe path: {launches}")
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "probes.json").write_text(json.dumps(results, indent=1))
+    records = []
+    for rec, _, (probe, key), replaces in PROBE_RECORDS:
+        r = results[probe][key]
+        records.append({
+            "name": rec, "route": "cuda",
+            "source": "simpledsp_tpu_torch/csrc/probes.cu",
+            "replaces": replaces, "launches": launches[rec],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], **bound(r["bytes"], r["flops"]),
+            "library_ms": r["library_ms"]})
+    print(f"probe kernels: launches on the probe path {launches}; " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']})"
+        for r in records))
+    return records
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -1442,6 +1546,7 @@ def main() -> int:
     from simpledsp_tpu_torch.kernels import fft as kfft
     from simpledsp_tpu_torch.kernels import ols as kols
     from simpledsp_tpu_torch.kernels import pfb as kpfb
+    from simpledsp_tpu_torch.kernels import probes as kprobes
     from simpledsp_tpu_torch.models import radar, sdr
     from simpledsp_tpu_torch.models.northstar import NorthStarChain, default_design
     from simpledsp_tpu_torch.ops import conv, conv2d
@@ -1455,7 +1560,9 @@ def main() -> int:
                   kpfb.pfb_frames_kernel, kols.ols_kernel, k2d.conv2d_kernel,
                   kfft.fft_frames_kernel, kchain.chain_full_kernel,
                   kcv.chain_regs_kernel, kcv.chain_grouped_kernel,
-                  kcv.chain_store_kernel]
+                  kcv.chain_store_kernel, kprobes.scale_copy_kernel,
+                  kprobes.permute_kernel, kprobes.contract_kernel,
+                  kprobes.row_sum_kernel]
     # The library calls timed beside the kernels run in IEEE float32 too.
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1469,13 +1576,15 @@ def main() -> int:
     start = time.perf_counter()
     build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library,
                kols.ols_kernel.library, k2d.conv2d_kernel.library,
-               kfft.fft_frames_kernel.library, kcv.chain_regs_kernel.library])
+               kfft.fft_frames_kernel.library, kcv.chain_regs_kernel.library,
+               kprobes.scale_copy_kernel.library])
     secs = _build.build_seconds
     print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, chain_tc.cu "
           f"{secs['sdsp_chain_tc']:.2f} s, pfb.cu "
           f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s, "
-          f"conv2d.cu {secs['sdsp_conv2d']:.2f} s and fft.cu "
-          f"{secs['sdsp_fft']:.2f} s in nvcc, "
+          f"conv2d.cu {secs['sdsp_conv2d']:.2f} s, fft.cu "
+          f"{secs['sdsp_fft']:.2f} s and probes.cu "
+          f"{secs['sdsp_probes']:.2f} s in nvcc, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
     chain_record, chain_ms = chain_phases(dev, kchain, NorthStarChain,
@@ -1493,6 +1602,7 @@ def main() -> int:
     fft_main = fft_kernel_phase(dev, kfft)
     fft_launches = transform_path(dev, kfft, tfft, ttr, tsp)
     fft_launches += radar_path(dev, kfft, tfft, radar)
+    probe_records = probe_phase(dev, kprobes)
     flat_err, flat_ms, flat_plain, flat_bound = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain, fr_bound = pfb[("frames", "chan")]
     ols_err, ols_ms, ols_plain, ols_bound, ols_lib = ols[4096]
@@ -1537,7 +1647,7 @@ def main() -> int:
         **{k: family[(form, MAIN_N)][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-    } for name, form, src, replaces in FAMILY_RECORDS]}))
+    } for name, form, src, replaces in FAMILY_RECORDS] + probe_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -13,6 +13,10 @@ Two paths compute the same function:
 - the composable path (``use_kernel=False``): :class:`BlockIIR` over
   ``block_size`` blocks, then :func:`rfft_ri` and :func:`pack_rfft_ri`.
 
+``use_pallas``, the JAX package's name for the switch, is an alias of
+``use_kernel``.  The JAX ``precision`` argument is not taken: the port runs
+IEEE float32 only.
+
 There is no silent fallback: a CUDA chain that cannot run the kernel raises
 at construction, and a chain asked for CUDA where there is none raises.
 ``device=None`` means CUDA (:func:`simpledsp_tpu_torch.device.resolve_device`);
@@ -29,7 +33,7 @@ import torch
 from torch import nn
 
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign, design_lowpass
-from simpledsp_tpu_torch.device import resolve_device
+from simpledsp_tpu_torch.device import resolve_device, resolve_use_kernel
 from simpledsp_tpu_torch.kernels import chain as _kchain
 from simpledsp_tpu_torch.ops.fft import pack_rfft_ri, rfft_ri
 from simpledsp_tpu_torch.ops.iir import BlockIIR, IIRState, iir_init
@@ -58,7 +62,8 @@ class NorthStarChain(nn.Module):
                  fft_size: int = 4096, block_size: int = 256,
                  dtype=torch.float32, device=None,
                  use_kernel: Optional[bool] = None,
-                 projection: Optional[str] = None):
+                 projection: Optional[str] = None,
+                 use_pallas: Optional[bool] = None):
         super().__init__()
         device = resolve_device(device)
         self.design = design or default_design()
@@ -68,10 +73,8 @@ class NorthStarChain(nn.Module):
         self.projection = projection
         self.iir = BlockIIR(self.design, block_size=block_size, dtype=dtype,
                             device=device)
-        if use_kernel is None:
-            use_kernel = device.type == "cuda"
         self.ops = None
-        if use_kernel:
+        if resolve_use_kernel(use_kernel, use_pallas, device):
             # Raises ValueError for an fft_size with no n1 x n2 split.
             self.ops = _kchain.FusedNorthStarOperators(
                 self.design, self.fft_size, dtype=dtype, device=device)

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from simpledsp_tpu_torch.design.fir import lowpass_taps
-from simpledsp_tpu_torch.device import resolve_device
+from simpledsp_tpu_torch.device import resolve_device, resolve_use_kernel
 from simpledsp_tpu_torch.kernels import pfb as _pfb
 from simpledsp_tpu_torch.ops.channelizer import ChanStateRI, PFBChannelizer
 from simpledsp_tpu_torch.ops.demod import DemodStateRI, am_demod_ri, fm_demod_ri
@@ -69,6 +69,7 @@ class FMReceiverBank(nn.Module):
       dtype, device: compute dtype and device (the kernel takes float32);
         ``device=None`` means CUDA and raises where there is none.
       use_kernel: the fused CUDA kernel path; None means "on a CUDA device".
+      use_pallas: the JAX package's name for ``use_kernel``, an alias.
 
     Call with x: (B, T) complex, or a pair (xr, xi) of float planes, or
     real samples, T % (M decim) == 0; returns (audio (B, M, T/M/decim),
@@ -80,7 +81,8 @@ class FMReceiverBank(nn.Module):
                  audio_taps: int = 64, dtype=torch.float32, device=None,
                  use_kernel: Optional[bool] = None, design: str = "kaiser",
                  taps: Optional[np.ndarray] = None,
-                 dec_taps: Optional[np.ndarray] = None):
+                 dec_taps: Optional[np.ndarray] = None,
+                 use_pallas: Optional[bool] = None):
         super().__init__()
         device = resolve_device(device)
         self.m = int(num_channels)
@@ -105,9 +107,7 @@ class FMReceiverBank(nn.Module):
         self._ataps = ataps
         self.audio = PolyphaseDecimator(ataps, decim, dtype=dtype,
                                         device=device)
-        if use_kernel is None:
-            use_kernel = device.type == "cuda"
-        self.use_kernel = bool(use_kernel)
+        self.use_kernel = resolve_use_kernel(use_kernel, use_pallas, device)
         if self.use_kernel:
             m, k = self.m, self.chan.taps_per_branch
             if not _pfb.kernel_supports(m, k):
@@ -256,12 +256,13 @@ class AMReceiverBank(FMReceiverBank):
                  audio_taps: int = 64, dtype=torch.float32, device=None,
                  use_kernel: Optional[bool] = None, design: str = "kaiser",
                  taps: Optional[np.ndarray] = None,
-                 dec_taps: Optional[np.ndarray] = None):
+                 dec_taps: Optional[np.ndarray] = None,
+                 use_pallas: Optional[bool] = None):
         super().__init__(num_channels, fs, decim=decim,
                          taps_per_channel=taps_per_channel,
                          audio_taps=audio_taps, dtype=dtype, device=device,
                          use_kernel=use_kernel, design=design, taps=taps,
-                         dec_taps=dec_taps)
+                         dec_taps=dec_taps, use_pallas=use_pallas)
         self.remove_dc = remove_dc
         self._sc = {}
 

@@ -7,8 +7,10 @@ Port of ``simpledsp_tpu/ops/fft.py``.  N = N1 * N2, x viewed as (N1, N2):
     3. DFT_N2 along axis -1            (recursive)
     4. transpose (k1, k2) -> (k2, k1) and flatten
 
-applied recursively until a factor is <= _MAX_DFT, which is one dense
-matmul against a float64-built table.  Complex values are carried as
+applied recursively until a factor is <= _MAX_DFT, which is dense
+products of one fixed shape against a float64-built table, so that the bits
+of a row do not depend on how many rows are transformed with it (streaming
+callers rely on that).  Complex values are carried as
 explicit (re, im) planes, so every product is a real matmul, and the
 public boundary matches the JAX package's.  ``torch.fft`` is not used.
 
@@ -125,19 +127,54 @@ def _cached_table(build, key: tuple, dtype: torch.dtype,
                                  device=device) for h in build(*key))
 
 
-def _cmatmul(wr, wi, xr, xi, axis: int):
-    """Complex matmul along `axis`:  (wr + i wi) @ (xr + i xi)."""
-    if axis == -2:
-        def dot(w, v):
-            return torch.matmul(w, v)
-    elif axis == -1:
-        def dot(w, v):
-            return torch.matmul(v, w.T)
-    else:
-        raise ValueError(axis)
-    yr = dot(wr, xr) - dot(wi, xi)
-    yi = dot(wr, xi) + dot(wi, xr)
-    return yr, yi
+# Values (rows x n) of each product in the small-DFT route (_dft_last).
+# BLAS picks its kernel and threading by a product's shape (MKL on the CPU,
+# cuBLAS on the card), and with them the order in which a row's sums are
+# taken: one product over all rows gave a row other bits alone than inside a
+# batch, and so did one batched product over a varying number of blocks.
+# So every product of an n-point DFT has the same number of rows, the last
+# one zero-padded, and a row's bits do not depend on how many rows come with
+# it.  Fewer on the CPU, where padding and each product's thread start-up
+# cost host time; more on the card, where each product is a launch.
+_DFT_VALUES_CPU = 1 << 15
+_DFT_VALUES_DEVICE = 1 << 20
+
+
+def _dft_rows(n: int, device: torch.device) -> int:
+    """Rows of each product of the n-point small DFT on ``device``."""
+    values = _DFT_VALUES_CPU if device.type == "cpu" else _DFT_VALUES_DEVICE
+    return max(128, values // n)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_blocks_f64(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """(2n, n) real tables with [xr | xi] @ re = Re(x W^T) and
+    [xr | xi] @ im = Im(x W^T), W the n-point DFT matrix."""
+    wr, wi = dft_matrix(n, inverse=inverse)
+    return np.concatenate([wr.T, -wi.T]), np.concatenate([wi.T, wr.T])
+
+
+def _dft_last(xr: torch.Tensor, xi: torch.Tensor, inverse: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled DFT along the last axis (n <= _MAX_DFT) as dense products
+    of a fixed shape: each block of :func:`_dft_rows` rows of [xr | xi]
+    times the two (2n, n) tables.  Returns contiguous planes."""
+    n = xr.shape[-1]
+    lead = xr.shape[:-1]
+    rows = int(np.prod(lead, dtype=np.int64))
+    block = _dft_rows(n, xr.device)
+    padded = -(-rows // block) * block
+    v = xr.new_empty((padded, 2 * n))
+    v[:rows, :n] = xr.reshape(rows, n)
+    v[:rows, n:] = xi.reshape(rows, n)
+    v[rows:] = 0
+    tre, tim = (_table(t, xr) for t in _dft_blocks_f64(n, bool(inverse)))
+    yr = xr.new_empty((padded, n))
+    yi = torch.empty_like(yr)
+    for lo in range(0, padded, block):
+        torch.mm(v[lo: lo + block], tre, out=yr[lo: lo + block])
+        torch.mm(v[lo: lo + block], tim, out=yi[lo: lo + block])
+    return yr[:rows].reshape(lead + (n,)), yi[:rows].reshape(lead + (n,))
 
 
 # Route this engine through the frames FFT kernel (kernels/fft.py) where
@@ -176,8 +213,7 @@ def _fft_ri(xr: torch.Tensor, xi: torch.Tensor, inverse: bool):
         return yr.reshape(lead + (n,)), yi.reshape(lead + (n,))
 
     if n <= _MAX_DFT:
-        wr64, wi64 = dft_matrix(n, inverse=inverse)
-        return _cmatmul(_table(wr64, xr), _table(wi64, xr), xr, xi, axis=-1)
+        return _dft_last(xr, xi, inverse)
 
     try:
         n1, n2 = _split(n)
@@ -188,21 +224,21 @@ def _fft_ri(xr: torch.Tensor, xi: torch.Tensor, inverse: bool):
         sgn = 1.0 if inverse else -1.0
         return czt_ri(xr, xi, n, w=np.exp(sgn * 2j * np.pi / n),
                       _exact_denom=n)
-    xr = xr.reshape(xr.shape[:-1] + (n1, n2))
-    xi = xi.reshape(xi.shape[:-1] + (n1, n2))
+    # x viewed as (n1, n2), transposed so that t1 is the last axis.
+    xr = xr.reshape(xr.shape[:-1] + (n1, n2)).transpose(-1, -2)
+    xi = xi.reshape(xi.shape[:-1] + (n1, n2)).transpose(-1, -2)
 
-    # Step 1: DFT_n1 along axis -2 (n1 <= _MAX_DFT by construction).
-    wr64, wi64 = dft_matrix(n1, inverse=inverse)
-    xr, xi = _cmatmul(_table(wr64, xr), _table(wi64, xr), xr, xi, axis=-2)
+    # Step 1: DFT_n1 over t1 (n1 <= _MAX_DFT by construction): (..., t2, k1).
+    xr, xi = _dft_last(xr, xi, inverse)
 
-    # Step 2: twiddle (conjugated for inverse).
+    # Step 2: twiddle T[k1, t2], read as (t2, k1) (conjugated for inverse).
     tr64, ti64 = _twiddle_f64(n1, n2)
-    tr = _table(tr64, xr)
-    ti = _table(ti64 if not inverse else -ti64, xr)
+    tr = _table(tr64.T, xr)
+    ti = _table(ti64.T if not inverse else -ti64.T, xr)
     xr, xi = xr * tr - xi * ti, xr * ti + xi * tr
 
-    # Step 3: DFT_n2 along the last axis — recurse (n2 may still be big).
-    xr, xi = _fft_ri(xr, xi, inverse)
+    # Step 3: DFT_n2 over t2 — recurse (n2 may still be big): (..., k1, k2).
+    xr, xi = _fft_ri(xr.transpose(-1, -2), xi.transpose(-1, -2), inverse)
 
     # Step 4: output index k = k1 + n1 k2 -> transpose to (k2, k1), flatten.
     xr = xr.transpose(-1, -2).reshape(xr.shape[:-2] + (n,))
@@ -244,21 +280,22 @@ def ifft_ri(xr: torch.Tensor, xi: torch.Tensor
     return yr * scale, yi * scale
 
 
-def fft_radix2(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's radix-2 entry: requires a power-of-2 size.  The
+def fft_radix2(x: torch.Tensor, *, inverse: bool = False,
+               dtype=None) -> torch.Tensor:
+    """The reference's radix-2 entry: requires a power-of-2 size.  Takes
+    and returns a complex tensor, as :func:`fft` / :func:`ifft` do; the
     result is the mathematical DFT."""
-    if not _is_power_of(xr.shape[-1], 2):
-        raise ValueError(f"fft_radix2 requires power-of-2 size, got {xr.shape[-1]}")
-    return ifft_ri(xr, xi) if inverse else fft_ri(xr, xi)
+    if not _is_power_of(x.shape[-1], 2):
+        raise ValueError(f"fft_radix2 requires power-of-2 size, got {x.shape[-1]}")
+    return ifft(x, dtype=dtype) if inverse else fft(x, dtype=dtype)
 
 
-def fft_radix4(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def fft_radix4(x: torch.Tensor, *, inverse: bool = False,
+               dtype=None) -> torch.Tensor:
     """The reference's radix-4 entry: requires a power-of-4 size."""
-    if not _is_power_of(xr.shape[-1], 4):
-        raise ValueError(f"fft_radix4 requires power-of-4 size, got {xr.shape[-1]}")
-    return ifft_ri(xr, xi) if inverse else fft_ri(xr, xi)
+    if not _is_power_of(x.shape[-1], 4):
+        raise ValueError(f"fft_radix4 requires power-of-4 size, got {x.shape[-1]}")
+    return ifft(x, dtype=dtype) if inverse else fft(x, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,7 +22,11 @@ and no more than 6 dB below the float32 plain version's own SNR; the paths
 on the engine >= 100 dB against numpy / scipy in float64 (the JAX package's
 on-chip bar for the fused transforms).  The full-spectrum chain kernel and
 the layout kernels (regs, grouped, store): >= 130 dB against the float64
-plain version, as the chain kernel.
+plain version, as the chain kernel.  The probes' kernels: the copy and the
+transpose equal their plain versions bit for bit; the product and the row
+sum >= 120 dB against the float64 plain version and no more than 6 dB below
+the float32 plain version (the frames FFT kernel's bar).  The FFT engine
+gives a row the same bits in any batch, as on the CPU.
 """
 
 import numpy as np
@@ -38,6 +42,7 @@ from simpledsp_tpu_torch.kernels import conv2d as tk2d
 from simpledsp_tpu_torch.kernels import fft as tkfft
 from simpledsp_tpu_torch.kernels import ols as tols
 from simpledsp_tpu_torch.kernels import pfb as tpfb
+from simpledsp_tpu_torch.kernels import probes as tprobes
 from simpledsp_tpu_torch.kernels.fft import _best_split
 from simpledsp_tpu_torch.models import radar as trd
 from simpledsp_tpu_torch.models import sdr as tsdr
@@ -339,6 +344,38 @@ def test_overlap_save_fir_streams_bit_exact_on_the_card(cuda_device):
     assert torch.equal(torch.cat([a, b], -1), whole)
 
 
+@pytest.mark.parametrize("n", [8, 64, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_engine_rows_get_the_same_bits_in_any_batch(n, dtype, cuda_device):
+    """A row's transform does not depend on the rows transformed with it,
+    also across the small-DFT route's 8192-row products on the card."""
+    rng = np.random.default_rng(n)
+    xr, xi = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+              for a in rng.standard_normal((2, 20000, n)))
+    for entry in (tfft.fft_ri, tfft.ifft_ri):
+        whole = entry(xr, xi)
+        for lo, count in ((0, 1), (5, 3), (8190, 7), (12000, 3000),
+                          (19999, 1)):
+            part = entry(xr[lo: lo + count], xi[lo: lo + count])
+            for p, w in zip(part, whole):
+                assert torch.equal(p, w[lo: lo + count]), (entry, lo, count)
+
+
+def test_overlap_save_fir_streams_bit_exact_at_nfft_128(cuda_device):
+    rng = np.random.default_rng(40)
+    h = rng.standard_normal(40)
+    x = torch.as_tensor(rng.standard_normal((4, 6 * 64)), dtype=torch.float32,
+                        device=cuda_device)
+    ols = OverlapSaveFIR(h, block_size=64, device=cuda_device)
+    assert ols.nfft == 128
+    whole, _ = ols(x)
+    parts, st = [], None
+    for lo, hi in ((0, 64), (64, 256), (256, 384)):
+        y, st = ols(x[:, lo:hi], st)
+        parts.append(y)
+    assert torch.equal(torch.cat(parts, -1), whole)
+
+
 def _frames_snr(got, ref):
     return _snr_db(ref, got)
 
@@ -580,3 +617,86 @@ def test_chain_variant_kernels_reject_what_they_do_not_take(cuda_device):
         tcv.chain_store_kernel(x3, s3, tabs, "full")
     with pytest.raises(ValueError, match="expected"):
         tchain.chain_full_kernel(x3, s3, tabs)     # the half table
+
+
+# -- the probes' kernels (kernels/probes.py) ----------------------------------
+
+@pytest.mark.parametrize("n", [8 * 128, 1000003])
+@pytest.mark.parametrize("vec_bytes", [4, 8, 16])
+def test_scale_copy_kernel_bit_exact(n, vec_bytes, cuda_device):
+    x = torch.randn(n, generator=torch.Generator(cuda_device).manual_seed(n),
+                    device=cuda_device)
+    before = tprobes.scale_copy_kernel.launches
+    assert torch.equal(tprobes.scale_copy(x, vec_bytes=vec_bytes), x * 2.0)
+    assert tprobes.scale_copy_kernel.launches == before + 1
+    tile = x[:1024].view(8, 128)
+    assert torch.equal(tprobes.scale_copy(tile, 0.5, same_tile_blocks=64),
+                       tile * 0.5)
+
+
+@pytest.mark.parametrize("shape,rows,batch", [((16, 16, 128), 32, 1),
+                                              ((5, 100, 33), 64, 2),
+                                              ((3, 1000, 45), 2048, 8)])
+def test_permute_kernel_bit_exact(shape, rows, batch, cuda_device):
+    x = torch.randn(shape, generator=torch.Generator(cuda_device).manual_seed(1),
+                    device=cuda_device)
+    before = tprobes.permute_kernel.launches
+    got = tprobes.permute(x, 1.5, rows_per_block=rows, batch_per_block=batch)
+    assert torch.equal(got, tprobes.permute_reference(x, 1.5))
+    assert tprobes.permute_kernel.launches == before + 1
+    view = x.permute(1, 0, 2)                     # strided, as the relayout
+    if view.shape[2] % 2 == 0:
+        for g, w in zip(tprobes.permute(view, split=True),
+                        tprobes.permute_reference(view, split=True)):
+            assert torch.equal(g, w)
+
+
+def _probe_snr_ok(got, plain32, ref64):
+    snr = _snr_db([ref64], [got])
+    return snr >= 120.0 and snr >= _snr_db([ref64], [plain32]) - 6.0, snr
+
+
+@pytest.mark.parametrize("m,k,n,group", [(64, 320, 320, None),
+                                         (2048, 128, 10, 32),
+                                         (37, 45, 13, None)])
+def test_contract_kernel_matches_plain_version(m, k, n, group, cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    a = torch.randn(m, k, generator=gen, device=cuda_device)
+    b = torch.randn(n, k, generator=gen, device=cuda_device).T   # strided
+    sf = (None if group is None else
+          torch.randn(m // group, n, generator=gen, device=cuda_device))
+    before = tprobes.contract_kernel.launches
+    got = tprobes.contract(a, b, sf=sf, group=group or 1)
+    assert tprobes.contract_kernel.launches == before + 1
+    ref = tprobes.contract_reference(a.double(), b.double(),
+                                     None if sf is None else sf.double(),
+                                     group or 1)
+    ok, snr = _probe_snr_ok(got, tprobes.contract_reference(a, b, sf,
+                                                            group or 1), ref)
+    assert ok, snr
+
+
+@pytest.mark.parametrize("rows,cols", [(16384, 320), (1001, 7), (33, 1000)])
+def test_row_sum_kernel_matches_plain_version(rows, cols, cuda_device):
+    x = torch.randn(rows, cols, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(rows))
+    before = tprobes.row_sum_kernel.launches
+    got = tprobes.row_sum(x)
+    assert tprobes.row_sum_kernel.launches == before + 1
+    ok, snr = _probe_snr_ok(got, tprobes.row_sum_reference(x),
+                            tprobes.row_sum_reference(x.double()))
+    assert ok, snr
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros(4, 32, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tprobes.scale_copy(x.double())
+    with pytest.raises(ValueError, match="aligned"):
+        tprobes.scale_copy(x.view(-1)[1:])
+    with pytest.raises(ValueError, match="float32"):
+        tprobes.permute(x.double())
+    with pytest.raises(ValueError, match="float32"):
+        tprobes.contract(x[0], x[0].T.double())
+    with pytest.raises(ValueError, match="float32"):
+        tprobes.row_sum(x[0].double())

@@ -74,14 +74,15 @@ def test_pack_unpack_rfft_ri(n, rng):
 
 @pytest.mark.parametrize("n", [16, 64, 256, 1024])
 def test_radix_entries_match_numpy(n, rng):
-    xr, xi = rng.standard_normal((2, 2, n))
-    ref = np.fft.fft(xr + 1j * xi)
-    yr, yi = tfft.fft_radix2(_t(xr), _t(xi))
-    _close(yr.numpy() + 1j * yi.numpy(), ref)
-    br, bi = tfft.fft_radix2(yr, yi, inverse=True)
-    _close(br.numpy() + 1j * bi.numpy(), xr + 1j * xi)
-    yr, yi = tfft.fft_radix4(_t(xr), _t(xi))      # every n here is 4^k
-    _close(yr.numpy() + 1j * yi.numpy(), ref)
+    """The JAX signature: one complex tensor in, one complex tensor out."""
+    x = rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+    ref = np.fft.fft(x)
+    y = tfft.fft_radix2(_t(x))
+    assert y.dtype == torch.complex128
+    _close(y.numpy(), ref)
+    _close(tfft.fft_radix2(y, inverse=True).numpy(), x)
+    _close(tfft.fft_radix4(_t(x)).numpy(), ref)   # every n here is 4^k
+    assert tfft.fft_radix4(_t(x), dtype=torch.float32).dtype == torch.complex64
 
 
 @pytest.mark.parametrize("entry,n", [("fft_radix2", 12), ("fft_radix2", 96),
@@ -91,8 +92,39 @@ def test_radix_gates_raise_as_in_jax(entry, n):
     with pytest.raises(ValueError, match=entry):
         getattr(jfft, entry)(jnp.zeros(n, jnp.complex128))
     with pytest.raises(ValueError, match=entry):
-        getattr(tfft, entry)(torch.zeros(n, dtype=torch.float64),
-                             torch.zeros(n, dtype=torch.float64))
+        getattr(tfft, entry)(torch.zeros(n, dtype=torch.complex128))
+
+
+@pytest.mark.parametrize("entry,n", [("fft_radix2", 1024),
+                                     ("fft_radix4", 4096)])
+def test_radix_entries_match_jax_entries(entry, n, rng):
+    """``tests/test_fft.py``'s radix cases, against the JAX entries: the
+    forward and inverse transforms, and the gates at 512 and 1000."""
+    x = rng.standard_normal(n) + 0j
+    ours, theirs = getattr(tfft, entry), getattr(jfft, entry)
+    _close(ours(_t(x)).numpy(), theirs(jnp.asarray(x)))
+    _close(ours(_t(x), inverse=True).numpy(),
+           theirs(jnp.asarray(x), inverse=True))
+    bad = 512 if entry == "fft_radix4" else 1000
+    with pytest.raises(ValueError, match=entry):
+        ours(_t(x[:bad]))
+
+
+@pytest.mark.parametrize("n", [8, 64, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_get_the_same_bits_in_any_batch(n, dtype, rng):
+    """A row's transform does not depend on the rows beside it: slices of 1,
+    3 and 7 rows, at several offsets, give the bits those rows have inside
+    a batch of 60 (streaming callers such as ``OverlapSaveFIR`` rely on
+    it)."""
+    xr, xi = (torch.as_tensor(a, dtype=dtype)
+              for a in rng.standard_normal((2, 60, n)))
+    for entry in (tfft.fft_ri, tfft.ifft_ri):
+        whole = entry(xr, xi)
+        for lo, count in ((0, 1), (0, 7), (5, 3), (29, 7), (59, 1), (53, 7)):
+            part = entry(xr[lo: lo + count], xi[lo: lo + count])
+            for p, w in zip(part, whole):
+                assert torch.equal(p, w[lo: lo + count]), (entry, lo, count)
 
 
 @pytest.mark.parametrize("n,factor", [(257, 257), (262, 131), (524, 131),

@@ -146,6 +146,25 @@ def test_module_conversion_moves_every_table(rng):
     np.testing.assert_allclose(bi.numpy(), ai.numpy(), rtol=0, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_use_pallas_is_an_alias_of_use_kernel(use_pallas, rng):
+    """The JAX package's keyword picks the same path and the same spectra;
+    both keywords with different values raise."""
+    jd = jns.default_design()
+    design = design_from_numpy(jd.b, jd.a, jd.gain, jd.ftype, jd.f0, jd.fs,
+                               jd.q)
+    chain = NorthStarChain(design=design, dtype=torch.float64, device="cpu",
+                           use_pallas=use_pallas)
+    assert chain.use_kernel is use_pallas
+    x = torch.as_tensor(rng.standard_normal((2, 2 * 4096)))
+    (ar, ai), _ = chain(x)
+    (br, bi), _ = _chain(use_pallas)(x)
+    assert torch.equal(ar, br) and torch.equal(ai, bi)
+    assert _chain(use_pallas, use_pallas=use_pallas).use_kernel is use_pallas
+    with pytest.raises(ValueError, match="use_pallas"):
+        _chain(use_pallas, use_pallas=not use_pallas)
+
+
 def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="multiple"):
         _chain(False)(torch.zeros(1, 5000, dtype=torch.float64))
@@ -192,6 +211,14 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.ops.transforms\n"
             "import simpledsp_tpu_torch.ops.spectral\n"
             "import simpledsp_tpu_torch.models.radar\n"
+            "import simpledsp_tpu_torch.kernels.probes\n"
+            "import simpledsp_tpu_torch.tools.probe_dma_scale\n"
+            "import simpledsp_tpu_torch.tools.probe_store\n"
+            "import simpledsp_tpu_torch.tools.probe_dispatch\n"
+            "import simpledsp_tpu_torch.tools.probe_hlo\n"
+            "import simpledsp_tpu_torch.tools.probe_transpose\n"
+            "import simpledsp_tpu_torch.tools.probe_relayout\n"
+            "import simpledsp_tpu_torch.tools.probe_mosaic\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
             "assert not bad, bad\n")
@@ -210,6 +237,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
             "import simpledsp_tpu_torch.kernels.conv2d as k2\n"
             "import simpledsp_tpu_torch.kernels.fft as kf\n"
             "import simpledsp_tpu_torch.kernels.chain_variants as kv\n"
+            "import simpledsp_tpu_torch.kernels.probes as kq\n"
             "from simpledsp_tpu_torch.kernels import _build\n"
             "assert kc.chain_kernel.launches == 0\n"
             "assert kp.pfb_flat_kernel.launches == 0\n"
@@ -220,6 +248,10 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
             "assert kv.chain_regs_kernel.launches == 0\n"
             "assert kv.chain_grouped_kernel.launches == 0\n"
             "assert kv.chain_store_kernel.launches == 0\n"
+            "for k in (kq.scale_copy_kernel, kq.permute_kernel,\n"
+            "          kq.contract_kernel, kq.row_sum_kernel):\n"
+            "    assert k.launches == 0\n"
+            "assert not _build.build_seconds\n"
             "try:\n"
             "    _build._nvcc()\n"
             "except RuntimeError as e:\n"

@@ -200,6 +200,25 @@ def test_rejects_what_it_cannot_run():
             cls(16, fs=FS, device="cuda")
 
 
+@pytest.mark.parametrize("cls", [tsdr.FMReceiverBank, tsdr.AMReceiverBank])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_use_pallas_is_an_alias_of_use_kernel(cls, use_pallas, rng):
+    """The JAX package's keyword picks the same path and the same audio;
+    both keywords with different values raise."""
+    bank = cls(16, FS, use_pallas=use_pallas, dtype=torch.float64,
+               device="cpu")
+    assert bank.use_kernel is use_pallas
+    ref = cls(16, FS, use_kernel=use_pallas, dtype=torch.float64,
+              device="cpu")
+    x = _iq(rng, 16 * 64)
+    assert torch.equal(bank(x)[0], ref(x)[0])
+    assert cls(16, FS, use_kernel=use_pallas, use_pallas=use_pallas,
+               device="cpu").use_kernel is use_pallas
+    with pytest.raises(ValueError, match="use_pallas"):
+        cls(16, FS, use_kernel=use_pallas, use_pallas=not use_pallas,
+            device="cpu")
+
+
 @pytest.mark.parametrize("form", ["pair", "complex_tensor", "real"])
 def test_input_forms_agree(form, rng):
     bank = _bank("fm", None, True)
