@@ -12,7 +12,8 @@ Phases (any failure exits nonzero before the result line):
 1. Device: a CUDA device is required; prints the card's name and power limit.
 2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``chain_tc.cu``,
    ``pfb.cu``, ``ols.cu``, ``conv2d.cu``, ``fft.cu`` and ``probes.cu`` into
-   ``build/``, one nvcc for each, started together.
+   ``build/``, one nvcc for each, started together (``chain.cu`` and
+   ``fft.cu`` both include the FFT core ``fft_core.cuh``).
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -94,7 +95,10 @@ Phases (any failure exits nonzero before the result line):
     more than 6 dB below the float32 plain version's own SNR.  rfft_ri's
     even / odd strided views of 1024 x 8192 give the bits of their
     contiguous copies.  Kernel, float32 plain and ``torch.fft`` (cuFFT, a
-    yardstick the port never calls) ms, and the bound.
+    yardstick the port never calls) ms, and the bound; beside them, apart,
+    the kernel and ``torch.fft`` as CUDA-graph replays of 10 calls, the
+    device's time without the host's (a wrapper's host work takes about as
+    long as the kernel at 4 M samples a call).
 15. Transform path at the JAX package's on-chip sizes
     (``tools/ab_fused.py:78-92``, ``tools/verify_fused_transforms.py``):
     ``dct(x, 2, norm="ortho")`` and ``analytic_ri`` on 1024 x 4096, ``fft_ri``
@@ -112,7 +116,9 @@ Phases (any failure exits nonzero before the result line):
     the map >= 100 dB against a float64 numpy oracle, both targets detected
     in every CPI, a detection-cell fraction below 5e-3, three kernel
     launches a call (8192-point forward and inverse, 256-point Doppler).
-    ms/call, and with the kernel routing off.
+    ms/call, and with the kernel routing off.  The map's accuracy stage by
+    stage (``radar_stages``: range FFT, inverse, matched filter, Doppler
+    FFT, and the map on and off the targets' cells).
     Phases 14-16 time windows of 10 back-to-back calls (3 for the radar).
 17. The rest of the chain kernel family against its float64 plain versions
     on the frames and starts of 16 x 2^20 float32 noise (seed 17): the
@@ -965,6 +971,7 @@ def snr_planes(ref, got) -> float:
 
 def fft_kernel_phase(dev, kfft):
     """Phase 14; returns the record's numbers at N = 4096, forward complex."""
+    from simpledsp_tpu_torch.tools._common import graph_ms
     rng = np.random.default_rng(14)
     main = None
     for n in FFT_SIZES:
@@ -1011,13 +1018,15 @@ def fft_kernel_phase(dev, kfft):
             plain_ms = median_ms(lambda: plain(torch.float32), reps=3,
                                  per=STEADY)
             lib_ms = median_ms(lib, per=STEADY)
+            graph = (graph_ms(run, per=STEADY), graph_ms(lib, per=STEADY))
             ops = (2.5 if form == "real" else 5.0) * n * np.log2(n) * f
             b = bound(nbytes(planes, got), ops)
             print(f"frames FFT N={n} {form} F={f}: {snr:.2f} dB vs float64 "
                   f"plain (float32 plain {plain_snr:.2f} dB), max |err| "
                   f"{err:.3e}; kernel {ms:.4f} ms, float32 plain "
                   f"{plain_ms:.3f} ms, torch.fft {lib_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); CUDA graph: "
+                  f"kernel {graph[0]:.4f} ms, torch.fft {graph[1]:.4f} ms")
             check(snr >= MIN_FFT_DB and snr >= plain_snr - 6.0,
                   f"frames FFT N={n} {form}: {snr:.2f} dB (float32 plain "
                   f"{plain_snr:.2f} dB)")
@@ -1150,8 +1159,9 @@ def transform_path(dev, kfft, tfft, ttr, tsp):
     return launches
 
 
-def radar_path(dev, kfft, tfft, radar):
-    """Phase 16; returns the frames kernel's launches on the path."""
+def radar_scene(dev, radar):
+    """The radar's scene (seed 0): the chirp's (re, im) and the float32 I/Q
+    on the host and on ``dev``."""
     rng = np.random.default_rng(0)
     tx_re, tx_im = radar.lfm_chirp(512, 0.8)
     tx = tx_re + 1j * tx_im
@@ -1163,8 +1173,72 @@ def radar_path(dev, kfft, tfft, radar):
             amp * np.exp(2j * np.pi * dop * p / RP)[:, None] * tx[None, :])
     zr, zi = z.real.astype(np.float32), z.imag.astype(np.float32)
     del z
-    xr = torch.as_tensor(zr, device=dev)
-    xi = torch.as_tensor(zi, device=dev)
+    return (tx_re, tx_im, zr, zi, torch.as_tensor(zr, device=dev),
+            torch.as_tensor(zi, device=dev))
+
+
+def radar_stages(dev, scene=None) -> dict:
+    """The radar map's accuracy stage by stage, SNR in dB over all 16 CPIs:
+    each stage runs on the card on the float32 rounding of the float64
+    result of the stage before and is held to float64 numpy on that same
+    input.  "map" is phase 16's number; "map, targets' cells" and "map,
+    other cells" split it into the 5 x 5 cells around each target's peak
+    and the rest.  Uses only entries the port has had since the radar's
+    slice, so it also runs against an earlier checkout's package."""
+    import torch.nn.functional as F
+
+    from simpledsp_tpu_torch.models import radar
+    from simpledsp_tpu_torch.ops import fft as tfft
+    tx_re, tx_im, zr, zi, xr, xi = scene or radar_scene(dev, radar)
+    tx = tx_re + 1j * tx_im
+    m = 1 << (RS + tx.size - 2).bit_length()
+    hspec = np.conj(np.fft.fft(tx, m))
+    w = radar.window_taps("hann", RP)[:, None]
+    peaks = np.zeros((RP, RS), bool)
+    for delay, dop, _ in RADAR_TARGETS:
+        row = (dop + RP // 2) % RP
+        peaks[row - 2: row + 3, delay - 2: delay + 3] = True
+    sums = {}
+
+    def add(key, ref, got):
+        s2, e2 = sums.get(key, (0.0, 0.0))
+        sums[key] = (s2 + float((np.abs(ref) ** 2).sum()),
+                     e2 + float((np.abs(got - ref) ** 2).sum()))
+
+    def planes(a):
+        a = np.ascontiguousarray(a)
+        return (torch.as_tensor(a.real.astype(np.float32), device=dev),
+                torch.as_tensor(a.imag.astype(np.float32), device=dev))
+
+    def host(pl):
+        return pl[0].double().cpu().numpy() + 1j * pl[1].double().cpu().numpy()
+
+    for c in range(RC):
+        fz = np.fft.fft(zr[c].astype(np.float64) + 1j * zi[c], m, axis=-1)
+        pad = (0, m - RS)
+        add("range FFT", fz, host(tfft.fft_ri(F.pad(xr[c], pad),
+                                              F.pad(xi[c], pad))))
+        prod = planes(fz * hspec)
+        add("inverse", np.fft.ifft(host(prod)), host(tfft.ifft_ri(*prod)))
+        y = np.fft.ifft(fz * hspec)[:, :RS]
+        add("matched filter", y,
+            host(radar.matched_filter_ri(xr[c], xi[c], tx_re, tx_im)))
+        cols = planes((y * w).T)
+        add("Doppler FFT", np.fft.fft(host(cols)), host(tfft.fft_ri(*cols)))
+        ref = np.roll(np.abs(np.fft.fft(y * w, axis=0)) ** 2, RP // 2, axis=0)
+        got = radar.range_doppler_map(xr[c], xi[c], tx_re, tx_im)
+        got = got.double().cpu().numpy()
+        add("map", ref, got)
+        add("map, targets' cells", ref[peaks], got[peaks])
+        add("map, other cells", ref[~peaks], got[~peaks])
+    return {k: float(10 * np.log10(s2 / e2)) for k, (s2, e2) in sums.items()}
+
+
+def radar_path(dev, kfft, tfft, radar):
+    """Phase 16; returns the frames kernel's launches on the path."""
+    scene = radar_scene(dev, radar)
+    tx_re, tx_im, zr, zi, xr, xi = scene
+    tx = tx_re + 1j * tx_im
 
     def run():
         rdm = radar.range_doppler_map(xr, xi, tx_re, tx_im)
@@ -1208,6 +1282,9 @@ def radar_path(dev, kfft, tfft, radar):
           f"fraction {frac:.3e}; {ms:.3f} ms/call "
           f"({RC * RP * RS / ms / 1e3:.1f} Msamples/s); plain four-step "
           f"engine {plain_ms:.3f} ms/call")
+    stages = radar_stages(dev, scene)
+    print("radar stages, dB against float64 numpy on each stage's float32 "
+          "input: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     check(snr >= MIN_TRANSFORM_DB, f"radar map {snr:.2f} dB")
     check(all(h == RC for h in hits), f"radar targets detected in {hits} CPIs")
     check(frac < 5e-3, f"radar detection-cell fraction {frac:.3e}")

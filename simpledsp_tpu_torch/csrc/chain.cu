@@ -1,14 +1,15 @@
-// Fused north-star chain kernels for Hopper (sm_90a): block IIR + four-step
-// FFT of each frame, the filtered signal never written to device memory.
+// Fused north-star chain kernels for Hopper (sm_90a): block IIR + FFT of
+// each frame, the filtered signal never written to device memory.
 //
 // Replaces the TPU kernels reached through simpledsp_tpu/kernels/chain.py
 // fused_chain_frames:
-//   chain_frames_kernel, mode kNatural: _make_packed_reg_kernel (:362) and
+//   chain_natural_kernel: _make_packed_reg_kernel (:362) and
 //     _make_packed_kernel (:283), layouts "reg" and "k1", the packed half
 //     spectrum in natural bin order (the TPU's two output layouts have no
 //     counterpart here);
-//   mode kFull: _make_fused_kernel (:425), half_spectrum=False, the full
-//     complex spectrum in natural bin order, any n2 <= 128 (odd too);
+//   chain_frames_kernel, mode kFull: _make_fused_kernel (:425),
+//     half_spectrum=False, the full complex spectrum in natural bin order,
+//     any n2 <= 128 (odd too);
 //   modes kWide and kFmajor: the store orders of chain_variants.py
 //     _make_packed_regw_kernel (:144, 16-byte stores of the natural-order
 //     planes) and _make_packed_fmajor_kernel (:374, each frame's (n1, n2/2)
@@ -18,8 +19,25 @@
 //     step 1 over g frames a block.
 // chain_tc.cu holds the split-bf16 tensor-core form ("regs").
 //
-// Per frame, with x viewed as (n1, n2) and the sub-block starts s as
-// (D, n1), D = 2(M+1):
+// The main path's kernel, chain_natural_kernel, runs per frame the IIR
+// block, then the real FFT of y as the N/2-point complex FFT of
+// z[t] = y[2t] + i y[2t+1] on the FFT core (fft_core.cuh) and the split
+// into the one-sided spectrum (see the kernel).  What bounds it: at
+// N = 4096 the IIR block is about 0.34 M FMAs a frame (0.30 M in the
+// chunks of H^T it keeps, 0.04 M for the starts) and the FFT about
+// 0.12 MFLOP, against 32 KB of input and output, about 24 flops a byte,
+// near the card's 20 (67 TFLOP/s over 3.35 TB/s): FMA issue and device
+// memory both.  The design removes work: the FFT replaces the dense
+// four-step DFT products (1.3 M FMAs a frame), and the IIR block skips the
+// all-zero chunks of the triangular H^T (about half its FMAs).  A block
+// takes g frames (two at N = 4096, four at 2048, eight at 1024), so that
+// the FFT's passes give every thread a butterfly and the IIR block's bands
+// balance; shared memory holds their x, y and starts (71 KB at N = 4096,
+// two blocks an SM at 128 registers), one block's loads overlapping the
+// other's work.
+//
+// The other forms keep the four-step design.  Per frame, with x viewed as
+// (n1, n2) and the sub-block starts s as (D, n1), D = 2(M+1):
 //
 //   1. IIR block     y[p, i]  = sum_j x[p, j] H[i, j] + sum_e s[e, p] Phi[i, e]
 //   2. step 1        [c; s][k1, t] = sum_p W1cs[k1, p] y[p, t]
@@ -43,27 +61,30 @@
 // The depth of the IIR and step-3 products is n2 at run time, so a padded
 // column costs no FMA there; at n2 = 128 and n1 % 8 == 0 nothing is padded.
 //
-// What bounds it: at N = 4096 a frame is about 3.7 MFLOP of fp32 FMAs against
-// 32 KB of input and output (48 KB for the full spectrum), about 115 FLOP per
-// byte, so the kernel is bound by FMA issue on the CUDA cores, not by device
-// memory.  It keeps IEEE fp32 on the CUDA cores (no tensor cores, no TF32),
-// which holds the chain's 130 dB bar.  The frame and every intermediate stay
-// in shared memory (three frame-sized buffers, reused: 200 KB at n1 = 128,
-// above the 48 KB default, hence the opt-in); the constant tables (about
-// 200 KB at N = 4096) are read from global memory, where all blocks share
-// them in L2.  Each thread holds a TM-row by 4-column tile of every product
-// in registers and reads its left operand four k at a time.  The full
-// spectrum has twice the output lanes of the half one; its out^T stage
-// (128 x (n1p + 1) floats) would not fit twice at n1p = 128, so Re and Im
-// go through the same stage in two passes.
+// What bounds the four-step forms: at N = 4096 a frame is about 3.7 MFLOP of
+// fp32 FMAs against 32 KB of input and output (48 KB for the full spectrum),
+// about 115 FLOP per byte, so they are bound by FMA issue on the CUDA cores,
+// not by device memory.  Every form keeps IEEE fp32 on the CUDA cores (no
+// tensor cores, no TF32), which holds the chain's 130 dB bar.  The frame and
+// every intermediate stay in shared memory (three frame-sized buffers,
+// reused: 200 KB at n1 = 128, above the 48 KB default, hence the opt-in);
+// the constant tables (about 200 KB at N = 4096) are read from global
+// memory, where all blocks share them in L2.  Each thread holds a TM-row by
+// 4-column tile of every product in registers and reads its left operand
+// four k at a time.  The full spectrum has twice the output lanes of the
+// half one; its out^T stage (128 x (n1p + 1) floats) would not fit twice at
+// n1p = 128, so Re and Im go through the same stage in two passes.
 
 #include "chain_common.cuh"
+#include "fft_core.cuh"
 
 namespace {
 
 using namespace sdsp_chain;
 
-enum Mode { kNatural = 0, kWide = 1, kFmajor = 2, kFull = 3 };
+// The output forms of sdsp_chain_frames_f32 (kernels/chain.py _MODES); the
+// natural-order half spectrum has its own kernel, chain_natural_kernel.
+enum Mode { kWide = 1, kFmajor = 2, kFull = 3 };
 
 // TM rows per warp in the n1p-row products; step 1 has 2 n1p rows.  The
 // host picks TM so that 8 TM divides n1p: every row chunk is full.  kPad
@@ -193,8 +214,8 @@ chain_frames_kernel(const float* __restrict__ x, const float* __restrict__ s,
   float* ref = re + f * h;
   float* imf = im + f * h;
   if (kMode == kWide && h % 4 == 0) {
-    // The same natural-order planes as kNatural, four bins a thread in one
-    // 16-byte store per plane.
+    // The natural-order planes of chain_natural_kernel, four bins a thread
+    // in one 16-byte store per plane.
     for (int k4 = 4 * tid; k4 < h; k4 += 4 * kThreads) {
       float vr[4], vi[4];
 #pragma unroll
@@ -294,6 +315,176 @@ chain_grouped_kernel(const float* __restrict__ x, const float* __restrict__ s,
   }
 }
 
+// -- the half spectrum in natural order on the FFT core ----------------------
+
+constexpr int kLdx = kN2 + 4;   // row stride of x and y in shared memory
+
+// IIR block by column bands: y = x H^T + starts^T Phi^T over n1p rows,
+// written at a row stride of kLdx.  A work item is a band of 16 output
+// columns and 8 TM rows; lane = 8 cl + rl holds rows m0 + rl + 8 r and
+// columns 16 band + 4 cl.  H is lower-triangular, so the band's outputs
+// need the k-chunks up to its last column only: the depth stops at
+// 16 (band + 1), skipping chunks of H^T that are all zero for the band.
+// Chunks and the order within them are mac's, so y is bit for bit the
+// y of iir_stage for finite input.  Items alternate the band order by row
+// group (band w, then 7 - w), so that with an even number of row groups
+// each warp sums 9 chunks a group pair.  Phases of 8 lanes read 8 rows of x
+// (at a stride of kLdx words: 8 distinct bank quads) and write 8 rows of y.
+template <int TM>
+__device__ __forceinline__ void iir_band_stage(float* y, const float* x,
+                                               const float* st,
+                                               const float* HT,
+                                               const float* PhiT, int n1p,
+                                               int n2, int d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cl = lane >> 3, rl = lane & 7;
+  const int dp = starts_stride(d);
+  const int items = 8 * (n1p / (8 * TM));
+  for (int it = warp; it < items; it += kWarps) {
+    const int grp = it >> 3, b8 = it & 7;
+    const int band = (grp & 1) ? 7 - b8 : b8;
+    if (16 * band >= n2) continue;   // no column of the frame
+    const int col0 = 16 * band + 4 * cl;
+    const int m0 = grp * 8 * TM + rl;
+    const float* xrow[TM];
+    const float* srow[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      xrow[r] = x + (m0 + 8 * r) * kLdx;
+      srow[r] = st + (m0 + 8 * r) * dp;
+    }
+    float acc[TM][4] = {};
+    mac_rows<TM>(acc, xrow, HT + col0, min(n2, 16 * (band + 1)));
+    mac_rows<TM>(acc, srow, PhiT + col0, d);
+#pragma unroll
+    for (int r = 0; r < TM; ++r) store4(y + (m0 + 8 * r) * kLdx + col0, acc[r]);
+  }
+}
+
+// The filtered frame y (n1 rows of n2 at a stride of kLdx, at offset y of
+// the dynamic shared memory) read as complex values z[t] = y[2t] + i y[2t+1]:
+// the first pass of the FFT reads it there.
+struct FrameAsComplex {
+  int y;
+  int n2;
+  float rn2;   // 1 / n2
+  __device__ __forceinline__ float2 operator()(int t) const {
+    const int e = 2 * t;
+    const int row = sdsp_fft::fdiv(e, rn2);
+    return *reinterpret_cast<const float2*>(sdsp_fft::dyn_smem() + y +
+                                            row * kLdx + e - row * n2);
+  }
+};
+
+// g frames a block (the last block may hold fewer), their rows stacked:
+// g > 1 only where n1 == n1p, so frame q's rows are q n1 .. q n1 + n1 - 1
+// and its z values q M .. q M + M - 1 (M = N/2).  Shared memory: x (rows x
+// kLdx, rows = g n1p), whose space then holds the FFT's two planes, y
+// (rows x kLdx) and the starts (rows x dp).  Per frame: the IIR block into
+// y; the M-point complex FFT of z read from y, into the planes; the split
+// X[k] = E - i w^k D, E = (Z[k] + conj Z[M-k]) / 2, D = (Z[k] - conj
+// Z[M-k]) / 2, with bin M - k from the same two values (twiddle
+// -conj w^k); X[0] = Re Z[0] + Im Z[0] and, in the imaginary plane's bin
+// 0, X[M] = Re Z[0] - Im Z[0].  Several frames a block give the FFT's
+// radix-16 passes a butterfly for every thread (M = 2048 has 128) and the
+// IIR block rows enough for balanced bands.
+template <int TM, int kEPT>
+__global__ void __launch_bounds__(kThreads,
+                                  kEPT > 16 ? 1 : (TM == 4 ? 2 : 3))
+chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                     const float* __restrict__ HT,
+                     const float* __restrict__ PhiT, sdsp_fft::Plan plan,
+                     const float2* __restrict__ tab,
+                     const float2* __restrict__ split, float* __restrict__ re,
+                     float* __restrict__ im, int frames, int g, int n1,
+                     int n1p, int n2, int d, float rn2) {
+  extern __shared__ float4 smem4[];
+  const int rows = g * n1p;
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* ys = xs + rows * kLdx;
+  float* st = ys + rows * kLdx;
+  const int tid = threadIdx.x;
+  const int dp = starts_stride(d);
+  const size_t f0 = static_cast<size_t>(blockIdx.x) * g;
+  const int nf = static_cast<int>(min(static_cast<size_t>(g), frames - f0));
+  const int m = n1 * n2 / 2;
+  const int vr = nf * n1;              // rows that hold frames
+
+  // Frames and starts; rows vr .. rows - 1 zero.
+  if (n2 == kN2) {
+    const float4* xf = reinterpret_cast<const float4*>(x + f0 * n1 * kN2);
+    for (int i = tid; i < vr * kN2 / 4; i += kThreads) {
+      *reinterpret_cast<float4*>(xs + (i >> 5) * kLdx + 4 * (i & 31)) = xf[i];
+    }
+  } else {
+    const float* xf = x + f0 * n1 * n2;
+    for (int i = tid; i < vr * n2; i += kThreads) {
+      const int p = i / n2;
+      xs[p * kLdx + i - p * n2] = xf[i];
+    }
+  }
+  for (int i = tid; i < (rows - vr) * kLdx; i += kThreads) xs[vr * kLdx + i] = 0.f;
+  for (int i = tid; i < (rows - vr) * dp; i += kThreads) st[vr * dp + i] = 0.f;
+  const float* sf = s + f0 * d * n1;
+  for (int i = tid; i < nf * d * n1; i += kThreads) {
+    const int q = i / (d * n1), r = i - q * d * n1;
+    st[(q * n1 + r % n1) * dp + r / n1] = sf[i];
+  }
+  __syncthreads();
+
+  iir_band_stage<TM>(ys, xs, st, HT, PhiT, rows, n2, d);
+  __syncthreads();
+
+  // x's space holds the FFT's planes, swizzled also for an odd factor of m
+  // (one instance, not two); y lies at offset rows kLdx.
+  const sdsp_fft::Planes<31> z{0, sdsp_fft::round32(g * m)};
+  sdsp_fft::fft_block<kEPT>(z, FrameAsComplex{rows * kLdx, n2, rn2}, z, plan,
+                            tab, nf * m);
+
+  for (int q = 0; q < nf; ++q) {
+    float* ref = re + (f0 + q) * m;
+    float* imf = im + (f0 + q) * m;
+    const int zq = q * m;
+    for (int k = tid; 2 * k <= m; k += kThreads) {
+      const float2 a = z(zq + k);
+      if (k == 0) {
+        ref[0] = a.x + a.y;
+        imf[0] = a.x - a.y;
+        continue;
+      }
+      const float2 b = z(zq + m - k);
+      const float2 w = __ldg(split + k);
+      const float er = 0.5f * (a.x + b.x), ei = 0.5f * (a.y - b.y);
+      const float dr = 0.5f * (a.x - b.x), di = 0.5f * (a.y + b.y);
+      const float u = w.x * di + w.y * dr;    // Re(-i w D)
+      const float v = w.y * di - w.x * dr;    // Im(-i w D)
+      ref[k] = er + u;
+      imf[k] = ei + v;
+      if (2 * k < m) {
+        ref[m - k] = er - u;
+        imf[m - k] = v - ei;
+      }
+    }
+  }
+}
+
+template <int TM, int kEPT>
+cudaError_t launch_natural(const float* x, const float* s, const float* HT,
+                           const float* PhiT, const sdsp_fft::Plan& plan,
+                           const float2* tab, const float2* split, float* re,
+                           float* im, int frames, int g, int n1, int n1p,
+                           int n2, int d, size_t smem, cudaStream_t stream) {
+  const auto kernel = chain_natural_kernel<TM, kEPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<(frames + g - 1) / g, kThreads, smem, stream>>>(
+      x, s, HT, PhiT, plan, tab, split, re, im, frames, g, n1, n1p, n2, d,
+      1.0f / static_cast<float>(n2));
+  return cudaGetLastError();
+}
+
 template <int TM, bool kPad, int kMode>
 cudaError_t launch_frames(const float* x, const float* s, const float* HT,
                           const float* PhiT, const float* W1cs, const float* Tc,
@@ -354,14 +545,69 @@ extern "C" size_t sdsp_chain_frames_smem_bytes(int rows, int d) {
   return sizeof(float) * smem_floats(rows, d, kN2);
 }
 
+// The half spectrum in natural order, on the FFT core.
+// Launch on `stream` of `device`; returns cudaGetLastError() after the
+// launch (0 when the launch was accepted).  x (frames, n1, n2), s
+// (frames, d, n1), HT (n2, 128) and PhiT (d, 128) as for
+// sdsp_chain_frames_f32; HT must be lower-triangular (H^T[j, i] = 0 for
+// j > i), as the IIR block's H^T is.  radices[0..npass) and tab are the
+// core's plan and table for M = n1 n2 / 2 points (fft_core.cuh make_plan),
+// split the M / 2 + 1 twiddles exp(-2 pi i k / (2 M)), (re, im) float32
+// pairs.  re / im (frames, M): the packed one-sided spectrum in natural
+// order, X[N/2].re in im[:, 0].  n2 is even.
+extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
+                                      const float* HT, const float* PhiT,
+                                      const int* radices, int npass,
+                                      const float* tab, const float* split,
+                                      float* re, float* im, int frames, int n1,
+                                      int n2, int d, int device, void* stream) {
+  sdsp_fft::Plan plan;
+  if (n2 < 2 || n2 > kN2 || n2 % 2 || n1 < 1 || n1 > 128 || d < 1 ||
+      frames < 0 || !sdsp_fft::make_plan(n1 * n2 / 2, radices, npass, &plan)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (frames == 0) return static_cast<int>(cudaSuccess);
+  const int n1p = (n1 + 7) & ~7;
+  // Frames a block: as many as keep the block's FFT at 4096 values and its
+  // rows at 64 (two frames at N = 4096), where frames need no row padding.
+  int g = 1;
+  if (n1p == n1) {
+    while (2 * g * n1 * n2 <= 8192 && 2 * g * n1 <= 64) g *= 2;
+  }
+  const int rows = g * n1p;
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(rows) * kLdx +
+                                       static_cast<size_t>(starts_stride(d)) * rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* t2 = reinterpret_cast<const float2*>(tab);
+  const auto* sp = reinterpret_cast<const float2*>(split);
+  const bool big = g * n1 * n2 / 2 > 16 * kThreads;
+#define SDSP_RUN(TM)                                                          \
+  (big ? launch_natural<TM, 32>(x, s, HT, PhiT, plan, t2, sp, re, im, frames, \
+                                g, n1, n1p, n2, d, smem, st)                  \
+       : launch_natural<TM, 16>(x, s, HT, PhiT, plan, t2, sp, re, im, frames, \
+                                g, n1, n1p, n2, d, smem, st))
+  // An even number of row groups of 8 TM rows balances the bands.
+  if (rows % 64 == 0) {
+    err = SDSP_RUN(4);
+  } else if (rows % 32 == 0) {
+    err = SDSP_RUN(2);
+  } else {
+    err = SDSP_RUN(1);
+  }
+#undef SDSP_RUN
+  return static_cast<int>(err);
+}
+
 // Launch on `stream` of `device`; returns cudaGetLastError() after the launch
 // (0 when the launch was accepted).  Every pointer is device memory holding
 // contiguous float32: x (frames, n1, n2), s (frames, d, n1), tables as
 // described at the top of this file, padded to n1p = n1 rounded up to a
-// multiple of 8.  mode (enum Mode) picks the output: kNatural and kWide
-// re/im (frames, n1 n2 / 2); kFmajor re/im (frames, n1, n2 / 2); kFull
-// re/im (frames, n1 n2) with T3 the (4 n2, 128) full table.  n2 is even
-// except for kFull.
+// multiple of 8.  mode (enum Mode) picks the output: kWide re/im
+// (frames, n1 n2 / 2); kFmajor re/im (frames, n1, n2 / 2); kFull re/im
+// (frames, n1 n2) with T3 the (4 n2, 128) full table.  n2 is even except
+// for kFull.  The natural order has its own entry, sdsp_chain_natural_f32.
 extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
                                      const float* HT, const float* PhiT,
                                      const float* W1cs, const float* Tc,
@@ -370,7 +616,7 @@ extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
                                      int n2, int d, int mode, int device,
                                      void* stream) {
   if (n2 < 1 || n2 > kN2 || (mode != kFull && n2 % 2) || n1 < 1 || n1 > 128 ||
-      d < 1 || frames < 0 || mode < kNatural || mode > kFull) {
+      d < 1 || frames < 0 || mode < kWide || mode > kFull) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -380,10 +626,6 @@ extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
   const size_t smem = sdsp_chain_frames_smem_bytes(n1p, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kNatural:
-      err = dispatch_frames<kNatural>(x, s, HT, PhiT, W1cs, Tc, Ts, T3, re, im,
-                                      frames, n1, n1p, n2, d, smem, st);
-      break;
     case kWide:
       err = dispatch_frames<kWide>(x, s, HT, PhiT, W1cs, Tc, Ts, T3, re, im,
                                    frames, n1, n1p, n2, d, smem, st);
@@ -400,7 +642,7 @@ extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
 }
 
 // The grouped form: g frames a block (the last block may hold fewer).  As
-// sdsp_chain_frames_f32 in mode kNatural, except W1cs, which is the
+// sdsp_chain_frames_f32 in mode kWide, except W1cs, which is the
 // unpadded (2 n1, n1) table.  g n1 rows padded to a multiple of 8 must fit
 // the block's shared memory, and g <= 128.
 extern "C" int sdsp_chain_grouped_f32(const float* x, const float* s,

@@ -50,20 +50,14 @@ __device__ __forceinline__ void mac4(float (&part)[TM][4],
   }
 }
 
-// acc[r][:] += sum_{k < K} A[row_r, k] B[k, col0 : col0 + 4] for the rows
-// row_r = m0 + warp + 8 r of A (row stride lda, a multiple of 4) and the
-// four columns col0 = 4 lane of B (row stride 128).  A full chunk is
+// acc[r][:] += sum_{k < K} arow[r][k] bp[k * 128 : k * 128 + 4]: the
+// thread's TM rows of A (16-byte aligned) against its four columns of B
+// (row stride 128), k ascending in chunks of kChunk.  A full chunk is
 // unrolled; the chunk loop is not (see the kernels' n2 argument).
 template <int TM>
-__device__ __forceinline__ void mac(float (&acc)[TM][4], int m0,
-                                    const float* a, int lda, const float* b,
-                                    int K) {
-  const float* arow[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    arow[r] = a + (m0 + (threadIdx.x >> 5) + kWarps * r) * lda;
-  }
-  const float* bp = b + 4 * (threadIdx.x & 31);
+__device__ __forceinline__ void mac_rows(float (&acc)[TM][4],
+                                         const float* const (&arow)[TM],
+                                         const float* bp, int K) {
   for (int k0 = 0; k0 < K; k0 += kChunk) {
     float part[TM][4] = {};
     if (k0 + kChunk <= K) {
@@ -84,6 +78,20 @@ __device__ __forceinline__ void mac(float (&acc)[TM][4], int m0,
       for (int j = 0; j < 4; ++j) acc[r][j] += part[r][j];
     }
   }
+}
+
+// mac_rows for the rows row_r = m0 + warp + 8 r of A (row stride lda, a
+// multiple of 4) and the four columns col0 = 4 lane of B.
+template <int TM>
+__device__ __forceinline__ void mac(float (&acc)[TM][4], int m0,
+                                    const float* a, int lda, const float* b,
+                                    int K) {
+  const float* arow[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    arow[r] = a + (m0 + (threadIdx.x >> 5) + kWarps * r) * lda;
+  }
+  mac_rows<TM>(acc, arow, b + 4 * (threadIdx.x & 31), K);
 }
 
 __device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {

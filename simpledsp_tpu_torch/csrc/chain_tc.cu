@@ -179,7 +179,7 @@ cudaError_t launch(const float* x, const float* s, const float* HT,
 }  // namespace
 
 // Launch on `stream` of `device`; returns cudaGetLastError() after the launch.
-// As sdsp_chain_frames_f32 (chain.cu) in mode kNatural, except W3: the step-1
+// As sdsp_chain_frames_f32 (chain.cu) in mode kWide, except W3: the step-1
 // table's three bf16 parts, (3, 2 n1p, K16) with K16 = n1p rounded up to a
 // multiple of 16, zero-padded as W1cs is.
 extern "C" int sdsp_chain_regs_f32(const float* x, const float* s,

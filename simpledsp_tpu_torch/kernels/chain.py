@@ -18,7 +18,12 @@ tr W2s^T), the full complex spectrum, the JAX function's default.
 
 The kernels are ``csrc/chain.cu`` (:func:`chain_frames`,
 :func:`chain_frames_full`, and the layouts of ``kernels/chain_variants.py``)
-and ``csrc/chain_tc.cu`` ("regs"); :func:`chain_frames_reference` and
+and ``csrc/chain_tc.cu`` ("regs").  The half-spectrum kernel of
+:func:`chain_frames` computes the same spectrum with a radix FFT in place of
+the DFT products: the N/2-point complex FFT of z[t] = y[2t] + i y[2t+1] on
+the FFT core (``csrc/fft_core.cuh``, plan and table from ``kernels/fft.py``),
+then the split into the one-sided spectrum (:func:`kernels.fft.
+_split_table_f64`).  :func:`chain_frames_reference` and
 :func:`chain_frames_full_reference` are the same functions in plain
 PyTorch, used for CPU tensors and as the kernels' oracles on the card.
 
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,7 +47,8 @@ from torch import nn
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign
 from simpledsp_tpu_torch.device import resolve_device
 from simpledsp_tpu_torch.kernels import _build
-from simpledsp_tpu_torch.kernels.fft import _best_split, _consts
+from simpledsp_tpu_torch.kernels.fft import (_best_split, _consts,
+                                             _kernel_tables, _split_table_f64)
 from simpledsp_tpu_torch.ops.iir import block_operators_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
 
@@ -349,16 +356,30 @@ def chain_frames_full_reference(x3: torch.Tensor, s3: torch.Tensor,
 def _library() -> ctypes.CDLL:
     """``csrc/chain.cu`` built and loaded, its entry points typed."""
     lib = _build.load_library("sdsp_chain", ("chain.cu",),
-                              ("chain_common.cuh",))
+                              ("chain_common.cuh", "fft_core.cuh"))
     for fn in (lib.sdsp_chain_frames_f32, lib.sdsp_chain_grouped_f32):
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.sdsp_chain_natural_f32
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
-# The output forms of ``sdsp_chain_frames_f32`` (enum Mode in chain.cu).
-_MODES = {"natural": 0, "wide": 1, "fmajor": 2, "full": 3}
+# The output forms of ``sdsp_chain_frames_f32`` (enum Mode in chain.cu);
+# "natural" has its own entry, ``sdsp_chain_natural_f32``.
+_MODES = {"wide": 1, "fmajor": 2, "full": 3}
+
+
+@functools.lru_cache(maxsize=64)
+def _split_table(n: int, device: torch.device) -> torch.Tensor:
+    """The natural-order kernel's split twiddles for N = n, float32 on
+    ``device``."""
+    return torch.as_tensor(_split_table_f64(n).astype(np.float32),
+                           device=device)
 
 
 def _check_operands(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables,
@@ -379,6 +400,28 @@ def _check_operands(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous {shape}, got "
                              f"{tuple(t.shape)}")
+
+
+# id -> (weak reference, version) of each H^T found upper-triangular: the
+# check waits on the card, so it runs once a tensor and version, not once a
+# launch.
+_UPPER = {}
+
+
+def _require_upper(ht: torch.Tensor) -> None:
+    """Raises ValueError unless ``ht`` (H^T) is upper-triangular, H
+    lower-triangular as the chain's block operator is: the natural-order
+    kernel reads, for each band of 16 output columns, the rows of H^T up to
+    the band's last column only."""
+    key = id(ht)
+    seen = _UPPER.get(key)
+    if seen is not None and seen[0]() is ht and seen[1] == ht._version:
+        return
+    if not torch.equal(ht, torch.triu(ht)):
+        raise ValueError("HT: the CUDA chain kernel needs H^T "
+                         "upper-triangular (H lower-triangular)")
+    _UPPER[key] = (weakref.ref(ht, lambda _, key=key: _UPPER.pop(key, None)),
+                   ht._version)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -418,17 +461,32 @@ class _ChainKernel:
                              f"samples, n1 <= 128 and n2 <= 128 even; got "
                              f"{tuple(x3.shape)}")
         _check_operands(x3, s3, tables, (4 if full else 2) * n2, "chain")
+        if mode == "natural":
+            _require_upper(tables.HT)
         tables = _padded_tables(tables, n1, n2)
         shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
             mode, (nf, n1 * n2 // 2))
         spec_re = torch.empty(shape, dtype=x3.dtype, device=x3.device)
         spec_im = torch.empty_like(spec_re)
-        rc = self.library().sdsp_chain_frames_f32(
-            x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
-            tables.PhiT.data_ptr(), tables.W1cs.data_ptr(),
-            tables.Tc.data_ptr(), tables.Ts.data_ptr(), tables.PQT.data_ptr(),
-            spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2, s3.shape[1],
-            _MODES[mode], x3.device.index, _stream(x3))
+        if mode == "natural":
+            # The real FFT of N points as the complex FFT of N/2 on the
+            # FFT core, then the split.
+            tab, plan, npass = _kernel_tables(n1 * n2 // 2, x3.device)
+            rc = self.library().sdsp_chain_natural_f32(
+                x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
+                tables.PhiT.data_ptr(), ctypes.cast(plan, ctypes.c_void_p),
+                npass, tab.data_ptr(),
+                _split_table(n1 * n2, x3.device).data_ptr(),
+                spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2,
+                s3.shape[1], x3.device.index, _stream(x3))
+        else:
+            rc = self.library().sdsp_chain_frames_f32(
+                x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
+                tables.PhiT.data_ptr(), tables.W1cs.data_ptr(),
+                tables.Tc.data_ptr(), tables.Ts.data_ptr(),
+                tables.PQT.data_ptr(), spec_re.data_ptr(), spec_im.data_ptr(),
+                nf, n1, n2, s3.shape[1], _MODES[mode], x3.device.index,
+                _stream(x3))
         if rc != 0:
             raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
         self.launches += 1

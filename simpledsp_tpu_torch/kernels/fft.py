@@ -5,9 +5,10 @@ frames of N = n1 * n2 samples (n1, n2 <= 128, :func:`_best_split`), forward
 or inverse, complex or real input (``xi=None``), into (F, N) planes in
 natural bin order:
 
-- a CUDA tensor launches the kernel (``csrc/fft.cu``: a mixed-radix Stockham
-  FFT in shared memory, radix-4 / radix-2 passes for the powers of two and a
-  direct small-DFT pass for each odd prime factor) or raises;
+- a CUDA tensor launches the kernel (``csrc/fft.cu`` on the FFT core
+  ``csrc/fft_core.cuh``: a mixed-radix Stockham FFT in shared memory,
+  radix-16 register passes for the powers of two and a direct small-DFT
+  pass for each odd prime factor) or raises;
 - a CPU tensor runs :func:`fft_frames_reference`, the TPU kernel's own math:
   a dense n1-point DFT, the twiddle, a dense n2-point DFT and the natural
   order reorder, as IEEE float32 (or float64) matmuls against the
@@ -127,9 +128,10 @@ _MAX_N = 16384
 
 
 def _plan(n: int) -> List[int]:
-    """The kernel's passes for an n-point transform: each odd prime factor
-    (ascending), then radix 4 while 4 divides what is left, then one radix 2
-    for an odd power of two."""
+    """The passes of ``csrc/fft_core.cuh`` for an n-point transform: each
+    odd prime factor (ascending), then radix 16 while 16 divides what is
+    left, then one pass of 8, 4 or 2 for the rest of the power of two
+    (4096 = 16 16 16, 2048 = 16 16 8, 16384 = 16 16 16 4)."""
     radices = []
     m = n
     while m % 2 == 0:
@@ -141,31 +143,41 @@ def _plan(n: int) -> List[int]:
             m //= p
         p += 2
     pow2 = n // int(np.prod(radices, dtype=np.int64))
-    while pow2 % 4 == 0:
-        radices.append(4)
-        pow2 //= 4
-    if pow2 == 2:
-        radices.append(2)
+    while pow2 % 16 == 0:
+        radices.append(16)
+        pow2 //= 16
+    if pow2 > 1:
+        radices.append(pow2)
     return radices
 
 
 def _kernel_table_f64(n: int) -> np.ndarray:
-    """The twiddles and small-DFT tables of ``csrc/fft.cu`` in the order it
-    reads them, (count, 2) float64 (re, im): for each pass of radix r and
-    stride ns, the (r - 1) ns twiddles exp(-2 pi i q k / (r ns)) laid out
-    [q - 1][k]; then, for r other than 2 and 4, exp(-2 pi i t / r), t < r.
-    Phases are exact integers mod n before the one trig evaluation."""
+    """The twiddles and small-DFT tables of ``csrc/fft_core.cuh`` in the
+    order it reads them, (count, 2) float64 (re, im): for each pass of radix
+    r and stride ns, the (r - 1) ns twiddles exp(-2 pi i t k / (r ns)) laid
+    out [t - 1][k]; then, for an odd r, exp(-2 pi i t / r), t < r.  Phases
+    are exact integers mod n before the one trig evaluation."""
     parts = []
     ns = 1
     for r in _plan(n):
-        q = np.arange(1, r, dtype=np.int64)[:, None]
+        t = np.arange(1, r, dtype=np.int64)[:, None]
         k = np.arange(ns, dtype=np.int64)[None, :]
-        ph = (q * k * (n // (r * ns))) % n
+        ph = (t * k * (n // (r * ns))) % n
         parts.append(((-2.0 * np.pi / n) * ph).reshape(-1))
-        if r not in (2, 4):
+        if r % 2:
             parts.append((-2.0 * np.pi / n) * (np.arange(r) * (n // r)))
         ns *= r
     ang = np.concatenate(parts) if parts else np.zeros(0)
+    return np.stack([np.cos(ang), np.sin(ang)], -1)
+
+
+def _split_table_f64(n: int) -> np.ndarray:
+    """The real-FFT split twiddles exp(-2 pi i k / n), k <= n / 4, (count, 2)
+    float64 (re, im), for an even n: the chain kernel turns the n/2-point
+    complex FFT Z of z[t] = y[2t] + i y[2t+1] into the real FFT X of y with
+    X[k] = (Z[k] + conj Z[n/2 - k]) / 2 - i w^k (Z[k] - conj Z[n/2 - k]) / 2,
+    pairing bin k with bin n/2 - k, whose twiddle is -conj(w^k)."""
+    ang = (-2.0 * np.pi / n) * np.arange(n // 4 + 1, dtype=np.int64)
     return np.stack([np.cos(ang), np.sin(ang)], -1)
 
 
@@ -185,7 +197,7 @@ def _kernel_tables(n: int, device: torch.device):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """``csrc/fft.cu`` built and loaded, its entry point typed."""
-    lib = _build.load_library("sdsp_fft", ("fft.cu",))
+    lib = _build.load_library("sdsp_fft", ("fft.cu",), ("fft_core.cuh",))
     fn = lib.sdsp_fft_frames_f32
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]

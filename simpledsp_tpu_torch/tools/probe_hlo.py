@@ -6,7 +6,8 @@ around it to find the layout copies XLA hid there.  On the card the
 counterpart of that HLO is a ``torch.profiler`` trace of the device:
 
 1. ``kernels.probes.scale_copy`` alone on the same frames, held to its plain
-   version bit for bit: its trace must hold exactly one kernel and no copy.
+   version bit for bit: its trace must hold exactly one kernel and no copy;
+   beside it the one PyTorch call of the same function, ``x * 2.0``.
 2. One call each, after one call to warm up, of ``NorthStarChain`` (64 x
    2^20 float32, N = 4096), ``FMReceiverBank.__call__`` (16 x 2^20 I/Q),
    ``fftconvolve`` (256 x 65536, 301 taps, "same"), ``stft_ri`` (64 x
@@ -37,7 +38,8 @@ from simpledsp_tpu_torch.tools._common import (cuda_device, main, randn,
 
 # The __global__ functions of csrc/: a device event whose name holds one of
 # them is one of the package's own kernels.
-HAND_KERNELS = ("chain_frames_kernel", "chain_grouped_kernel",
+HAND_KERNELS = ("chain_natural_kernel", "chain_frames_kernel",
+                "chain_grouped_kernel",
                 "chain_regs_kernel", "pfb_kernel", "sum_partials_kernel",
                 "ols_frames_kernel", "conv2d_valid_kernel", "fft_frames_kernel",
                 "scale_copy_kernel", "permute_kernel", "contract_kernel",
@@ -70,9 +72,12 @@ def device_events(calls: dict) -> dict:
         # The ranges show on the device's timeline too: not work of a call.
         if e.device_type != torch.autograd.DeviceType.CUDA or e.name in labels:
             continue
-        # The call whose range started last before the event did.
-        owner = starts[max(0, bisect.bisect_right(
-            starts, (e.time_range.start, "\uffff")) - 1)][1]
+        # The call whose range started last before the event did; an event
+        # that started before the first call's range is no call's work.
+        i = bisect.bisect_right(starts, (e.time_range.start, "\uffff")) - 1
+        if i < 0:
+            continue
+        owner = starts[i][1]
         total[owner][e.name] += e.time_range.elapsed_us()
         count[owner][e.name] += 1
     require(any(total.values()), "the profiler recorded no device activity")
@@ -123,6 +128,7 @@ def run(device=None) -> dict:
     same_bits(probes.scale_copy(x3), probes.scale_reference(x3),
               "scale_copy (16384, 32, 128)")
     calls = {"scale_copy alone": lambda: probes.scale_copy(x3),
+             "x * 2.0": lambda: x3 * 2.0,
              **_public_calls(dev)}
     for fn in calls.values():
         fn()                                      # tables, plans, builds
@@ -131,7 +137,8 @@ def run(device=None) -> dict:
     require(len(alone) == 1 and alone[0]["kind"] == "hand"
             and alone[0]["count"] == 1,
             f"scale_copy alone launched more than its kernel: {alone}")
-    return {"scale_copy_alone": alone, "calls": {
+    library = traced.pop("x * 2.0")
+    return {"scale_copy_alone": alone, "library": library, "calls": {
         name: {"hand_us": sum(e["device_us"] for e in ev
                               if e["kind"] == "hand"),
                "beside_us": sum(e["device_us"] for e in ev

@@ -147,6 +147,30 @@ def test_chain_frames_runs_only_on_cpu_or_cuda():
     assert tchain.chain_kernel.launches == launches
 
 
+@pytest.mark.parametrize("n", [200, 256, 512, 768, 1024, 1152, 2048, 4096,
+                               16384])
+def test_kernel_takes_only_upper_triangular_ht(n):
+    """The natural-order kernel reads, for each band of output columns, the
+    rows of H^T up to the band's last column only: the operators' H^T is
+    upper-triangular at every kernel size, and the wrapper refuses one that
+    is not (also after an in-place change) before any build or launch."""
+    tops = tchain.FusedNorthStarOperators(_designs()[1], n,
+                                          dtype=torch.float32, device="cpu")
+    tables = tops.tables()
+    tchain._require_upper(tables.HT)
+    ht = tables.HT.clone()
+    tchain._require_upper(ht)
+    ht[-1, 0] = 1e-30
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tchain._require_upper(ht)
+    x3 = torch.zeros(2, tops.n1, tops.n2)
+    s3 = torch.zeros(2, tops.state_dim, tops.n1)
+    launches = tchain.chain_kernel.launches
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tchain.chain_kernel(x3, s3, tables._replace(HT=ht))
+    assert tchain.chain_kernel.launches == launches
+
+
 def test_rejects_unsupported_fft_size():
     _, td = _designs()
     with pytest.raises(ValueError, match="32768"):

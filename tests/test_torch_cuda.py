@@ -88,6 +88,26 @@ def test_kernel_matches_plain_version(n, cuda_device):
     assert _snr_db(ref, got) >= 130.0
 
 
+@pytest.mark.parametrize("n,frames", [(4096, 3 * 132 + 5), (16384, 133),
+                                      (200, 1001), (1024, 8 * 264 + 3)])
+def test_kernel_partial_last_wave(n, frames, cuda_device):
+    """A frame count that leaves the last wave of blocks partial (132 SMs;
+    two frames a block and two blocks an SM at N = 4096, one frame and one
+    block at 16384), and the last block short of its frames (an odd count
+    at 4096, 3 of 8 at 1024)."""
+    ops = tchain.FusedNorthStarOperators(default_design(), n, device=cuda_device)
+    x = torch.as_tensor(np.random.default_rng(frames).standard_normal(
+        (1, frames * n)), dtype=torch.float32, device=cuda_device)
+    x3, s3, _ = tchain.chain_prepass(ops, x, torch.zeros(1, ops.state_dim,
+                                                         device=cuda_device))
+    got = tchain.chain_frames(x3, s3, ops.tables())
+    torch.cuda.synchronize()
+    assert got[0].shape == (frames, n // 2)
+    t64 = tchain.ChainTables(*(t.double() for t in ops.tables()))
+    ref = tchain.chain_frames_reference(x3.double(), s3.double(), t64)
+    assert _snr_db(ref, got) >= 130.0
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_chain_on_the_card_matches_oracle(use_kernel, cuda_device):
     """Both paths on the card hold 130 dB against the float64 oracle; the
@@ -418,6 +438,26 @@ def test_fft_frames_kernel_reads_strided_planes(cuda_device):
     want = tkfft._fft_frames(cols.contiguous(), None, inverse=True,
                              scale=False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_fft_frames_kernel_strided_planes_at_size(n, cuda_device):
+    """Even / odd planes (element stride 2) and rows at an odd offset and
+    stride (no 16-byte alignment) give the bits of their contiguous copies,
+    >= 120 dB against the float64 plain version."""
+    x = torch.as_tensor(np.random.default_rng(n).standard_normal((48, 2 * n + 3)),
+                        dtype=torch.float32, device=cuda_device)
+    for xr, xi in ((x[:, 0:2 * n:2], x[:, 1:2 * n:2]),
+                   (x[:, 3:n + 3], x[:, n + 3:])):
+        for inverse in (False, True):
+            got = tkfft._fft_frames(xr, xi, inverse=inverse)
+            want = tkfft._fft_frames(xr.contiguous(), xi.contiguous(),
+                                     inverse=inverse)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            s = 1.0 / n if inverse else 1.0
+            ref = [v * s for v in tkfft.fft_frames_reference(
+                xr.double(), xi.double(), inverse=inverse)]
+            assert _frames_snr(got, ref) >= 120.0
 
 
 def test_fft_frames_kernel_rejects_what_it_does_not_take(cuda_device):

@@ -202,15 +202,42 @@ def test_fft_frames_rejects_what_it_cannot_run():
         tkfft._fft_frames(z[None], None, inverse=False)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 6, 64, 100, 127, 384, 1152, 4096,
-                               16256, 16384])
-def test_kernel_plan_and_table_compute_the_dft(n, rng):
-    """``csrc/fft.cu``'s pass plan and twiddle / small-DFT table, walked in
-    numpy in the kernel's Stockham order, give numpy's DFT."""
+def _swz(p, mask=31):
+    """The core's buffer index (``swz`` in ``csrc/fft_core.cuh``)."""
+    r = p >> 5
+    return p ^ (((r & 15) | ((r & 8) << 1)) & mask)
+
+
+_W16 = np.exp(-2j * np.pi * np.arange(16) / 16)
+
+
+def _reg_dft(v, r):
+    """The core's r-point DFT over axis 0 in its register order: radix 2
+    and 4 direct, 8 = 2 x 4 and 16 = 4 x 4 (t = B t1 + t2, k = k1 + A k2,
+    twiddle exp(-2 pi i t2 k1 / r) between)."""
+    if r in (2, 4):
+        return np.fft.fft(v, axis=0)
+    a, b = {8: (2, 4), 16: (4, 4)}[r]
+    u = np.stack([_reg_dft(v[t2::b], a) for t2 in range(b)])  # [t2][k1]
+    out = np.empty_like(v)
+    for k1 in range(a):
+        w = np.stack([u[t2, k1] * _W16[(t2 * k1 * (16 // r)) % 16]
+                      for t2 in range(b)])
+        out[k1::a] = _reg_dft(w, b)
+    return out
+
+
+def _core_walk(x, n):
+    """x (..., n) complex through ``csrc/fft_core.cuh``'s passes, walked in
+    float64 in the kernel's order: each pass reads its butterflies from the
+    swizzled buffer, twiddles them from the host table, runs the r-point
+    DFT and writes the Stockham places back through the swizzle."""
     tab = tkfft._kernel_table_f64(n)
     tab = tab[:, 0] + 1j * tab[:, 1]
-    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-    s, ns, off = x.copy(), 1, 0
+    mask = 31 if n & (n - 1) == 0 else 0      # swz_mask
+    buf = np.zeros(x.shape[:-1] + (-(-n // 32) * 32,), dtype=complex)
+    buf[..., _swz(np.arange(n), mask)] = x
+    ns, off = 1, 0
     assert int(np.prod(tkfft._plan(n))) == n
     for r in tkfft._plan(n):
         tw = tab[off: off + (r - 1) * ns]
@@ -218,21 +245,106 @@ def test_kernel_plan_and_table_compute_the_dft(n, rng):
         q = n // r
         j = np.arange(q)
         k = j % ns
-        v = np.stack([s[j + i * q] for i in range(r)])
-        for i in range(1, r):
-            v[i] = v[i] * tw[(i - 1) * ns + k]
-        if r in (2, 4):
-            d = np.fft.fft(v, axis=0)
-        else:
+        v = np.stack([buf[..., _swz(j + t * q, mask)] for t in range(r)])
+        for t in range(1, r):
+            v[t] = v[t] * tw[(t - 1) * ns + k]
+        if r % 2:
             w = tab[off: off + r]
             off += r
-            d = w[np.outer(np.arange(r), np.arange(r)) % r] @ v
-        out = np.empty_like(s)
+            d = np.tensordot(w[np.outer(np.arange(r), np.arange(r)) % r], v, 1)
+        else:
+            assert r in (2, 4, 8, 16)
+            d = _reg_dft(v, r)
         for m in range(r):
-            out[(j - k) * r + k + m * ns] = d[m]
-        s, ns = out, ns * r
+            buf[..., _swz((j - k) * r + k + m * ns, mask)] = d[m]
+        ns *= r
     assert off == len(tab)
-    _close(s, np.fft.fft(x))
+    return buf[..., _swz(np.arange(n), mask)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 64, 100, 127, 384, 1152, 4096,
+                               16256, 16384])
+def test_kernel_plan_and_table_compute_the_dft(n, rng):
+    """``csrc/fft_core.cuh``'s pass plan and twiddle / small-DFT table,
+    walked in numpy in the core's register / exchange order, give numpy's
+    DFT."""
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    _close(_core_walk(x, n), np.fft.fft(x))
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192, 16384])
+def test_core_exchanges_have_no_bank_conflict(n):
+    """Every shared-memory access of the frames kernel at a power-of-two n
+    (the passes' reads after the first, which reads device memory, and
+    their writes before the last, which writes it) touches 32 distinct banks
+    a warp, through the swizzle."""
+    fpb = 1 if n >= 4096 else 4096 // n
+    total = fpb * n
+    nt = -(-total // 16 // 32) * 32
+    tid = np.arange(nt)
+    plan = tkfft._plan(n)
+    accesses = []
+    ns = 1
+    for p, r in enumerate(plan):
+        q = n // r
+        for b in range(16 // r):
+            w = tid + b * nt
+            f, j = w // q, w % q
+            k = j % ns
+            live = w < total // r
+            if p > 0:
+                accesses += [np.where(live, f * n + j + t * q, -1)
+                             for t in range(r)]
+            if p < len(plan) - 1:
+                accesses += [np.where(live, f * n + (j - k) * r + k + m * ns,
+                                      -1) for m in range(r)]
+        ns *= r
+    assert accesses
+    for idx in accesses:
+        for w0 in range(0, nt, 32):
+            p = idx[w0: w0 + 32]
+            p = p[p >= 0]
+            banks = _swz(p) % 32
+            assert len(set(banks.tolist())) == len(p), (n, p)
+
+
+@pytest.mark.parametrize("n", [200, 256, 512, 768, 1024, 1152, 2048, 4096,
+                               16384])
+def test_chain_fft_tables_give_the_packed_spectrum(n, rng):
+    """The chain kernel's half spectrum walked in numpy in float64: the FFT
+    core's plan and table for N/2 on z[t] = y[2t] + i y[2t+1] of the frames
+    ``_iir_block`` filters, then the split with ``_split_table_f64``, in the
+    kernel's pairing of bins k and N/2 - k, give ``chain_frames_reference``
+    (1e-12 of the largest bin)."""
+    from simpledsp_tpu_torch.kernels import chain as tchain
+    from simpledsp_tpu_torch.models.northstar import default_design
+
+    ops = tchain.FusedNorthStarOperators(default_design(), n,
+                                         dtype=torch.float64, device="cpu")
+    x = _t(rng.standard_normal((2, 3 * n)))
+    s0 = _t(rng.standard_normal((2, ops.state_dim)))
+    x3, s3, _ = tchain.chain_prepass(ops, x, s0)
+    tables = ops.tables()
+    y = tchain._iir_block(x3, s3, tables).reshape(x3.shape[0], n).numpy()
+    m = n // 2
+    z = _core_walk(y[:, 0::2] + 1j * y[:, 1::2], m)
+    sp = tkfft._split_table_f64(n)
+    re, im = np.empty((len(y), m)), np.empty((len(y), m))
+    re[:, 0] = z[:, 0].real + z[:, 0].imag
+    im[:, 0] = z[:, 0].real - z[:, 0].imag
+    for k in range(1, m // 2 + 1):
+        a, b = z[:, k], z[:, m - k]
+        wr, wi = sp[k]
+        er, ei = 0.5 * (a.real + b.real), 0.5 * (a.imag - b.imag)
+        dr, di = 0.5 * (a.real - b.real), 0.5 * (a.imag + b.imag)
+        u, v = wr * di + wi * dr, wi * di - wr * dr
+        re[:, k], im[:, k] = er + u, ei + v
+        if 2 * k < m:
+            re[:, m - k], im[:, m - k] = er - u, v - ei
+    want_re, want_im = tchain.chain_frames_reference(x3, s3, tables)
+    scale = float(max(want_re.abs().max(), want_im.abs().max()))
+    np.testing.assert_allclose(re, want_re.numpy(), rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(im, want_im.numpy(), rtol=0, atol=1e-12 * scale)
 
 
 @pytest.mark.parametrize("n", [128, 256, 384, 4096, 16384, 16512, 32768])
