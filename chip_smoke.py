@@ -39,7 +39,10 @@ Phases (any failure exits nonzero before the result line):
    against the float64 plain version (same float32 inputs) <= max(1.5e-6
    max(1, scale), 2 x the float32 plain version's own max |err|).  Two tile
    sizes must give bitwise-equal outputs (the emit_sum totals excepted: they
-   are held to the bar).  Kernel and float32 plain times.
+   are held to the bar).  Kernel and float32 plain times, and the kernel's
+   CUDA-graph (device) time; then the flat fm_dec kernel's stage split
+   (``tools/pfb_stages.py``: builds cut after the input, the FIR, the FFT
+   and the demod, each timed as CUDA-graph replays).
 7. Bank main path: ``FMReceiverBank(16, fs=1.6e6, device="cuda")`` and
    ``AMReceiverBank(...)`` (remove_dc) on 16 x 2^20 float32 I/Q per call, the
    carriers continued across 4 calls with the state chained, through
@@ -122,7 +125,8 @@ Phases (any failure exits nonzero before the result line):
     Phases 14-16 time windows of 10 back-to-back calls (3 for the radar).
 17. The rest of the chain kernel family against its float64 plain versions
     on the frames and starts of 16 x 2^20 float32 noise (seed 17): the
-    full-spectrum kernel at N = 1000 (odd n2), 1024, 4096, 16384 against
+    full-spectrum kernel at N = 1000 (odd n2), 1024, 4096, 16384, and the
+    odd N = 375 and 8181 (the largest odd N it takes) against
     ``chain_frames_full_reference``, and every half-spectrum layout (reg,
     k1, regs, regw, reg2, reg4, regp, fmajor, pair) at N = 200, 1024, 4096,
     16384 through its wrapper against ``chain_frames_reference``: >= 130 dB,
@@ -167,8 +171,9 @@ probe_relayout's relayout kernel alone (``.permute(1, 2, 0).contiguous()``),
 contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
-The line before the last is a JSON object with the kernels' records; the
-last line is ``{"ok": true, "device": {...}}``.
+The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
+from phase 6.  The line before the last is a JSON object with the
+kernels' records; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -473,7 +478,9 @@ def pfb_flops(mode: str, samples: int, m: int, k: int) -> float:
 
 def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
     """Phase 6; returns {(layout, mode): (max |err|, kernel ms, plain ms,
-    bound)}."""
+    bound, device ms)}."""
+    from simpledsp_tpu_torch.tools import pfb_stages
+    from simpledsp_tpu_torch.tools._common import graph_ms
     g = TB // M
     chan = PFBChannelizer(M, taps_per_channel=K, device=dev)
     ops = chan.kernel_ops
@@ -528,13 +535,15 @@ def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
             check(torch.equal(a, c), f"pfb {layout} {mode} output {i}: tiles "
                                      f"of 64 and the default differ")
         ms = median_ms(run_kernel, per=STEADY)
+        device_ms = graph_ms(run_kernel, per=STEADY)
         plain_ms = median_ms(lambda: ref(kmode, tabs, *x, *args, **kw), reps=3,
                              per=STEADY)
         print(f"pfb {layout} {mode}: max |err| {err:.3e} vs float64 plain, "
-              f"tile seams bitwise equal; kernel {ms:.3f} ms, float32 plain "
-              f"{plain_ms:.3f} ms")
+              f"tile seams bitwise equal; kernel {ms:.4f} ms (CUDA graph "
+              f"{device_ms:.4f} ms), float32 plain {plain_ms:.3f} ms")
         results[(layout, mode)] = (err, ms, plain_ms, bound(
-            nbytes(x, args, tabs, got), pfb_flops(mode, B * M * g, M, K)))
+            nbytes(x, args, tabs, got), pfb_flops(mode, B * M * g, M, K)),
+            device_ms)
         del got, other, ref32
     del ftr, fti, xpr, xpi
     for m, k in PFB_CONFIGS:
@@ -557,11 +566,19 @@ def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
             *[a.double() for a in args], **kw)
         ref32 = kpfb.pfb_flat_reference("fm_dec", tabs, *xp, *args, **kw)
         err = bar_check(got, ref64, ref32, f"pfb flat fm_dec M{m}/K{k}")
-        ms = median_ms(lambda: kpfb.pfb_flat_kernel(
-            "fm_dec", tabs, *xp, *args, tile=None, **kw), per=STEADY)
+        def run_cfg():
+            return kpfb.pfb_flat_kernel("fm_dec", tabs, *xp, *args, tile=None,
+                                        **kw)
+
+        ms = median_ms(run_cfg, per=STEADY)
+        device_ms = graph_ms(run_cfg, per=STEADY)
         print(f"pfb flat fm_dec M{m}/K{k}: max |err| {err:.3e}; kernel "
-              f"{ms:.3f} ms")
+              f"{ms:.4f} ms (CUDA graph {device_ms:.4f} ms)")
         del got, ref64, ref32, xp
+    # The stage split: device ms of builds cut after each stage.
+    split = pfb_stages.run(m=M, k=K)["ms"]
+    print("pfb flat fm_dec stage split (CUDA graph ms, cut after each "
+          "stage): " + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
     return results
 
 
@@ -1293,7 +1310,7 @@ def radar_path(dev, kfft, tfft, radar):
 
 # -- the rest of the chain kernel family ----------------------------------------
 
-FULL_SIZES = (1000, 1024, 4096, 16384)
+FULL_SIZES = (1000, 1024, 4096, 16384, 375, 8181)   # 375, 8181: odd N
 LAYOUT_SIZES = (200, 1024, 4096, 16384)
 FAMILY_C = 16               # channels of T samples per size in phase 17
 # (record name, form timed in phase 17, source, TPU kernel replaced)
@@ -1680,8 +1697,8 @@ def main() -> int:
     fft_launches = transform_path(dev, kfft, tfft, ttr, tsp)
     fft_launches += radar_path(dev, kfft, tfft, radar)
     probe_records = probe_phase(dev, kprobes)
-    flat_err, flat_ms, flat_plain, flat_bound = pfb[("flat", "fm_dec")]
-    fr_err, fr_ms, fr_plain, fr_bound = pfb[("frames", "chan")]
+    flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]
+    fr_err, fr_ms, fr_plain, fr_bound, fr_dev = pfb[("frames", "chan")]
     ols_err, ols_ms, ols_plain, ols_bound, ols_lib = ols[4096]
     k2_err, k2_ms, k2_plain, k2_bound, k2_lib = k2[(9, 9)]
     print(smi)
@@ -1690,14 +1707,15 @@ def main() -> int:
         "source": "simpledsp_tpu_torch/csrc/pfb.cu",
         "replaces": "simpledsp_tpu/kernels/pfb.py:298",
         "launches": flat_launches, "max_abs_err": flat_err,
-        "ms": flat_ms, "plain_ms": flat_plain, **flat_bound,
-        "library_ms": None,
+        "ms": flat_ms, "device_ms": flat_dev, "plain_ms": flat_plain,
+        **flat_bound, "library_ms": None,
     }, {
         "name": "pfb_frames", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/pfb.cu",
         "replaces": "simpledsp_tpu/kernels/pfb.py:475",
         "launches": frames_launches, "max_abs_err": fr_err,
-        "ms": fr_ms, "plain_ms": fr_plain, **fr_bound, "library_ms": None,
+        "ms": fr_ms, "device_ms": fr_dev, "plain_ms": fr_plain, **fr_bound,
+        "library_ms": None,
     }, {
         "name": "ols", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/ols.cu",

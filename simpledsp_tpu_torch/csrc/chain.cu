@@ -3,57 +3,63 @@
 //
 // Replaces the TPU kernels reached through simpledsp_tpu/kernels/chain.py
 // fused_chain_frames:
-//   chain_natural_kernel: _make_packed_reg_kernel (:362) and
+//   chain_natural_kernel, form kHalf: _make_packed_reg_kernel (:362) and
 //     _make_packed_kernel (:283), layouts "reg" and "k1", the packed half
 //     spectrum in natural bin order (the TPU's two output layouts have no
 //     counterpart here);
-//   chain_frames_kernel, mode kFull: _make_fused_kernel (:425),
-//     half_spectrum=False, the full complex spectrum in natural bin order,
-//     any n2 <= 128 (odd too);
-//   modes kWide and kFmajor: the store orders of chain_variants.py
-//     _make_packed_regw_kernel (:144, 16-byte stores of the natural-order
-//     planes) and _make_packed_fmajor_kernel (:374, each frame's (n1, n2/2)
-//     Re/Im rows k1-major, written from the step-3 accumulators);
+//   chain_natural_kernel, forms kFull / kPairs / kOdd: _make_fused_kernel
+//     (:425), half_spectrum=False (the JAX default), the full complex
+//     spectrum in natural bin order, any n2 <= 128 (odd too), odd N up to
+//     kOddMax;
+//   chain_frames_kernel, modes kWide and kFmajor: the store orders of
+//     chain_variants.py _make_packed_regw_kernel (:144, 16-byte stores of
+//     the natural-order planes) and _make_packed_fmajor_kernel (:374, each
+//     frame's (n1, n2/2) Re/Im rows k1-major, written from the step-3
+//     accumulators);
 //   chain_grouped_kernel: _make_packed_regg_kernel (:227, reg2/reg4),
 //     _make_packed_regp_kernel (:298) and _make_packed_pair_kernel (:435),
 //     step 1 over g frames a block.
 // chain_tc.cu holds the split-bf16 tensor-core form ("regs").
 //
-// The main path's kernel, chain_natural_kernel, runs per frame the IIR
-// block, then the real FFT of y as the N/2-point complex FFT of
-// z[t] = y[2t] + i y[2t+1] on the FFT core (fft_core.cuh) and the split
-// into the one-sided spectrum (see the kernel).  What bounds it: at
-// N = 4096 the IIR block is about 0.34 M FMAs a frame (0.30 M in the
-// chunks of H^T it keeps, 0.04 M for the starts) and the FFT about
-// 0.12 MFLOP, against 32 KB of input and output, about 24 flops a byte,
-// near the card's 20 (67 TFLOP/s over 3.35 TB/s): FMA issue and device
-// memory both.  The design removes work: the FFT replaces the dense
-// four-step DFT products (1.3 M FMAs a frame), and the IIR block skips the
-// all-zero chunks of the triangular H^T (about half its FMAs).  A block
-// takes g frames (two at N = 4096, four at 2048, eight at 1024), so that
-// the FFT's passes give every thread a butterfly and the IIR block's bands
-// balance; shared memory holds their x, y and starts (71 KB at N = 4096,
-// two blocks an SM at 128 registers), one block's loads overlapping the
-// other's work.
+// chain_natural_kernel runs per frame the IIR block, then, for an even N,
+// the real FFT of y as the N/2-point complex FFT of z[t] = y[2t] + i y[2t+1]
+// on the FFT core (fft_core.cuh) and the split into the one-sided spectrum
+// (see the kernel); the half spectrum stores bins 0 .. N/2 - 1, the full
+// one all N bins, the upper half by the mirror X[N - k] = conj X[k] (a store
+// twice as wide, the same FFT).  n2 odd with N even reads each sample of a
+// pair at its own row (kPairs).  An odd N has no split: the N-point complex
+// FFT of (y, 0) runs on the core, one frame a block, its last pass storing
+// the bins.  What bounds it: at N = 4096 the IIR block is about 0.34 M FMAs
+// a frame (0.30 M in the chunks of H^T it keeps, 0.04 M for the starts) and
+// the FFT about 0.12 MFLOP, against 32 KB of input and output (48 KB for the
+// full spectrum), about 24 flops a byte (16 for the full), near the card's
+// 20 (67 TFLOP/s over 3.35 TB/s): FMA issue and device memory both.  The
+// design removes work: the FFT replaces the dense four-step DFT products
+// (1.3 M FMAs a frame for the half spectrum, 3.7 M in all for the full one
+// before), and the IIR block skips the all-zero chunks of the triangular
+// H^T (about half its FMAs).  A block takes g frames (two at N = 4096, four
+// at 2048, eight at 1024), so that the FFT's passes give every thread a
+// butterfly and the IIR block's bands balance; shared memory holds their x,
+// y and starts (71 KB at N = 4096, two blocks an SM at 128 registers), one
+// block's loads overlapping the other's work.  An odd N's odd-radix passes
+// run one frame a block, and are slow at small N (375) and at a large prime
+// factor (8181 = 81 x 101): the bar holds, the speed does not (PERF.md).
 //
-// The other forms keep the four-step design.  Per frame, with x viewed as
-// (n1, n2) and the sub-block starts s as (D, n1), D = 2(M+1):
+// The store forms and the grouped form keep the four-step design.  Per
+// frame, with x viewed as (n1, n2) and the sub-block starts s as (D, n1),
+// D = 2(M+1):
 //
 //   1. IIR block     y[p, i]  = sum_j x[p, j] H[i, j] + sum_e s[e, p] Phi[i, e]
 //   2. step 1        [c; s][k1, t] = sum_p W1cs[k1, p] y[p, t]
 //   3. twiddle       tr = c Tc - s Ts,  ti = s Tc + c Ts
-//   4. step 3        half: out[k1, l] = sum_t tr[k1, t] P[l, t] + ti[k1, t] Q[l, t]
+//   4. step 3        out[k1, l] = sum_t tr[k1, t] P[l, t] + ti[k1, t] Q[l, t]
 //                    (lanes l < n2/2: Re X, l >= n2/2: Im X, bin k1 + n1 (l % (n2/2)))
-//                    full: Re X = tr W2c^T - ti W2s^T, Im X = ti W2c^T + tr W2s^T
-//                    (lanes l < n2: bin k1 + n1 l)
-//   5. Nyquist       half only: X[N/2] = sum_t tr[0, t] (-1)^t into the Im
-//                    slot of bin 0
+//   5. Nyquist       X[N/2] = sum_t tr[0, t] (-1)^t into the Im slot of bin 0
 //
 // The tables arrive transposed where that makes each product's right-hand
 // operand row-major over the output columns: HT = H^T (n2, 128),
 // PhiT = Phi^T (D, 128), W1cs (2 n1p, n1p), Tc/Ts (n1p, 128), and the
-// step-3 table T = [P^T; Q^T] (2 n2, 128), or for the full spectrum
-// [W2c^T; -W2s^T; W2s^T; W2c^T] (4 n2, 128).  Every row is 128 wide and the
+// step-3 table T = [P^T; Q^T] (2 n2, 128).  Every row is 128 wide and the
 // frame has n1p rows, n1 rounded up to a multiple of 8: for a smaller frame
 // (n2 < 128 or n1 % 8) the wrapper zero-pads the tables to that shape, the
 // kernel zero-fills the frame's extra rows and columns, and the zeros flow
@@ -62,18 +68,15 @@
 // column costs no FMA there; at n2 = 128 and n1 % 8 == 0 nothing is padded.
 //
 // What bounds the four-step forms: at N = 4096 a frame is about 3.7 MFLOP of
-// fp32 FMAs against 32 KB of input and output (48 KB for the full spectrum),
-// about 115 FLOP per byte, so they are bound by FMA issue on the CUDA cores,
-// not by device memory.  Every form keeps IEEE fp32 on the CUDA cores (no
-// tensor cores, no TF32), which holds the chain's 130 dB bar.  The frame and
-// every intermediate stay in shared memory (three frame-sized buffers,
-// reused: 200 KB at n1 = 128, above the 48 KB default, hence the opt-in);
-// the constant tables (about 200 KB at N = 4096) are read from global
-// memory, where all blocks share them in L2.  Each thread holds a TM-row by
-// 4-column tile of every product in registers and reads its left operand
-// four k at a time.  The full spectrum has twice the output lanes of the
-// half one; its out^T stage (128 x (n1p + 1) floats) would not fit twice at
-// n1p = 128, so Re and Im go through the same stage in two passes.
+// fp32 FMAs against 32 KB of input and output, about 115 FLOP per byte, so
+// they are bound by FMA issue on the CUDA cores, not by device memory.
+// Every form keeps IEEE fp32 on the CUDA cores (no tensor cores, no TF32),
+// which holds the chain's 130 dB bar.  The frame and every intermediate stay
+// in shared memory (three frame-sized buffers, reused: 200 KB at n1 = 128,
+// above the 48 KB default, hence the opt-in); the constant tables (about
+// 200 KB at N = 4096) are read from global memory, where all blocks share
+// them in L2.  Each thread holds a TM-row by 4-column tile of every product
+// in registers and reads its left operand four k at a time.
 
 #include "chain_common.cuh"
 #include "fft_core.cuh"
@@ -83,8 +86,9 @@ namespace {
 using namespace sdsp_chain;
 
 // The output forms of sdsp_chain_frames_f32 (kernels/chain.py _MODES); the
-// natural-order half spectrum has its own kernel, chain_natural_kernel.
-enum Mode { kWide = 1, kFmajor = 2, kFull = 3 };
+// natural-order half spectrum and the full spectrum have their own kernel,
+// chain_natural_kernel.
+enum Mode { kWide = 1, kFmajor = 2 };
 
 // TM rows per warp in the n1p-row products; step 1 has 2 n1p rows.  The
 // host picks TM so that 8 TM divides n1p: every row chunk is full.  kPad
@@ -180,23 +184,6 @@ chain_frames_kernel(const float* __restrict__ x, const float* __restrict__ s,
           }
         }
       }
-    }
-    return;
-  }
-
-  if constexpr (kMode == kFull) {
-    // 4. Step 3 for Re, then for Im, through the same out^T stage; the bins
-    // k = k1 + n1 k2 of each plane in natural order.
-    const int nn = n1 * n2;
-    for (int pass = 0; pass < 2; ++pass) {
-      step3_stage<TM>(buf_b, ldo, buf_a, buf_c, T3 + pass * 2 * n2 * kN2,
-                      n1p, n2_arg);
-      __syncthreads();
-      float* dst = (pass == 0 ? re : im) + f * nn;
-      for (int k = tid; k < nn; k += kThreads) {
-        dst[k] = buf_b[(k / n1) * ldo + k % n1];
-      }
-      __syncthreads();
     }
     return;
   }
@@ -361,9 +348,12 @@ __device__ __forceinline__ void iir_band_stage(float* y, const float* x,
   }
 }
 
-// The filtered frame y (n1 rows of n2 at a stride of kLdx, at offset y of
-// the dynamic shared memory) read as complex values z[t] = y[2t] + i y[2t+1]:
-// the first pass of the FFT reads it there.
+// The filtered frame y (rows of n2 at a stride of kLdx, at offset y of the
+// dynamic shared memory) as the FFT's first pass reads it.  FrameAsComplex:
+// z[t] = y[2t] + i y[2t+1] as one float2 (n2 even: a pair never straddles
+// rows).  FramePairs: the same z with each sample's own row (n2 odd, N
+// even).  FrameReal: (y[t], 0) (N odd).  Frames of a block are stacked, so
+// value t of frame q is value q (its count) + t of the block.
 struct FrameAsComplex {
   int y;
   int n2;
@@ -376,6 +366,48 @@ struct FrameAsComplex {
   }
 };
 
+struct FramePairs {
+  int y;
+  int n2;
+  float rn2;
+  __device__ __forceinline__ float2 operator()(int t) const {
+    const int e = 2 * t;
+    const int r0 = sdsp_fft::fdiv(e, rn2), r1 = sdsp_fft::fdiv(e + 1, rn2);
+    const float* b = sdsp_fft::dyn_smem() + y;
+    return make_float2(b[r0 * kLdx + e - r0 * n2],
+                       b[r1 * kLdx + e + 1 - r1 * n2]);
+  }
+};
+
+struct FrameReal {
+  int y;
+  int n2;
+  float rn2;
+  __device__ __forceinline__ float2 operator()(int t) const {
+    const int row = sdsp_fft::fdiv(t, rn2);
+    return make_float2(sdsp_fft::dyn_smem()[y + row * kLdx + t - row * n2],
+                       0.f);
+  }
+};
+
+// The last pass of an odd N's FFT stores bin p straight to device memory.
+struct SpectrumOut {
+  float* re;
+  float* im;
+  __device__ __forceinline__ void put(int p, float2 v) const {
+    re[p] = v.x;
+    im[p] = v.y;
+  }
+};
+
+// The output forms of chain_natural_kernel.  kHalf: the packed one-sided
+// spectrum (frames, N/2), X[N/2].re in the imaginary plane's bin 0.  The
+// full spectrum (frames, N) in natural order: kFull (n2 even) and kPairs
+// (n2 odd, N even) through the split and its conjugate mirror
+// X[N - k] = conj X[k]; kOdd (N odd) as the N-point complex FFT of (y, 0),
+// one frame a block, its last pass storing the bins.
+enum Form { kHalf = 0, kFull = 1, kPairs = 2, kOdd = 3 };
+
 // g frames a block (the last block may hold fewer), their rows stacked:
 // g > 1 only where n1 == n1p, so frame q's rows are q n1 .. q n1 + n1 - 1
 // and its z values q M .. q M + M - 1 (M = N/2).  Shared memory: x (rows x
@@ -384,11 +416,15 @@ struct FrameAsComplex {
 // y; the M-point complex FFT of z read from y, into the planes; the split
 // X[k] = E - i w^k D, E = (Z[k] + conj Z[M-k]) / 2, D = (Z[k] - conj
 // Z[M-k]) / 2, with bin M - k from the same two values (twiddle
-// -conj w^k); X[0] = Re Z[0] + Im Z[0] and, in the imaginary plane's bin
-// 0, X[M] = Re Z[0] - Im Z[0].  Several frames a block give the FFT's
-// radix-16 passes a butterfly for every thread (M = 2048 has 128) and the
-// IIR block rows enough for balanced bands.
-template <int TM, int kEPT>
+// -conj w^k); X[0] = Re Z[0] + Im Z[0] and X[M] = Re Z[0] - Im Z[0].  The
+// half spectrum stores bins 0 .. M - 1 with X[M] in the imaginary plane's
+// bin 0; the full one also bins M .. N - 1 by the mirror, and real X[0]
+// and X[M].  An odd N (one frame a block) has no split: its N-point FFT's
+// planes (2 N floats) overlap x's and y's space, which the first pass has
+// read into registers before any pass writes.  Several frames a block give
+// the FFT's radix-16 passes a butterfly for every thread (M = 2048 has
+// 128) and the IIR block rows enough for balanced bands.
+template <int TM, int kEPT, int kForm>
 __global__ void __launch_bounds__(kThreads,
                                   kEPT > 16 ? 1 : (TM == 4 ? 2 : 3))
 chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
@@ -407,7 +443,8 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
   const int dp = starts_stride(d);
   const size_t f0 = static_cast<size_t>(blockIdx.x) * g;
   const int nf = static_cast<int>(min(static_cast<size_t>(g), frames - f0));
-  const int m = n1 * n2 / 2;
+  const int nn = n1 * n2;              // N
+  const int m = nn / 2;
   const int vr = nf * n1;              // rows that hold frames
 
   // Frames and starts; rows vr .. rows - 1 zero.
@@ -435,21 +472,42 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
   iir_band_stage<TM>(ys, xs, st, HT, PhiT, rows, n2, d);
   __syncthreads();
 
+  if constexpr (kForm == kOdd) {
+    const sdsp_fft::Planes<31> z{0, sdsp_fft::round32(nn)};
+    sdsp_fft::fft_block<kEPT>(z, FrameReal{rows * kLdx, n2, rn2},
+                              SpectrumOut{re + f0 * nn, im + f0 * nn}, plan,
+                              tab, nn);
+    return;
+  }
+
   // x's space holds the FFT's planes, swizzled also for an odd factor of m
   // (one instance, not two); y lies at offset rows kLdx.
   const sdsp_fft::Planes<31> z{0, sdsp_fft::round32(g * m)};
-  sdsp_fft::fft_block<kEPT>(z, FrameAsComplex{rows * kLdx, n2, rn2}, z, plan,
-                            tab, nf * m);
+  if constexpr (kForm == kPairs) {
+    sdsp_fft::fft_block<kEPT>(z, FramePairs{rows * kLdx, n2, rn2}, z, plan,
+                              tab, nf * m);
+  } else {
+    sdsp_fft::fft_block<kEPT>(z, FrameAsComplex{rows * kLdx, n2, rn2}, z,
+                              plan, tab, nf * m);
+  }
 
+  constexpr bool kMirror = kForm != kHalf;
+  const int len = kMirror ? nn : m;    // bins a frame stores
   for (int q = 0; q < nf; ++q) {
-    float* ref = re + (f0 + q) * m;
-    float* imf = im + (f0 + q) * m;
+    float* ref = re + (f0 + q) * len;
+    float* imf = im + (f0 + q) * len;
     const int zq = q * m;
     for (int k = tid; 2 * k <= m; k += kThreads) {
       const float2 a = z(zq + k);
       if (k == 0) {
         ref[0] = a.x + a.y;
-        imf[0] = a.x - a.y;
+        if (kMirror) {
+          imf[0] = 0.f;
+          ref[m] = a.x - a.y;
+          imf[m] = 0.f;
+        } else {
+          imf[0] = a.x - a.y;
+        }
         continue;
       }
       const float2 b = z(zq + m - k);
@@ -460,21 +518,29 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
       const float v = w.y * di - w.x * dr;    // Im(-i w D)
       ref[k] = er + u;
       imf[k] = ei + v;
+      if (kMirror) {                          // X[N - k] = conj X[k]
+        ref[nn - k] = er + u;
+        imf[nn - k] = -(ei + v);
+      }
       if (2 * k < m) {
         ref[m - k] = er - u;
         imf[m - k] = v - ei;
+        if (kMirror) {                        // X[M + k] = conj X[M - k]
+          ref[m + k] = er - u;
+          imf[m + k] = ei - v;
+        }
       }
     }
   }
 }
 
-template <int TM, int kEPT>
+template <int TM, int kEPT, int kForm>
 cudaError_t launch_natural(const float* x, const float* s, const float* HT,
                            const float* PhiT, const sdsp_fft::Plan& plan,
                            const float2* tab, const float2* split, float* re,
                            float* im, int frames, int g, int n1, int n1p,
                            int n2, int d, size_t smem, cudaStream_t stream) {
-  const auto kernel = chain_natural_kernel<TM, kEPT>;
+  const auto kernel = chain_natural_kernel<TM, kEPT, kForm>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -483,6 +549,31 @@ cudaError_t launch_natural(const float* x, const float* s, const float* HT,
       x, s, HT, PhiT, plan, tab, split, re, im, frames, g, n1, n1p, n2, d,
       1.0f / static_cast<float>(n2));
   return cudaGetLastError();
+}
+
+// The instance of the form for the block's rows (an even number of row
+// groups of 8 TM rows balances the bands) and values (kEPT 32 above 16 a
+// thread).
+template <int kForm>
+cudaError_t dispatch_natural(const float* x, const float* s, const float* HT,
+                             const float* PhiT, const sdsp_fft::Plan& plan,
+                             const float2* tab, const float2* split, float* re,
+                             float* im, int frames, int g, int n1, int n1p,
+                             int n2, int d, int values, size_t smem,
+                             cudaStream_t st) {
+  const int rows = g * n1p;
+  const bool big = values > 16 * kThreads;
+#define SDSP_RUN(TM)                                                         \
+  (big ? launch_natural<TM, 32, kForm>(x, s, HT, PhiT, plan, tab, split, re, \
+                                       im, frames, g, n1, n1p, n2, d, smem,  \
+                                       st)                                   \
+       : launch_natural<TM, 16, kForm>(x, s, HT, PhiT, plan, tab, split, re, \
+                                       im, frames, g, n1, n1p, n2, d, smem,  \
+                                       st))
+  if (rows % 64 == 0) return SDSP_RUN(4);
+  if (rows % 32 == 0) return SDSP_RUN(2);
+  return SDSP_RUN(1);
+#undef SDSP_RUN
 }
 
 template <int TM, bool kPad, int kMode>
@@ -545,25 +636,37 @@ extern "C" size_t sdsp_chain_frames_smem_bytes(int rows, int d) {
   return sizeof(float) * smem_floats(rows, d, kN2);
 }
 
-// The half spectrum in natural order, on the FFT core.
+// Largest odd N of the full spectrum: one frame a block, 32 values a thread
+// through a pass.
+constexpr int kOddMax = 32 * kThreads;
+
+// The half spectrum (full = 0) or the full spectrum (full = 1) in natural
+// order, on the FFT core.
 // Launch on `stream` of `device`; returns cudaGetLastError() after the
 // launch (0 when the launch was accepted).  x (frames, n1, n2), s
 // (frames, d, n1), HT (n2, 128) and PhiT (d, 128) as for
 // sdsp_chain_frames_f32; HT must be lower-triangular (H^T[j, i] = 0 for
 // j > i), as the IIR block's H^T is.  radices[0..npass) and tab are the
-// core's plan and table for M = n1 n2 / 2 points (fft_core.cuh make_plan),
-// split the M / 2 + 1 twiddles exp(-2 pi i k / (2 M)), (re, im) float32
-// pairs.  re / im (frames, M): the packed one-sided spectrum in natural
-// order, X[N/2].re in im[:, 0].  n2 is even.
+// core's plan and table (fft_core.cuh make_plan) for M = n1 n2 / 2 points
+// where N = n1 n2 is even, for N points where it is odd (full spectrum
+// only, N <= kOddMax); split holds the M / 2 + 1 twiddles
+// exp(-2 pi i k / (2 M)), (re, im) float32 pairs (unread for an odd N).
+// re / im: (frames, M), the packed one-sided spectrum in natural order with
+// X[N/2].re in im[:, 0]; or with full, (frames, N), the spectrum in natural
+// order.  n2 is even for the half spectrum.
 extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
                                       const float* HT, const float* PhiT,
                                       const int* radices, int npass,
                                       const float* tab, const float* split,
                                       float* re, float* im, int frames, int n1,
-                                      int n2, int d, int device, void* stream) {
+                                      int n2, int d, int full, int device,
+                                      void* stream) {
+  const int nn = n1 * n2;
+  const bool odd = nn % 2 != 0;
   sdsp_fft::Plan plan;
-  if (n2 < 2 || n2 > kN2 || n2 % 2 || n1 < 1 || n1 > 128 || d < 1 ||
-      frames < 0 || !sdsp_fft::make_plan(n1 * n2 / 2, radices, npass, &plan)) {
+  if (n2 < 1 || n2 > kN2 || (!full && n2 % 2) || n1 < 1 || n1 > 128 ||
+      d < 1 || frames < 0 || (odd && nn > kOddMax) ||
+      !sdsp_fft::make_plan(odd ? nn : nn / 2, radices, npass, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -573,7 +676,7 @@ extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
   // Frames a block: as many as keep the block's FFT at 4096 values and its
   // rows at 64 (two frames at N = 4096), where frames need no row padding.
   int g = 1;
-  if (n1p == n1) {
+  if (n1p == n1 && !odd) {
     while (2 * g * n1 * n2 <= 8192 && 2 * g * n1 <= 64) g *= 2;
   }
   const int rows = g * n1p;
@@ -582,21 +685,20 @@ extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* t2 = reinterpret_cast<const float2*>(tab);
   const auto* sp = reinterpret_cast<const float2*>(split);
-  const bool big = g * n1 * n2 / 2 > 16 * kThreads;
-#define SDSP_RUN(TM)                                                          \
-  (big ? launch_natural<TM, 32>(x, s, HT, PhiT, plan, t2, sp, re, im, frames, \
-                                g, n1, n1p, n2, d, smem, st)                  \
-       : launch_natural<TM, 16>(x, s, HT, PhiT, plan, t2, sp, re, im, frames, \
-                                g, n1, n1p, n2, d, smem, st))
-  // An even number of row groups of 8 TM rows balances the bands.
-  if (rows % 64 == 0) {
-    err = SDSP_RUN(4);
-  } else if (rows % 32 == 0) {
-    err = SDSP_RUN(2);
+  const int values = odd ? nn : g * nn / 2;
+  if (!full) {
+    err = dispatch_natural<kHalf>(x, s, HT, PhiT, plan, t2, sp, re, im, frames,
+                                  g, n1, n1p, n2, d, values, smem, st);
+  } else if (odd) {
+    err = dispatch_natural<kOdd>(x, s, HT, PhiT, plan, t2, sp, re, im, frames,
+                                 g, n1, n1p, n2, d, values, smem, st);
+  } else if (n2 % 2) {
+    err = dispatch_natural<kPairs>(x, s, HT, PhiT, plan, t2, sp, re, im,
+                                   frames, g, n1, n1p, n2, d, values, smem, st);
   } else {
-    err = SDSP_RUN(1);
+    err = dispatch_natural<kFull>(x, s, HT, PhiT, plan, t2, sp, re, im, frames,
+                                  g, n1, n1p, n2, d, values, smem, st);
   }
-#undef SDSP_RUN
   return static_cast<int>(err);
 }
 
@@ -605,9 +707,9 @@ extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
 // contiguous float32: x (frames, n1, n2), s (frames, d, n1), tables as
 // described at the top of this file, padded to n1p = n1 rounded up to a
 // multiple of 8.  mode (enum Mode) picks the output: kWide re/im
-// (frames, n1 n2 / 2); kFmajor re/im (frames, n1, n2 / 2); kFull re/im
-// (frames, n1 n2) with T3 the (4 n2, 128) full table.  n2 is even except
-// for kFull.  The natural order has its own entry, sdsp_chain_natural_f32.
+// (frames, n1 n2 / 2); kFmajor re/im (frames, n1, n2 / 2).  n2 is even.
+// The natural order and the full spectrum have their own entry,
+// sdsp_chain_natural_f32.
 extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
                                      const float* HT, const float* PhiT,
                                      const float* W1cs, const float* Tc,
@@ -615,8 +717,8 @@ extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
                                      float* re, float* im, int frames, int n1,
                                      int n2, int d, int mode, int device,
                                      void* stream) {
-  if (n2 < 1 || n2 > kN2 || (mode != kFull && n2 % 2) || n1 < 1 || n1 > 128 ||
-      d < 1 || frames < 0 || mode < kWide || mode > kFull) {
+  if (n2 < 2 || n2 > kN2 || n2 % 2 || n1 < 1 || n1 > 128 || d < 1 ||
+      frames < 0 || mode < kWide || mode > kFmajor) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -630,13 +732,10 @@ extern "C" int sdsp_chain_frames_f32(const float* x, const float* s,
       err = dispatch_frames<kWide>(x, s, HT, PhiT, W1cs, Tc, Ts, T3, re, im,
                                    frames, n1, n1p, n2, d, smem, st);
       break;
-    case kFmajor:
+    default:
       err = dispatch_frames<kFmajor>(x, s, HT, PhiT, W1cs, Tc, Ts, T3, re, im,
                                      frames, n1, n1p, n2, d, smem, st);
       break;
-    default:
-      err = dispatch_frames<kFull>(x, s, HT, PhiT, W1cs, Tc, Ts, T3, re, im,
-                                   frames, n1, n1p, n2, d, smem, st);
   }
   return static_cast<int>(err);
 }

@@ -1,6 +1,7 @@
-// Polyphase filter-bank receiver kernels for Hopper (sm_90a): branch FIR ->
-// M-point inverse DFT across branches -> FM discriminator / AM envelope ->
-// optional audio decimator, one pass over the input per stream and tile.
+// Polyphase filter-bank receiver kernel for Hopper (sm_90a): branch FIR ->
+// M-point inverse FFT across branches -> FM discriminator / AM envelope ->
+// optional polyphase audio decimator, one pass over the input per stream and
+// tile.
 //
 // Replaces the TPU kernels of simpledsp_tpu/kernels/pfb.py:
 //   flat layout   _make_flat_body   (reached through _run_flat: pfb_fm_flat,
@@ -14,9 +15,9 @@
 //   frames x[b * ld + m * ld_m + f]  (channel-major (B, M, nfr) planes)
 //
 // Per output frame n and channel c, with taps_t[m, j] = h[j M + M-1-m] (the
-// branch flip folded in, PFBOperators.taps_t) and W = wfc + i wfs:
+// branch flip folded in, PFBOperators.taps_t):
 //   1. branch FIR   u[n, m] = sum_{j<K} taps_t[m, j] x[n + K-1-j, m]
-//   2. inverse DFT  y[n, c] = sum_m W[c, m] u[n, m]   (unscaled, sign +i)
+//   2. inverse DFT  y[n, c] = sum_r exp(+2 pi i c r / M) u[n, M-1-r]
 //   3. demod        FM: d[n] = gain atan2(Im q, Re q), q = y[n] conj(y[n-1]),
 //                       y[-1] = the carried (prev_r, prev_i)
 //                   AM: d[n] = |y[n]|;  chan: write y itself
@@ -24,65 +25,74 @@
 //                   ext = [ahist (kd-1) | d], the new ahist = ext's last kd-1
 //   5. emit_sum     (am_dec) the sum of d over the call's frames
 //
-// Parallel over time.  One block per (stream, tile of gt output frames):
-// the block stages the tile's input plus a halo of earlier frames in shared
-// memory and recomputes the halo (1 y frame for the FM carry, kd-1 demod
-// samples for the decimator) instead of receiving it from the previous tile.
-// A halo frame before the call's first frame comes from the carried state
-// instead.  The recomputed values come from the same code on the same
-// inputs, so outputs do not depend on gt, bit for bit.  The TPU kernel's
-// sequential grid with a scratch carry would put one stream on one SM: at
-// B = 16 that is 16 of 132 SMs.
+// Parallel over time.  One block per (stream, tile of gt output frames)
+// recomputes a halo of earlier frames (1 y frame for the FM carry, kd-1
+// demod samples for the decimator) instead of receiving it from the previous
+// tile; a halo frame before the call's first comes from the carried state.
+// The recomputed values come from the same code on the same inputs, so the
+// outputs do not depend on gt, bit for bit.
 //
-// The emit_sum partials are per 16-frame chunk (a tile holds whole chunks),
-// summed in a fixed order by a second small kernel: no atomics, and the sum
-// does not depend on the tile either.
-//
-// What bounds it on this card: at M = K = 16 a frame costs about 1.8 k fp32
-// FMAs (512 FIR, 1024 DFT, 256 decimator) against 128 bytes of input, so at
-// B = 16 x 2^20 samples the ideal is about 40 us of HBM reads at 3.35 TB/s
-// against about 55 us of FMAs at 67 TFLOP/s: near the balance of the two.
-// Every stage reads its operands from shared memory, so shared-memory
-// traffic per FMA is what each stage cuts by blocking in registers (on an
-// H100 at 700 W the fm_dec kernel then takes about 0.44 ms, about 13% of
-// the FMA peak and 10% of HBM bandwidth: neither bound is reached):
-//   FIR      a thread runs kR consecutive frames of one branch: each tap
-//            brings one new input sample into a sliding register window
-//            (1 tap + 2 input loads per 2 kR FMAs);
-//   DFT      a thread runs kCB channels of one frame: the table rows are
-//            read as warp-uniform float4s, the branch outputs once
-//            (4 loads per 4 kCB FMAs);
-//   decim    the demod output is stored by decimation phase, so a warp on
-//            consecutive outputs of one channel reads consecutive words,
-//            and each tap is one (weight, offset) pair from a table.
-// The halo costs (Hb / gt) more work (25% at the banks' gt = 256, kd = 64).
-// Plain fp32 on the CUDA cores: no tensor cores, no TF32.  The small tables
-// are read through the read-only cache.  Every sum keeps one fixed order,
-// so blocking changes no bit of the result.
+// What bounds it: at M = K = 16, kd = 64, decim = 4 a frame is 128 bytes of
+// input against about 512 FIR FMAs, a 16-point FFT, 16 atan2 and 256
+// decimator FMAs: at 16 x 2^20 samples about 40 us of device-memory reads
+// against about 30 us of fp32 FMAs at the peak, so by the roofline bytes
+// bound it.  In practice instruction issue does: atan2f alone (kept, no
+// fast-math intrinsic) and the shuffles of the FFT cost more than the FMAs'
+// count says.  The previous design read every operand from shared memory (a
+// dense M x M DFT, a (tap, offset) table in the decimator: up to 2 shared
+// loads an FMA, against the one load an SM issues for four FMAs), staged
+// every intermediate there and took 25 % more frames for the halo.  This
+// one keeps each stage near a quarter of a load an FMA or under, and the
+// intermediates in registers:
+//   input    the tile goes to shared memory by cp.async, 16 bytes a copy
+//            where the address allows, the next round's frames in flight
+//            while the current round computes (flat layout; the frames
+//            layout keeps its transposing reader);
+//   FIR      a thread runs R consecutive frames of P branches (P = M / 32
+//            above M = 32, else 1; R = 9, 4, 2): each tap brings one input
+//            sample into a sliding register window, 3 loads for 2 R FMAs;
+//   FFT      the branches of a frame lie on L = min(M, 32) lanes (and P
+//            registers): a radix-2 decimation-in-frequency FFT, register
+//            stages first, then log2 L stages of __shfl_xor_sync, one
+//            twiddle load a stage for R frames; the branch flip is which
+//            row a lane filters (order[0]), the output lands in bit-reversed
+//            order (order[1] names each lane's channel);
+//   demod    the FM conjugate product from the thread's own frames: an FM
+//            group also computes the frame before its first (E = 1), so no
+//            value crosses threads; d goes to shared memory once, [c][k];
+//   decim    polyphase, a function of its own: an item is kQ consecutive
+//            outputs of one channel and one phase; a register window
+//            slides over that phase's samples of d, eight tap weights at a
+//            time in two 16-byte loads (per-phase taps from the host,
+//            dec_taps[ph][o]); the phases' partial sums are added in phase
+//            order and stored a channel row at a time;
+//   tiles    up to 1024 frames, chosen by the frames a tile computes per
+//            output frame (kernels/pfb.py _tile): the kd-frame halo costs
+//            about 13 % more frames at M = K = 16 instead of 25 %.
+// Plain fp32 on the CUDA cores: no tensor cores, no TF32, no fast-math
+// intrinsic (atan2f, sqrtf).  Every sum keeps one fixed order, so neither
+// the tile nor the blocking changes a bit of the result.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kSumChunk = 16;  // frames per emit_sum partial
-// FIR frames per thread.  Odd on purpose: with a row stride of M words the
-// warps of an M < 32 bank read blocks kR M words apart, and an odd kR puts
-// those blocks on disjoint banks.
-constexpr int kR = 7;
-constexpr int kCB = 4;         // DFT channels per thread (M % 4 == 0)
+constexpr int kQ = 9;          // decimator outputs per thread
 
 enum Mode : int { kFm = 0, kFmDec = 1, kAm = 2, kAmDec = 3, kChan = 4 };
 
 struct Params {
   const float* xr;
   const float* xi;
-  long long ld;      // elements between streams
-  long long ld_m;    // frames layout: elements between rows m
-  const float* taps_jm;  // (K, M): taps_t transposed, [j][m]
-  const float* wct;      // (M, M): wfc transposed, [m][c]
-  const float* wst;      // (M, M): wfs transposed, [m][c]
-  const float* dtaps;    // (kd,)
+  long long ld;          // elements between streams
+  long long ld_m;        // frames layout: elements between rows m
+  const float* fir_taps; // (K, M): [j][e], the taps of the row FFT input e reads
+  const int* order;      // (2, M): [0][e] that row, [1][e] the channel output e holds
+  const float2* tw;      // (log2 M, M): twiddle of FFT stage s at position e
+  const float* dec_taps; // (decim, nph), 16-byte rows: [ph][o] = h_d[kd-1 - ph - decim o]
   const float* prev_r;   // (B, M)
   const float* prev_i;
   const float* ahist;    // (B, M, kd-1)
@@ -95,6 +105,7 @@ struct Params {
   int M, K, g, gt, kd, decim, mode, emit_sum;
   float gain;
   int lg_m;              // log2 M (M is a power of two)
+  int nph;               // row stride of dec_taps: ceil(kd / decim) to 4
 };
 
 __host__ __device__ inline bool is_fm(int mode) {
@@ -107,277 +118,448 @@ __host__ __device__ inline bool is_dec(int mode) {
 __host__ __device__ inline int halo_before(int mode, int kd) {
   return (is_dec(mode) ? kd - 1 : 0) + (is_fm(mode) ? 1 : 0);
 }
-// Shared memory, in floats.  Region A holds the input frames (2 planes,
-// row stride M), then y (2 planes, row stride M+1: a warp reading one
-// channel across frames hits distinct banks).  Region B holds the branch
-// outputs u (2 planes, row stride M+1), then the demod output d laid out
-// [c][k % decim][k / decim] with an odd channel stride (d_stride).  Region
-// C holds the decimator's (tap, offset) table, kd int2s.
-__host__ __device__ inline long long region_a(int M, int K, int ny) {
-  const long long x = 2LL * (ny + K - 1) * M, y = 2LL * ny * (M + 1);
-  return x > y ? x : y;
+// Branches a thread filters (P) and frames it runs (R).
+__host__ __device__ constexpr int branches_per_thread(int M) {
+  return M > 32 ? M / 32 : 1;
 }
-__host__ __device__ inline int d_rows(int ny, int decim) {
-  return (ny + decim - 1) / decim;
-}
-__host__ __device__ inline int d_stride(int ny, int decim) {
-  return (decim * d_rows(ny, decim)) | 1;
-}
-__host__ __device__ inline long long region_b(int M, int ny, int decim) {
-  const long long u = 2LL * ny * (M + 1), d = 1LL * M * d_stride(ny, decim);
-  return ((u > d ? u : d) + 1) & ~1LL;   // region C holds int2s
+__host__ __device__ constexpr int frames_per_thread(int P) {
+  return P == 1 ? 9 : P == 2 ? 4 : 2;
 }
 
-// Stage 3 of the kernel: y[i, c] = sum_m W[c, m] u[i, m] for frames
-// [i0, ny), CB channels per thread.  Consecutive threads take consecutive
-// frames of one channel block, so the table reads are warp-uniform.
-template <int CB>
-__device__ __forceinline__ void dft_blocked(const Params& p,
-                                            const float* u_r,
-                                            const float* u_i, float* y_r,
-                                            float* y_i, int i0, int ny,
-                                            int us, int ys) {
-  const int M = p.M;
-  const int nyr = ny - i0;
-  for (int e = threadIdx.x; e < (M / CB) * nyr; e += kThreads) {
-    const int c0 = (e / nyr) * CB, i = i0 + e % nyr;
-    const float* ur = u_r + i * us;
-    const float* ui = u_i + i * us;
-    float cr[CB] = {}, si[CB] = {}, ci[CB] = {}, sr[CB] = {};
-    for (int m = 0; m < M; ++m) {
-      const float vr = ur[m], vi = ui[m];
-      float wc[CB], ws[CB];
-      if constexpr (CB == 4) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(
-            p.wct + m * M + c0));
-        const float4 b = __ldg(reinterpret_cast<const float4*>(
-            p.wst + m * M + c0));
-        wc[0] = a.x; wc[1] = a.y; wc[2] = a.z; wc[3] = a.w;
-        ws[0] = b.x; ws[1] = b.y; ws[2] = b.z; ws[3] = b.w;
-      } else {
+// Shared memory, in floats: the input tile (2 planes of frames of M, with
+// slack that groups read and discard: a frame before the first, which the
+// FM's extra frame reads at the tile's start, and R frames after the last;
+// 4 floats to align each plane's copies with device memory), then d (2
+// planes for chan, else 1), d[c][k] at channel stride dsc, with room past
+// the tile's samples for the decimator's window to read ahead.  dsc is
+// congruent to 32 / min(M, 32) mod 32, so that the min(M, 32) channels a
+// warp writes or reads at one time fall on distinct banks.
+struct Layout {
+  long long x_plane, d_plane, total;
+  int front, dsc;
+};
+
+__host__ __device__ inline Layout d_layout(int mode, int M, int K, int kd,
+                                           int decim, int gt) {
+  const int R = frames_per_thread(branches_per_thread(M));
+  const int ny = gt + halo_before(mode, kd);
+  const int nx = ny + K - 1;
+  Layout s;
+  s.front = (M + 3) & ~3;
+  s.x_plane = (s.front + static_cast<long long>(nx + R) * M + 4 + 3) & ~3LL;
+  const int lc = M < 32 ? M : 32;
+  const int want = (32 / lc) & 31;
+  const int base = ny + (kQ + 8) * decim;
+  s.dsc = base + ((want - base % 32) % 32 + 32) % 32;
+  s.d_plane = (static_cast<long long>(M) * s.dsc + kQ + 1 + 3) & ~3LL;
+  s.total = 2 * s.x_plane + (mode == kChan ? 2 : 1) * s.d_plane;
+  return s;
+}
+
+// The block's dynamic shared memory (see d_layout).
+extern __shared__ float4 smem4[];
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(s)),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(s)),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Elements [e0, e1) of a tile plane: xs[e] <- src[e] (src is the device
+// address of the tile's element 0, xs its shared copy, both congruent mod
+// 16 bytes).  16-byte copies between a scalar head and tail.
+__device__ __forceinline__ void copy_range(float* xs, const float* src, int e0,
+                                           int e1) {
+  const int tid = threadIdx.x;
+  const int head = (4 - static_cast<int>((smem_addr(xs + e0) >> 2) & 3)) & 3;
+  const int a = min(e1, e0 + head);
+  const int nv = (e1 - a) >> 2;
+  const int t = a + 4 * nv;
+  for (int v = tid; v < nv; v += kThreads) {
+    cp_async16(xs + a + 4 * v, src + a + 4 * v);
+  }
+  if (tid < a - e0) {
+    cp_async4(xs + e0 + tid, src + e0 + tid);
+  } else if (tid >= 32 && tid - 32 < e1 - t) {
+    cp_async4(xs + t + tid - 32, src + t + tid - 32);
+  }
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// Branch FIR of input row m (taps column e of fir_taps) for frames
+// i .. i + R-1 of the tile: the window w[r] holds frame i + r + K-1-j at
+// tap j.  Reads frames up to i + R-1 + K-1.
+template <int R>
+__device__ __forceinline__ void fir(float2 (&acc)[R], const float* xr,
+                                    const float* xi, const float* taps, int m,
+                                    int e, int i, int K, int M) {
+  float wr[R], wi[R];
 #pragma unroll
-        for (int q = 0; q < CB; ++q) {
-          wc[q] = __ldg(p.wct + m * M + c0 + q);
-          ws[q] = __ldg(p.wst + m * M + c0 + q);
-        }
-      }
+  for (int r = 0; r < R; ++r) {
+    const int f = i + K - 1 + r;
+    wr[r] = xr[f * M + m];
+    wi[r] = xi[f * M + m];
+    acc[r] = make_float2(0.f, 0.f);
+  }
+  // Unrolled so that the window's shifts are renamings and the next taps'
+  // loads issue ahead of their FMAs.
+#pragma unroll 4
+  for (int j = 0; j < K; ++j) {
+    const float t = __ldg(taps + j * M + e);
 #pragma unroll
-      for (int q = 0; q < CB; ++q) {
-        cr[q] = fmaf(wc[q], vr, cr[q]);
-        si[q] = fmaf(ws[q], vi, si[q]);
-        ci[q] = fmaf(wc[q], vi, ci[q]);
-        sr[q] = fmaf(ws[q], vr, sr[q]);
-      }
+    for (int r = 0; r < R; ++r) {
+      acc[r].x = fmaf(t, wr[r], acc[r].x);
+      acc[r].y = fmaf(t, wi[r], acc[r].y);
     }
+    if (j + 1 < K) {
 #pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      y_r[i * ys + c0 + q] = cr[q] - si[q];
-      y_i[i * ys + c0 + q] = ci[q] + sr[q];
+      for (int r = R - 1; r > 0; --r) {
+        wr[r] = wr[r - 1];
+        wi[r] = wi[r - 1];
+      }
+      const int f = i + K - 2 - j;
+      wr[0] = xr[f * M + m];
+      wi[0] = xi[f * M + m];
     }
   }
 }
 
-// Two 512-thread blocks an SM: at most 64 registers a thread.  Without the
-// bound the flat instance took 80, ran one block an SM and was 25-30%
-// slower on an H100.
-template <bool kFlat>
+// A register stage of the FFT (half size h = 32 HP): positions e and e + h
+// in registers p and p + HP of one lane.
+template <int HP, int P, int R>
+__device__ __forceinline__ void reg_stage(float2 (&v)[P][R],
+                                          const float2* __restrict__ tw,
+                                          int l) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (p & HP) continue;
+    const int q = p + HP;
+    const float2 w = __ldg(tw + l + 32 * q);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 a = v[p][r], b = v[q][r];
+      v[p][r] = make_float2(a.x + b.x, a.y + b.y);
+      v[q][r] = cmul(make_float2(a.x - b.x, a.y - b.y), w);
+    }
+  }
+}
+
+// The unscaled M-point inverse FFT of each of the thread's R frames, the
+// frame's M values at positions e = l + L p (lane l of its L-lane group,
+// register p).  Radix-2 decimation in frequency: the stage of half size h
+// maps (a, b) at (e, e + h) to (a + b, (a - b) w), w = tw[s][e + h] =
+// exp(+2 pi i (e mod h) / 2h); the top's table entry is 1.  Position e ends
+// holding bin bitrev(e).  Every lane of the warp calls it.
+template <int P, int R>
+__device__ __forceinline__ void fft_lanes(float2 (&v)[P][R],
+                                          const float2* __restrict__ tw, int M,
+                                          int L, int l) {
+  int s = 0;
+  if constexpr (P == 4) {
+    reg_stage<2>(v, tw, l);
+    ++s;
+  }
+  if constexpr (P >= 2) {
+    reg_stage<1>(v, tw + s * M, l);
+    ++s;
+  }
+  for (int h = L >> 1; h >= 1; h >>= 1, ++s) {
+    const float2 w = __ldg(tw + s * M + l);
+    const float sg = (l & h) ? -1.f : 1.f;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float ox = __shfl_xor_sync(0xffffffffu, v[p][r].x, h);
+        const float oy = __shfl_xor_sync(0xffffffffu, v[p][r].y, h);
+        v[p][r] = cmul(make_float2(ox + sg * v[p][r].x, oy + sg * v[p][r].y),
+                       w);
+      }
+    }
+  }
+}
+
+// The decimator of one tile (stage decim of pfb_kernel), a function of its
+// own so that its registers are allocated apart from the rounds'.  Output t
+// of channel c is the sum over phases ph, in order, of the phase's partial
+// sum over its taps o of dec_taps[ph][o] d[c][(t + o) decim + ph] (tap
+// j = hd - ph - decim o reads demod sample t decim + hd - j).  An item is
+// kQ consecutive outputs of one channel and one phase, the channel fastest:
+// a warp's lanes read distinct banks.  The partials go to the input's space
+// (dead since the rounds), [c][ph][t], then the phases are summed and
+// stored a channel row at a time: out[c gd + t].  d lies at offset d_off of
+// the dynamic shared memory, channel stride dsc.
+__device__ __noinline__ void decimate(float* __restrict__ out,
+                                      const float* __restrict__ dec_taps,
+                                      int nph, int d_off, int dsc, int M,
+                                      int lg_m, int decim, int hd, int nt,
+                                      int gd) {
+  float* smem = reinterpret_cast<float*>(smem4);
+  const float* ds = smem + d_off;
+  const int tid = threadIdx.x;
+  const int ntb = (nt + kQ - 1) / kQ;
+  const int ntp = nt | 1;
+  for (int w = tid; w < M * decim * ntb; w += kThreads) {
+    const int c = w & (M - 1), rest = w >> lg_m;
+    const int ph = rest % decim, t0 = (rest / decim) * kQ;
+    float acc[kQ];
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) acc[u] = 0.f;
+    if (ph <= hd) {
+      const float* dr = ds + c * dsc + t0 * decim + ph;
+      const float* hp = dec_taps + ph * nph;
+      const int no = (hd - ph) / decim + 1;
+      // The window holds rows o .. o + kQ + 6: eight taps a step, their
+      // weights as two 16-byte loads, then the window moves eight rows; the
+      // last taps (no % 8) move it one row each.
+      float win[kQ + 7];
+#pragma unroll
+      for (int u = 0; u < kQ + 7; ++u) win[u] = dr[u * decim];
+      int o = 0;
+      for (; o + 8 <= no; o += 8) {
+        const float4 h0 = __ldg(reinterpret_cast<const float4*>(hp + o));
+        const float4 h1 = __ldg(reinterpret_cast<const float4*>(hp + o + 4));
+        const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int u = 0; u < kQ; ++u) acc[u] = fmaf(h[j], win[j + u], acc[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kQ - 1; ++u) win[u] = win[u + 8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) win[kQ - 1 + j] = dr[(o + kQ + 7 + j) * decim];
+      }
+      for (; o < no; ++o) {
+        const float h = __ldg(hp + o);
+#pragma unroll
+        for (int u = 0; u < kQ; ++u) acc[u] = fmaf(h, win[u], acc[u]);
+#pragma unroll
+        for (int u = 0; u < kQ + 6; ++u) win[u] = win[u + 1];
+      }
+    }
+    float* dst = smem + (c * decim + ph) * ntp + t0;
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      if (t0 + u < nt) dst[u] = acc[u];
+    }
+  }
+  __syncthreads();
+  for (int c = 0; c < M; ++c) {
+    const float* pc = smem + c * decim * ntp;
+    for (int t = tid; t < nt; t += kThreads) {
+      float a = pc[t];
+      for (int ph = 1; ph < decim; ++ph) a += pc[ph * ntp + t];
+      out[c * gd + t] = a;
+    }
+  }
+}
+
+// Stage-truncated builds (simpledsp_tpu_torch/tools/pfb_stages.py) define
+// SDSP_PFB_CUT_AT = 1 .. 4: the kernel stops after the input (1), the FIR
+// (2), the FFT (3) or the demod (4), the values computed so far kept live,
+// and returns after the rounds.
+#if defined(SDSP_PFB_CUT_AT)
+#define SDSP_PFB_SINK(n)                                                  \
+  if ((n) == SDSP_PFB_CUT_AT) {                                           \
+    float s_ = 0.f;                                                       \
+    for (int p_ = 0; p_ < P; ++p_) {                                      \
+      for (int r_ = 0; r_ < R; ++r_) s_ += v[p_][r_].x + v[p_][r_].y;     \
+    }                                                                     \
+    if (s_ == 1.5e-30f) smem[tid] = s_;                                   \
+    continue;                                                             \
+  }
+#else
+#define SDSP_PFB_SINK(n)
+#endif
+
+// Two 256-thread blocks an SM: at most 128 registers a thread.
+template <int P, bool kFlat, bool kFm>
 __global__ void __launch_bounds__(kThreads, 2)
 pfb_kernel(const Params p) {
-  extern __shared__ float smem[];
+  constexpr int R = frames_per_thread(P);
+  constexpr int E = kFm ? 1 : 0;   // frames a group computes before its own
+  float* smem = reinterpret_cast<float*>(smem4);
   const int M = p.M, K = p.K, mode = p.mode;
-  const bool fm = is_fm(mode), dec = is_dec(mode);
+  const bool dec = is_dec(mode);
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * p.gt;            // first output frame
   const int gc = min(p.gt, p.g - f0);          // output frames of this tile
   const int hd = dec ? p.kd - 1 : 0;           // demod halo
   const int hb = halo_before(mode, p.kd);      // y halo
-  const int ny_max = p.gt + hb;
   const int ny = gc + hb;                      // y frames: index i <-> f0-hb+i
   const int nx = ny + K - 1;                   // input frames, same origin
   const int a0 = f0 - hb;
   const int i0 = a0 < 0 ? -a0 : 0;             // first index at frame >= 0
-  const int ys = M + 1;
+  const Layout lay = d_layout(mode, M, K, p.kd, p.decim, p.gt);
+  const int dsc = lay.dsc, decim = p.decim;
+  const long long row = static_cast<long long>(b) * M;  // (b, c = 0)
+  const int tid = threadIdx.x, lane = tid & 31;
 
-  const int us = M + 1;
-  float* xs_r = smem;                           // region A: input frames
-  float* xs_i = xs_r + static_cast<long long>(nx) * M;
-  float* y_r = smem;                            //   then y
-  float* y_i = y_r + static_cast<long long>(ny_max) * ys;
-  float* rb = smem + region_a(M, K, ny_max);    // region B: u, then d
-  float* u_r = rb;
-  float* u_i = u_r + static_cast<long long>(ny_max) * us;
-  float* d = rb;
-  const int dq = d_rows(ny_max, p.decim);       // d[c][ph][q]: q rows
-  const int dsc = d_stride(ny_max, p.decim);    // channel stride
+  // The tile's element e (frame a0 + e / M) at xs[e]; a plane's origin is
+  // shifted so that xs + e and its device address agree mod 16 bytes.
+  const long long gbase = static_cast<long long>(a0) * M;
+  const float* gr = p.xr + b * p.ld;
+  const float* gi = p.xi + b * p.ld;
+  const int sr = kFlat ? static_cast<int>(
+      ((reinterpret_cast<uintptr_t>(gr) >> 2) + gbase) & 3) : 0;
+  const int si = kFlat ? static_cast<int>(
+      ((reinterpret_cast<uintptr_t>(gi) >> 2) + gbase) & 3) : 0;
+  float* xs_r = smem + lay.front + sr;
+  float* xs_i = smem + lay.x_plane + lay.front + si;
+  float* ds = smem + 2 * lay.x_plane;          // d, [c][k]
+  float* ds_im = ds + lay.d_plane;             // chan: Im y
 
-  const float* __restrict__ xr = p.xr + b * p.ld;
-  const float* __restrict__ xi = p.xi + b * p.ld;
-  const int tid = threadIdx.x;
-
-  // 1. Input frames [i0, nx) into shared memory.
+  const int L = M < 32 ? M : 32;               // lanes of a frame
+  const int l = lane & (L - 1);
+  const int gpr = kThreads / L;                // FIR groups a round
+  const int F = gpr * R;                       // frames a round
+  const int nrounds = (ny - i0 + F - 1) / F;
+  // Round rd computes frames [i0 + rd F, i0 + (rd + 1) F) and reads input
+  // frames below chunk_end(rd).
+  auto chunk_end = [&](int rd) { return min(nx, i0 + (rd + 1) * F + K - 1); };
+  auto copy_chunk = [&](int lo, int hi) {
+    const long long o = gbase;   // src + e is element e of the tile, e >= i0 M
+    copy_range(xs_r, gr + o, lo * M, hi * M);
+    copy_range(xs_i, gi + o, lo * M, hi * M);
+  };
   if (kFlat) {
-    const long long base = static_cast<long long>(a0) * M;
-    for (int e = i0 * M + tid; e < nx * M; e += kThreads) {
-      xs_r[e] = xr[base + e];
-      xs_i[e] = xi[base + e];
-    }
+    copy_chunk(i0, chunk_end(0));
+    cp_async_commit();
   } else {
     const int cnt = nx - i0;
     for (int e = tid; e < cnt * M; e += kThreads) {
       const int m = e / cnt, i = i0 + e % cnt;
-      xs_r[i * M + m] = xr[m * p.ld_m + a0 + i];
-      xs_i[i * M + m] = xi[m * p.ld_m + a0 + i];
+      xs_r[i * M + m] = gr[m * p.ld_m + a0 + i];
+      xs_i[i * M + m] = gi[m * p.ld_m + a0 + i];
     }
   }
-  __syncthreads();
-
-  // 2. Branch FIR: u[i, m] for y frames [i0, ny), kR frames per thread.
-  // The window w[r] holds input frame i + r + K-1-j at tap j.
-  const int nblk = (ny - i0 + kR - 1) / kR;
-  for (int e = tid; e < nblk * M; e += kThreads) {
-    const int m = e % M, i = i0 + (e / M) * kR;
-    float wr[kR], wi[kR], ar[kR], ai[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int f = i + K - 1 + r;
-      wr[r] = f < nx ? xs_r[f * M + m] : 0.f;
-      wi[r] = f < nx ? xs_i[f * M + m] : 0.f;
-      ar[r] = ai[r] = 0.f;
+  // Demod samples before the call come from the carried ahist.
+  if (dec && f0 < hd) {
+    const int nh = hd - f0;
+    for (int e = tid; e < M * nh; e += kThreads) {
+      const int c = e / nh, k = e - c * nh;
+      ds[c * dsc + k] = p.ahist[(row + c) * hd + f0 + k];
     }
-    for (int j = 0; j < K; ++j) {
-      const float t = __ldg(p.taps_jm + j * M + m);
+  }
+
+  // The lane's FFT positions, the rows they filter, the channels they end on.
+  int pos[P], xrow[P], chan[P];
 #pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        ar[r] = fmaf(t, wr[r], ar[r]);
-        ai[r] = fmaf(t, wi[r], ai[r]);
-      }
-      if (j + 1 < K) {
+  for (int q = 0; q < P; ++q) {
+    pos[q] = l + L * q;
+    xrow[q] = __ldg(p.order + pos[q]);
+    chan[q] = __ldg(p.order + M + pos[q]);
+  }
+  const int koff = dec ? hb - hd : hb;         // d index k = i - koff
+  const bool last_tile = f0 + gc == p.g;
+
+  for (int rd = 0; rd < nrounds; ++rd) {
+    if (kFlat) {
+      if (rd + 1 < nrounds) copy_chunk(chunk_end(rd), chunk_end(rd + 1));
+      cp_async_commit();
+      cp_async_wait1();
+    }
+    __syncthreads();
+    const int grp = rd * gpr + tid / L;
+    const int iv = i0 + grp * R;               // the group's first frame
+    const bool live = iv < ny;
+    const int i = live ? iv : i0;              // a dead group recomputes
+#if defined(SDSP_PFB_CUT_AT) && SDSP_PFB_CUT_AT == 1
+    continue;
+#endif
+    // v[q][E + r] holds frame i + r; FM also computes frame i - 1 in v[q][0],
+    // the previous group's last, for the conjugate product.
+    float2 v[P][E + R];
+    // stage: fir
 #pragma unroll
-        for (int r = kR - 1; r > 0; --r) {
-          wr[r] = wr[r - 1];
-          wi[r] = wi[r - 1];
+    for (int q = 0; q < P; ++q) {
+      fir<E + R>(v[q], xs_r, xs_i, p.fir_taps, xrow[q], pos[q], i - E, K, M);
+    }
+    SDSP_PFB_SINK(2)
+    // stage: fft
+    fft_lanes<P, E + R>(v, p.tw, M, L, l);
+    SDSP_PFB_SINK(3)
+    // stage: demod
+    if (!live) continue;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int c = chan[q];
+      if (kFm && last_tile) {    // new FM carry: y of the call's last frame
+        const int r = p.g - 1 - a0 - i;
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          if (rr == r) {
+            p.prev_r_out[row + c] = v[q][E + rr].x;
+            p.prev_i_out[row + c] = v[q][E + rr].y;
+          }
         }
-        const int f = i + K - 2 - j;
-        wr[0] = xs_r[f * M + m];
-        wi[0] = xs_i[f * M + m];
       }
-    }
+      int k = i - koff;
+      float* dc = ds + c * dsc;
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (i + r < ny) {
-        u_r[(i + r) * us + m] = ar[r];
-        u_i[(i + r) * us + m] = ai[r];
+      for (int r = 0; r < R; ++r, ++k) {
+        if (k < 0 || i + r >= ny) continue;
+        const float2 y = v[q][E + r];
+        if (mode == kChan) {
+          dc[k] = y.x;
+          ds_im[c * dsc + k] = y.y;
+        } else if constexpr (kFm) {
+          // The call's first frame follows the carried y.
+          const float2 s = r == 0 && i == i0 && i0 > 0
+              ? make_float2(p.prev_r[row + c], p.prev_i[row + c])
+              : v[q][E + r - 1];
+          const float dr = y.x * s.x + y.y * s.y;
+          const float di = y.y * s.x - y.x * s.y;
+          dc[k] = atan2f(di, dr) * p.gain;
+        } else {
+          dc[k] = sqrtf(y.x * y.x + y.y * y.y);
+        }
       }
     }
   }
   __syncthreads();
-
-  // 3. Inverse DFT across branches: y[i, c] (overwrites the input frames).
-  if (M % kCB == 0) {
-    dft_blocked<kCB>(p, u_r, u_i, y_r, y_i, i0, ny, us, ys);
-  } else {
-    dft_blocked<1>(p, u_r, u_i, y_r, y_i, i0, ny, us, ys);
-  }
-  // The FM carry stands in for frame -1.
-  if (fm && i0 > 0) {
-    for (int c = tid; c < M; c += kThreads) {
-      y_r[(i0 - 1) * ys + c] = p.prev_r[b * M + c];
-      y_i[(i0 - 1) * ys + c] = p.prev_i[b * M + c];
-    }
-  }
-  __syncthreads();
-
-  const long long row = static_cast<long long>(b) * M;  // (b, c = 0)
-  if (f0 + gc == p.g && fm) {  // new FM carry: y of the call's last frame
-    const int i = p.g - 1 - a0;
-    for (int c = tid; c < M; c += kThreads) {
-      p.prev_r_out[row + c] = y_r[i * ys + c];
-      p.prev_i_out[row + c] = y_i[i * ys + c];
-    }
-  }
+#if defined(SDSP_PFB_CUT_AT)
+  if (p.gain == 1.5e-30f) p.out0[tid] = ds[tid];   // keeps d live
+  return;
+#endif
 
   if (!dec) {
-    // 4. Full-rate outputs, written channel-major: consecutive threads
-    // write consecutive frames of one channel.
-    for (int e = tid; e < M * gc; e += kThreads) {
-      const int c = e / gc, n = e % gc;
-      const int i = hb + n;
-      const float yr = y_r[i * ys + c], yi = y_i[i * ys + c];
-      const long long o = (row + c) * p.g + f0 + n;
-      if (mode == kChan) {
-        p.out0[o] = yr;
-        p.out1[o] = yi;
-      } else if (mode == kAm) {
-        p.out0[o] = sqrtf(yr * yr + yi * yi);
-      } else {
-        const float pr = y_r[(i - 1) * ys + c], pi = y_i[(i - 1) * ys + c];
-        const float dr = yr * pr + yi * pi;
-        const float di = yi * pr - yr * pi;
-        p.out0[o] = atan2f(di, dr) * p.gain;
+    // Full-rate outputs, channel-major: consecutive threads write
+    // consecutive frames of one channel.
+    for (int c = 0; c < M; ++c) {
+      const long long o = (row + c) * p.g + f0;
+      for (int n = tid; n < gc; n += kThreads) {
+        p.out0[o + n] = ds[c * dsc + n];
+        if (mode == kChan) p.out1[o + n] = ds_im[c * dsc + n];
       }
     }
     return;
   }
 
-  // 4. Demod output d for frames f0 - hd + k, k in [0, hd + gc)
-  // (overwrites u); frames before the call come from the carried ahist.
-  // A thread writes one row q of channel c: k = q decim + ph, every phase.
-  const int nd = hd + gc;
-  const int dec_n = p.decim;
-  const int nq = (nd + dec_n - 1) / dec_n;
-  for (int e = tid; e < nq * M; e += kThreads) {
-    const int c = e & (M - 1), q = e >> p.lg_m;
-    float* dcol = d + c * dsc + q;
-    for (int ph = 0, k = q * dec_n; ph < dec_n && k < nd; ++ph, ++k) {
-      const int a = f0 - hd + k;
-      float v;
-      if (a < 0) {
-        v = p.ahist[(row + c) * hd + hd + a];
-      } else {
-        const int i = k + hb - hd;
-        const float yr = y_r[i * ys + c], yi = y_i[i * ys + c];
-        if (fm) {
-          const float pr = y_r[(i - 1) * ys + c], pi = y_i[(i - 1) * ys + c];
-          const float dr = yr * pr + yi * pi;
-          const float di = yi * pr - yr * pi;
-          v = atan2f(di, dr) * p.gain;
-        } else {
-          v = sqrtf(yr * yr + yi * yi);
-        }
-      }
-      dcol[ph * dq] = v;
-    }
-  }
-  // The decimator's table: tap j reads d at k = t decim + hd - j, whose
-  // phase (hd - j) % decim is the same for every t and whose row is
-  // t + (hd - j) / decim, so tap j is (h[j], offset) with d[c][offset + t].
-  int2* tab = reinterpret_cast<int2*>(rb + region_b(M, ny_max, dec_n));
-  for (int j = tid; j < p.kd; j += kThreads) {
-    const int ph = (hd - j) % dec_n;
-    tab[j] = make_int2(__float_as_int(__ldg(p.dtaps + j)),
-                       ph * dq + (hd - j) / dec_n);
-  }
-  __syncthreads();
-
-  // 5. Decimator: audio (B, M, g / decim), consecutive threads on
-  // consecutive outputs of one channel.
-  const int nt = gc / dec_n;
-  const int gd = p.g / dec_n;
-  for (int e = tid; e < M * nt; e += kThreads) {
-    const int c = e / nt, t = e % nt;
-    const float* dc = d + c * dsc + t;
-    float acc = 0.f;
-    for (int j = 0; j < p.kd; ++j) {
-      const int2 tj = tab[j];
-      acc = fmaf(__int_as_float(tj.x), dc[tj.y], acc);
-    }
-    p.out0[(row + c) * gd + f0 / dec_n + t] = acc;
-  }
-  if (f0 + gc == p.g) {  // new ahist: the call's last kd-1 demod samples
+  const int nt = gc / decim;
+  decimate(p.out0 + row * (p.g / decim) + f0 / decim, p.dec_taps, p.nph,
+           static_cast<int>(ds - smem), dsc, M, p.lg_m, decim, hd, nt,
+           p.g / decim);
+  if (last_tile) {  // new ahist: the call's last kd-1 demod samples
     for (int e = tid; e < hd * M; e += kThreads) {
       const int c = e / hd, k = gc + e % hd;
-      p.ahist_out[(row + c) * hd + e % hd] =
-          d[c * dsc + (k % dec_n) * dq + k / dec_n];
+      p.ahist_out[(row + c) * hd + e % hd] = ds[c * dsc + k];
     }
   }
   if (p.emit_sum) {
@@ -389,8 +571,7 @@ pfb_kernel(const Params p) {
       const int n_end = min(gc, (q + 1) * kSumChunk);
       float s = 0.f;
       for (int n = q * kSumChunk; n < n_end; ++n) {
-        const int k = hd + n;
-        s += d[c * dsc + (k % dec_n) * dq + k / dec_n];
+        s += ds[c * dsc + hd + n];
       }
       p.partials[(row + c) * nchunks + f0 / kSumChunk + q] = s;
     }
@@ -412,28 +593,47 @@ sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ esum
   if (lane == 0) esum[r] = s;
 }
 
+template <int P, bool kFlat>
+cudaError_t launch(const Params& p, dim3 grid, long long smem,
+                   cudaStream_t st) {
+  const auto kernel = is_fm(p.mode) ? pfb_kernel<P, kFlat, true>
+                                    : pfb_kernel<P, kFlat, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kFlat>
+cudaError_t launch_m(const Params& p, dim3 grid, long long smem,
+                     cudaStream_t st) {
+  if (p.M == 128) return launch<4, kFlat>(p, grid, smem, st);
+  if (p.M == 64) return launch<2, kFlat>(p, grid, smem, st);
+  return launch<1, kFlat>(p, grid, smem, st);
+}
+
 }  // namespace
 
 // Shared memory of one block, in bytes, for tiles of gt frames.
 extern "C" long long sdsp_pfb_smem_bytes(int mode, int M, int K, int kd,
                                          int decim, int gt) {
-  const int ny = gt + halo_before(mode, kd);
   const bool dec = is_dec(mode);
   return static_cast<long long>(sizeof(float)) *
-         (region_a(M, K, ny) + region_b(M, ny, dec ? decim : 1) +
-          (dec ? 2LL * kd : 0));
+         d_layout(mode, M, K, dec ? kd : 1, dec ? decim : 1, gt).total;
 }
 
 // Launch on `stream` of `device`; returns cudaGetLastError() after the
 // launches (0 when they were accepted), or cudaErrorInvalidValue for
 // arguments the kernel does not take.  Every pointer is device memory
-// holding contiguous float32 (see Params for the shapes); pointers a mode
-// does not use may be null.  layout: 0 flat, 1 frames.  `partials` holds
-// B * M * ceil(g / 16) floats when emit_sum is set.
+// holding contiguous float32 (int32 for order; see Params for the shapes);
+// pointers a mode does not use may be null.  layout: 0 flat, 1 frames.
+// `partials` holds B * M * ceil(g / 16) floats when emit_sum is set.
 extern "C" int sdsp_pfb_f32(int layout, int mode, const float* xr,
                             const float* xi, long long ld, long long ld_m,
-                            const float* taps_jm, const float* wct,
-                            const float* wst, const float* dtaps,
+                            const float* fir_taps, const int* order,
+                            const float* tw, const float* dec_taps,
                             const float* prev_r, const float* prev_i,
                             const float* ahist, float* out0, float* out1,
                             float* prev_r_out, float* prev_i_out,
@@ -451,27 +651,18 @@ extern "C" int sdsp_pfb_f32(int layout, int mode, const float* xr,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Params p{xr, xi, ld, ld_m, taps_jm, wct, wst, dtaps, prev_r, prev_i, ahist,
-           out0, out1, prev_r_out, prev_i_out, ahist_out, partials,
-           M, K, g, gt, dec ? kd : 1, dec ? decim : 1, mode, emit_sum, gain,
-           __builtin_ctz(static_cast<unsigned>(M))};
-  const long long smem = sdsp_pfb_smem_bytes(mode, M, K, p.kd, p.decim, gt);
+  const int kd_ = dec ? kd : 1, decim_ = dec ? decim : 1;
+  Params p{xr, xi, ld, ld_m, fir_taps, order,
+           reinterpret_cast<const float2*>(tw), dec_taps, prev_r, prev_i,
+           ahist, out0, out1, prev_r_out, prev_i_out, ahist_out, partials,
+           M, K, g, gt, kd_, decim_, mode, emit_sum, gain,
+           __builtin_ctz(static_cast<unsigned>(M)),
+           ((kd_ + decim_ - 1) / decim_ + 3) & ~3};
+  const long long smem = sdsp_pfb_smem_bytes(mode, M, K, kd_, decim_, gt);
   const dim3 grid((g + gt - 1) / gt, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == 0) {
-    err = cudaFuncSetAttribute(pfb_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pfb_kernel<true><<<grid, kThreads, smem, st>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(pfb_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pfb_kernel<false><<<grid, kThreads, smem, st>>>(p);
-  }
-  err = cudaGetLastError();
+  err = layout == 0 ? launch_m<true>(p, grid, smem, st)
+                    : launch_m<false>(p, grid, smem, st);
   if (err != cudaSuccess || !emit_sum) return static_cast<int>(err);
   const int rows = B * M;
   const int nchunks = (g + kSumChunk - 1) / kSumChunk;

@@ -18,12 +18,15 @@ tr W2s^T), the full complex spectrum, the JAX function's default.
 
 The kernels are ``csrc/chain.cu`` (:func:`chain_frames`,
 :func:`chain_frames_full`, and the layouts of ``kernels/chain_variants.py``)
-and ``csrc/chain_tc.cu`` ("regs").  The half-spectrum kernel of
-:func:`chain_frames` computes the same spectrum with a radix FFT in place of
-the DFT products: the N/2-point complex FFT of z[t] = y[2t] + i y[2t+1] on
-the FFT core (``csrc/fft_core.cuh``, plan and table from ``kernels/fft.py``),
-then the split into the one-sided spectrum (:func:`kernels.fft.
-_split_table_f64`).  :func:`chain_frames_reference` and
+and ``csrc/chain_tc.cu`` ("regs").  The kernel of :func:`chain_frames` and
+:func:`chain_frames_full` computes the same spectra with a radix FFT in
+place of the DFT products: the N/2-point complex FFT of z[t] = y[2t] +
+i y[2t+1] on the FFT core (``csrc/fft_core.cuh``, plan and table from
+``kernels/fft.py``), then the split into the one-sided spectrum
+(:func:`kernels.fft._split_table_f64`), which the full spectrum completes
+with X[N - k] = conj X[k]; an odd N (full spectrum only, up to
+:data:`ODD_N_MAX`) takes the N-point complex FFT of the frame.
+:func:`chain_frames_reference` and
 :func:`chain_frames_full_reference` are the same functions in plain
 PyTorch, used for CPU tensors and as the kernels' oracles on the card.
 
@@ -52,7 +55,7 @@ from simpledsp_tpu_torch.kernels.fft import (_best_split, _consts,
 from simpledsp_tpu_torch.ops.iir import block_operators_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
 
-__all__ = ["ChainTables", "FusedNorthStarOperators", "LAYOUTS",
+__all__ = ["ChainTables", "FusedNorthStarOperators", "LAYOUTS", "ODD_N_MAX",
            "chain_frames", "chain_frames_full", "chain_frames_full_reference",
            "chain_frames_reference", "chain_full_kernel", "chain_kernel",
            "chain_prepass", "fused_chain_frames", "kernel_supports",
@@ -363,15 +366,18 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     fn = lib.sdsp_chain_natural_f32
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
 # The output forms of ``sdsp_chain_frames_f32`` (enum Mode in chain.cu);
-# "natural" has its own entry, ``sdsp_chain_natural_f32``.
-_MODES = {"wide": 1, "fmajor": 2, "full": 3}
+# "natural" and "full" have their own entry, ``sdsp_chain_natural_f32``.
+_MODES = {"wide": 1, "fmajor": 2}
+# The largest odd N of the full-spectrum kernel (kOddMax in chain.cu: one
+# frame a block, 32 values a thread of 256 through the FFT's passes).
+ODD_N_MAX = 8192
 
 
 @functools.lru_cache(maxsize=64)
@@ -456,29 +462,35 @@ class _ChainKernel:
                 raise ValueError(f"the CUDA chain kernel needs frames of n1 x "
                                  f"n2 samples, n1 <= 128 and n2 <= 128; got "
                                  f"{tuple(x3.shape)}")
+            if (n1 * n2) % 2 and n1 * n2 > ODD_N_MAX:
+                raise ValueError(f"the CUDA full-spectrum kernel takes an odd "
+                                 f"N up to {ODD_N_MAX}; got N = {n1 * n2}")
         elif not kernel_supports(n1, n2):
             raise ValueError(f"the CUDA chain kernel needs frames of n1 x n2 "
                              f"samples, n1 <= 128 and n2 <= 128 even; got "
                              f"{tuple(x3.shape)}")
         _check_operands(x3, s3, tables, (4 if full else 2) * n2, "chain")
-        if mode == "natural":
+        if mode in ("natural", "full"):
             _require_upper(tables.HT)
         tables = _padded_tables(tables, n1, n2)
         shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
             mode, (nf, n1 * n2 // 2))
         spec_re = torch.empty(shape, dtype=x3.dtype, device=x3.device)
         spec_im = torch.empty_like(spec_re)
-        if mode == "natural":
+        if mode in ("natural", "full"):
             # The real FFT of N points as the complex FFT of N/2 on the
-            # FFT core, then the split.
-            tab, plan, npass = _kernel_tables(n1 * n2 // 2, x3.device)
+            # FFT core, then the split (and for the full spectrum its
+            # conjugate mirror); an odd N as the complex FFT of N points.
+            n = n1 * n2
+            odd = n % 2 == 1
+            tab, plan, npass = _kernel_tables(n if odd else n // 2, x3.device)
+            split = None if odd else _split_table(n, x3.device).data_ptr()
             rc = self.library().sdsp_chain_natural_f32(
                 x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
                 tables.PhiT.data_ptr(), ctypes.cast(plan, ctypes.c_void_p),
-                npass, tab.data_ptr(),
-                _split_table(n1 * n2, x3.device).data_ptr(),
-                spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2,
-                s3.shape[1], x3.device.index, _stream(x3))
+                npass, tab.data_ptr(), split, spec_re.data_ptr(),
+                spec_im.data_ptr(), nf, n1, n2, s3.shape[1], int(full),
+                x3.device.index, _stream(x3))
         else:
             rc = self.library().sdsp_chain_frames_f32(
                 x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),

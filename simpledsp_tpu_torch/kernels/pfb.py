@@ -24,7 +24,11 @@ The kernel is ``csrc/pfb.cu``: the public entries launch it for CUDA
 tensors (``pfb_flat_kernel`` / ``pfb_frames_kernel`` count the launches)
 and run the plain versions :func:`pfb_flat_reference` /
 :func:`pfb_frames_reference` for CPU tensors.  There is no fallback from
-the kernel to the plain version.
+the kernel to the plain version.  The kernel computes the inverse DFT as a
+radix-2 FFT across branches and the decimator by phase, from host tables
+built here beside the operators: :func:`fft_order` (which row feeds each
+FFT input, which channel each output holds), :func:`fft_twiddles_f64` and
+:func:`decimator_phase_index`.
 
 The JAX kernels' Mosaic-only machinery has no counterpart: no in-register
 re-layout of 128-sample rows, no stream packing (``packed_tables`` is kept
@@ -40,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -48,7 +53,8 @@ import torch
 from simpledsp_tpu_torch.kernels import _build
 from simpledsp_tpu_torch.precision import ieee_fp32
 
-__all__ = ["PFBOperators", "PFBTables", "flat_pad_to", "kernel_supports",
+__all__ = ["PFBOperators", "PFBTables", "decimator_phase_index",
+           "fft_order", "fft_twiddles_f64", "flat_pad_to", "kernel_supports",
            "pfb_flat_reference", "pfb_frames_reference", "pfb_flat_kernel",
            "pfb_frames_kernel", "pfb_fm_flat", "pfb_am_flat", "pfb_fm_frames",
            "pfb_am_frames", "pfb_channelize_frames"]
@@ -56,8 +62,9 @@ __all__ = ["PFBOperators", "PFBTables", "flat_pad_to", "kernel_supports",
 MODES = ("fm", "fm_dec", "am", "am_dec", "chan")
 _MODE_ID = {name: i for i, name in enumerate(MODES)}
 _SUM_CHUNK = 16          # frames per emit_sum partial (csrc/pfb.cu)
-_SMEM_TARGET = 100 << 10  # two blocks per SM
+_SMEM_TARGET = 113 << 10  # two blocks per SM (228 KB, 1 KB reserved each)
 _SMEM_MAX = 227 << 10     # one block per SM (H100)
+_TILE_TOP = 1024          # default tile: at most this many output frames
 
 
 def kernel_supports(m: int, k: int) -> bool:
@@ -68,15 +75,58 @@ def kernel_supports(m: int, k: int) -> bool:
 
 class PFBTables(NamedTuple):
     """The operators as tensors on one device: the plain version reads the
-    first three, the kernel the transposed three (a warp reads consecutive
-    addresses)."""
+    first three, the kernel the last three (``csrc/pfb.cu``)."""
 
-    taps_t: torch.Tensor   # (M, K)
-    wfc: torch.Tensor      # (M, M) [c, m]
-    wfs: torch.Tensor      # (M, M)
-    taps_jm: torch.Tensor  # (K, M) taps_t^T
-    wct: torch.Tensor      # (M, M) wfc^T, [m, c]
-    wst: torch.Tensor      # (M, M) wfs^T
+    taps_t: torch.Tensor    # (M, K)
+    wfc: torch.Tensor       # (M, M) [c, m]
+    wfs: torch.Tensor       # (M, M)
+    fir_taps: torch.Tensor  # (K, M) [j, e]: taps_t[order[0, e], j]
+    order: torch.Tensor     # (2, M) int32: FFT input e's row, output e's channel
+    fft_tw: torch.Tensor    # (log2 M, M, 2): FFT stage twiddles (re, im)
+
+
+def fft_order(m: int) -> np.ndarray:
+    """The kernel's FFT orders, (2, M) int: row ``order[0, e]`` of the frame
+    (its branch M-1-row; the flip of ``wfc`` / ``wfs``) feeds FFT input e,
+    and output position e holds channel ``order[1, e]`` = bitrev(e)."""
+    lg = m.bit_length() - 1
+    e = np.arange(m)
+    rev = np.zeros(m, dtype=np.int64)
+    for bit in range(lg):
+        rev |= ((e >> bit) & 1) << (lg - 1 - bit)
+    return np.stack([m - 1 - e, rev])
+
+
+def fft_twiddles_f64(m: int) -> np.ndarray:
+    """The kernel's inverse-FFT twiddles, (log2 M, M, 2) float64 (re, im).
+    Stage s has half size h = M >> (s + 1); position e with e & h (the
+    bottom of its pair) holds exp(+2 pi i (e mod h) / 2h), the phase an
+    exact integer (e mod h) M / 2h mod M before the one trig evaluation;
+    the top holds 1."""
+    lg = m.bit_length() - 1
+    e = np.arange(m, dtype=np.int64)
+    tw = np.zeros((lg, m, 2))
+    tw[..., 0] = 1.0
+    for s in range(lg):
+        h = m >> (s + 1)
+        bot = (e & h) != 0
+        ph = ((e % h) * (m // (2 * h))) % m
+        ang = 2.0 * np.pi * ph[bot] / m
+        tw[s, bot, 0] = np.cos(ang)
+        tw[s, bot, 1] = np.sin(ang)
+    return tw
+
+
+def decimator_phase_index(kd: int, decim: int) -> np.ndarray:
+    """The kernel's per-phase decimator taps as indices into h (kd,):
+    (decim, ceil(kd / decim) rounded up to 4, for 16-byte rows) int,
+    [ph, o] = kd-1 - ph - decim o, or -1 where phase ph has no o-th tap.
+    Output t sums, phase by phase, h[idx[ph, o]] d[(t + o) decim + ph]."""
+    nph = -(-(-(-kd // decim)) // 4) * 4
+    ph = np.arange(decim)[:, None]
+    o = np.arange(nph)[None, :]
+    idx = kd - 1 - ph - decim * o
+    return np.where(idx >= 0, idx, -1)
 
 
 class PFBOperators:
@@ -124,9 +174,11 @@ class PFBOperators:
         if device not in self._tables:
             def t(a):
                 return torch.as_tensor(np.ascontiguousarray(a), device=device)
+            order = fft_order(self.m)
+            tw = fft_twiddles_f64(self.m).astype(self.taps_t.dtype)
             self._tables[device] = PFBTables(
-                t(self.taps_t), t(self.wfc), t(self.wfs), t(self.taps_t.T),
-                t(self.wfc.T), t(self.wfs.T))
+                t(self.taps_t), t(self.wfc), t(self.wfs),
+                t(self.taps_t[order[0]].T), t(order.astype(np.int32)), t(tw))
         return self._tables[device]
 
 
@@ -242,8 +294,11 @@ def _library() -> ctypes.CDLL:
 def _tile(mode: str, m: int, k: int, kd: int, decim: int, g: int,
           emit_sum: bool, tile: Optional[int] = None) -> int:
     """Output frames per block: a multiple of decim (and of the 16-frame
-    emit_sum chunk).  Default: the largest such tile up to 256 frames whose
-    shared memory allows two blocks per SM, else one."""
+    emit_sum chunk).  Default: of the tiles up to 1024 frames whose shared
+    memory allows two blocks per SM (else one), the one that computes the
+    fewest frames per output frame, counting the halo and the frames of the
+    FIR's last, partial round (:func:`_frames_computed`); the larger on a
+    tie."""
     align = decim if mode.endswith("_dec") else 1
     if emit_sum:
         align = align * _SUM_CHUNK // math.gcd(align, _SUM_CHUNK)
@@ -257,14 +312,51 @@ def _tile(mode: str, m: int, k: int, kd: int, decim: int, g: int,
             raise ValueError(f"tile={tile} needs more shared memory than a "
                              f"block has")
         return tile
-    top = max(align, min(256, -(-g // align) * align) // align * align)
+    top = max(align, min(_TILE_TOP, -(-g // align) * align) // align * align)
     fits = [t for t in range(top, 0, -align)
             if smem(mid, m, k, kd, decim, t) <= _SMEM_MAX]
     if not fits:
         raise ValueError(f"no tile fits in shared memory for M={m}, K={k}, "
                          f"kd={kd}")
-    return next((t for t in fits if smem(mid, m, k, kd, decim, t)
-                 <= _SMEM_TARGET), fits[0])
+    two = [t for t in fits if smem(mid, m, k, kd, decim, t) <= _SMEM_TARGET]
+    return min(two or fits[:1],
+               key=lambda t: (_frames_computed(mode, m, kd, t) / t, -t))
+
+
+def _frames_computed(mode: str, m: int, kd: int, tile: int) -> int:
+    """Frames a block of ``tile`` output frames computes in ``csrc/pfb.cu``:
+    the tile and its halo, rounded up to the FIR's rounds of
+    256 / min(M, 32) groups of R frames (R = 9, 4, 2 for M <= 32, 64,
+    128)."""
+    halo = (kd - 1 if mode.endswith("_dec") else 0) + mode.startswith("fm")
+    r = 9 if m <= 32 else 4 if m == 64 else 2
+    per_round = 256 // min(m, 32) * r
+    return -(-(tile + halo) // per_round) * per_round
+
+
+# id -> (weak reference, version, {decim: table}) of each decimator taps
+# tensor: the banks pass the same buffer every call, so its per-phase table
+# is gathered once, not once a launch.
+_PHASE_TAPS = {}
+
+
+def _phase_taps(dtaps: torch.Tensor, decim: int) -> torch.Tensor:
+    """The kernel's per-phase decimator taps (decim, ceil(kd / decim) to 4):
+    ``dtaps`` gathered by :func:`decimator_phase_index`, 0 where a phase
+    has no tap (never read)."""
+    key = id(dtaps)
+    seen = _PHASE_TAPS.get(key)
+    if seen is None or seen[0]() is not dtaps or seen[1] != dtaps._version:
+        seen = (weakref.ref(dtaps, lambda _, key=key: _PHASE_TAPS.pop(key, None)),
+                dtaps._version, {})
+        _PHASE_TAPS[key] = seen
+    if decim not in seen[2]:
+        idx = decimator_phase_index(dtaps.numel(), decim)
+        table = dtaps[torch.as_tensor(np.maximum(idx, 0), device=dtaps.device)]
+        seen[2][decim] = torch.where(
+            torch.as_tensor(idx >= 0, device=dtaps.device), table,
+            torch.zeros((), dtype=dtaps.dtype, device=dtaps.device)).contiguous()
+    return seen[2][decim]
 
 
 class _PFBKernel:
@@ -297,14 +389,18 @@ class _PFBKernel:
                              f"{g + k - 1} input frames of {m} samples; "
                              f"got {tuple(xr.shape)}")
         operands = {"xr": (xr, tuple(xr.shape)), "xi": (xi, tuple(xr.shape)),
-                    "taps_jm": (tables.taps_jm, (k, m)),
-                    "wct": (tables.wct, (m, m)), "wst": (tables.wst, (m, m))}
+                    "fir_taps": (tables.fir_taps, (k, m)),
+                    "fft_tw": (tables.fft_tw, (m.bit_length() - 1, m, 2))}
         if mode.startswith("fm"):
             operands["prev_r"] = (prev_r, (b, m, 1))
             operands["prev_i"] = (prev_i, (b, m, 1))
         if dec:
             operands["ahist"] = (ahist, (b, m, kd - 1))
             operands["dec_taps"] = (dtaps, (kd,))
+        if (tables.order.dtype != torch.int32
+                or tuple(tables.order.shape) != (2, m)
+                or tables.order.device != xr.device):
+            raise ValueError(f"order: expected int32 (2, {m}) on {xr.device}")
         for name, (t, shape) in operands.items():
             if t.device != xr.device or t.dtype != torch.float32:
                 raise ValueError(f"{name}: the CUDA PFB kernel takes float32 "
@@ -336,8 +432,9 @@ class _PFBKernel:
         fn = self.library().sdsp_pfb_f32
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = fn(int(self.layout == "frames"), _MODE_ID[mode], ptr(xr),
-                ptr(xi), ld, ld_m, ptr(tables.taps_jm), ptr(tables.wct),
-                ptr(tables.wst), ptr(dtaps if dec else None),
+                ptr(xi), ld, ld_m, ptr(tables.fir_taps), ptr(tables.order),
+                ptr(tables.fft_tw),
+                ptr(_phase_taps(dtaps, decim) if dec else None),
                 ptr(prev_r), ptr(prev_i), ptr(ahist if dec else None),
                 ptr(out0), ptr(out1), ptr(pr_o), ptr(pi_o), ptr(ah_o),
                 ptr(parts), ptr(esum), b, m, k, g, gt, kd, decim,

@@ -163,3 +163,81 @@ def test_full_kernel_wrapper_refuses_before_any_build():
         tchain.chain_frames_full(x3.to("meta"), s3.to("meta"),
                                  tops.tables(full=True))
     assert tchain.chain_full_kernel.launches == launches
+
+
+def _read_frame(y, n2, t, pairs):
+    """The kernel's frame readers on y (F, n1, n2) as rows: z[t] from
+    y[2t], y[2t+1] with their own rows (pairs), or as the one pair of one
+    row (n2 even)."""
+    e = 2 * t
+    if pairs:
+        return (y[:, e // n2, e % n2] + 1j * y[:, (e + 1) // n2, (e + 1) % n2])
+    assert n2 % 2 == 0
+    row = e // n2
+    return y[:, row, e - row * n2] + 1j * y[:, row, e - row * n2 + 1]
+
+
+@pytest.mark.parametrize("n", [200, 375, 1000, 1024, 4096, 8181])
+def test_full_kernel_walk_gives_the_plain_version(n, rng):
+    """The full-spectrum kernel walked in numpy in float64: for an even N the
+    N/2-point FFT core (plan and table) on z read by the frame reader (the
+    pair reader at odd n2: 1000 = 8 x 125), the split, and the conjugate
+    mirror X[N - k] = conj X[k] stored in natural order; for an odd N (375 =
+    3 x 125, and 8181, the largest the kernel takes) the N-point core on
+    (y, 0).  They give ``chain_frames_full_reference`` to 1e-12 of the
+    largest bin."""
+    from test_torch_fft import _core_walk
+
+    from simpledsp_tpu_torch.kernels import fft as tkfft
+
+    _, tops = _ops(n)
+    assert n % 2 == 0 or n <= tchain.ODD_N_MAX
+    x = torch.as_tensor(rng.standard_normal((1, 2 * n)))
+    s0 = torch.as_tensor(rng.standard_normal((1, tops.state_dim)))
+    x3, s3, _ = tchain.chain_prepass(tops, x, s0)
+    tables = tops.tables(full=True)
+    y = tchain._iir_block(x3, s3, tables).numpy()
+    f, n1, n2 = y.shape
+    if n % 2:
+        spec = _core_walk(y.reshape(f, n) + 0j, n)
+    else:
+        m = n // 2
+        z = _core_walk(np.stack([_read_frame(y, n2, t, n2 % 2 == 1)
+                                 for t in range(m)], -1), m)
+        sp = tkfft._split_table_f64(n)
+        spec = np.empty((f, n), dtype=complex)
+        spec[:, 0] = z[:, 0].real + z[:, 0].imag
+        spec[:, m] = z[:, 0].real - z[:, 0].imag
+        for k in range(1, m // 2 + 1):
+            a, b = z[:, k], z[:, m - k]
+            wr, wi = sp[k]
+            er, ei = 0.5 * (a.real + b.real), 0.5 * (a.imag - b.imag)
+            dr, di = 0.5 * (a.real - b.real), 0.5 * (a.imag + b.imag)
+            u, v = wr * di + wi * dr, wi * di - wr * dr
+            spec[:, k] = spec[:, n - k] = er + u
+            spec[:, k] += 1j * (ei + v)
+            spec[:, n - k] -= 1j * (ei + v)
+            if 2 * k < m:
+                spec[:, m - k] = (er - u) + 1j * (v - ei)
+                spec[:, m + k] = (er - u) - 1j * (v - ei)
+    want_re, want_im = tchain.chain_frames_full_reference(x3, s3, tables)
+    scale = float(max(want_re.abs().max(), want_im.abs().max()))
+    np.testing.assert_allclose(spec.real, want_re.numpy(), rtol=0,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(spec.imag, want_im.numpy(), rtol=0,
+                               atol=1e-12 * scale)
+
+
+def test_full_kernel_refuses_an_odd_n_above_its_limit():
+    """An odd N above ``ODD_N_MAX`` (127 x 127) raises before any build."""
+    from simpledsp_tpu_torch.models.northstar import default_design
+
+    ops = tchain.FusedNorthStarOperators(default_design(), 127 * 127,
+                                         device="cpu")
+    assert (ops.n1, ops.n2) == (127, 127)
+    x3 = torch.zeros(1, 127, 127)
+    s3 = torch.zeros(1, ops.state_dim, 127)
+    launches = tchain.chain_full_kernel.launches
+    with pytest.raises(ValueError, match="odd N up to 8192"):
+        tchain.chain_full_kernel(x3, s3, ops.tables(full=True))
+    assert tchain.chain_full_kernel.launches == launches

@@ -207,6 +207,58 @@ def test_pfb_kernel_matches_plain_version(layout, mode, m, k, cuda_device):
         assert torch.equal(a, c)
 
 
+def _misaligned(v, offset, pad):
+    """v with `pad` more columns (zero, never read), contiguous, its first
+    element `offset` floats past a 16-byte boundary."""
+    shape = v.shape[:-1] + (v.shape[-1] + pad,)
+    n = int(np.prod(shape))
+    out = torch.zeros(n + offset, device=v.device)[offset:].view(shape)
+    out[..., :v.shape[-1]] = v
+    return out
+
+
+@pytest.mark.parametrize("mode", ["fm_dec", "am_sum", "fm", "chan"])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_pfb_kernel_reads_misaligned_rows(mode, offset, cuda_device):
+    """Planes whose first element is an odd number of floats past a 16-byte
+    boundary, with an odd row stride (one more column, never read), give
+    the bits of the aligned contiguous planes: flat rows (fm_dec, am_sum,
+    fm) and channel-major frames (chan)."""
+    b, m, k, g, kd = 3, 16, 16, 2048, 64
+    dev = cuda_device
+    chan = PFBChannelizer(m, taps_per_channel=k, device=dev)
+    ops = chan.kernel_ops
+    xr, xi = (torch.as_tensor(v, device=dev)
+              for v in _carriers(b, (g + k) * m, m, seed=offset))
+    rng = np.random.default_rng(offset)
+    prev = [torch.as_tensor(rng.standard_normal((b, m, 1)), dtype=torch.float32,
+                            device=dev) for _ in range(2)]
+    ahist = torch.as_tensor(rng.standard_normal((b, m, kd - 1)),
+                            dtype=torch.float32, device=dev)
+    dtaps = torch.as_tensor(lowpass_taps(kd, 0.1, fs=1.0), dtype=torch.float32,
+                            device=dev)
+    kmode = "am_dec" if mode == "am_sum" else mode
+    fm, dec = kmode.startswith("fm"), kmode.endswith("_dec")
+    args = (prev[0] if fm else None, prev[1] if fm else None,
+            ahist if dec else None, dtaps if dec else None)
+    kw = dict(gain=0.2, g=g, decim=4, emit_sum=mode == "am_sum", tile=None)
+    if mode == "chan":
+        planes = [chan.frames_t(v).contiguous() for v in (xr, xi)]
+        kern = tpfb.pfb_frames_kernel
+    else:
+        planes = [xr, xi]
+        kern = tpfb.pfb_flat_kernel
+    pad = 1 if planes[0].shape[-1] % 2 == 0 else 2
+    shifted = [_misaligned(v, offset, pad) for v in planes]
+    assert shifted[0].shape[-1] % 2 == 1
+    assert shifted[0].data_ptr() % 16 == 4 * offset
+    aligned = kern(kmode, ops.tables(dev), *planes, *args, **kw)
+    got = kern(kmode, ops.tables(dev), *shifted, *args, **kw)
+    torch.cuda.synchronize()
+    for a, c in zip(_leaves(aligned), _leaves(got)):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.parametrize("kind", ["fm", "am"])
 def test_banks_on_the_card_match_float64_composable(kind, cuda_device):
     """Both banks on the card, 3 chained calls through __call__ and
@@ -550,9 +602,10 @@ def _tables64(tables):
     return tchain.ChainTables(*(t.double() for t in tables))
 
 
-@pytest.mark.parametrize("n", [1000, 1024, 4096, 16384, 200])
+@pytest.mark.parametrize("n", [1000, 1024, 4096, 16384, 200, 375, 8181])
 def test_full_kernel_matches_plain_version(n, cuda_device):
-    """The full-spectrum kernel, odd n2 (1000 = 8 x 125) included."""
+    """The full-spectrum kernel, odd n2 (1000 = 8 x 125) and odd N (375 =
+    3 x 125, and 8181 = 81 x 101, the largest it takes) included."""
     ops, x3, s3 = _chain_frames(n, cuda_device)
     tabs = ops.tables(full=True)
     launches = tchain.chain_full_kernel.launches
@@ -560,6 +613,26 @@ def test_full_kernel_matches_plain_version(n, cuda_device):
     torch.cuda.synchronize()
     assert tchain.chain_full_kernel.launches == launches + 1
     assert got[0].shape == (x3.shape[0], n)
+    ref = tchain.chain_frames_full_reference(x3.double(), s3.double(),
+                                             _tables64(tabs))
+    assert _snr_db(ref, got) >= 130.0
+
+
+@pytest.mark.parametrize("n,frames", [(4096, 3 * 132 + 5), (16384, 133),
+                                      (1000, 8 * 132 + 3), (375, 133)])
+def test_full_kernel_partial_last_wave(n, frames, cuda_device):
+    """The full-spectrum kernel at frame counts that leave the last wave of
+    blocks partial and the last block short of its frames (two frames a
+    block at 4096, eight at 1000, one at 16384 and at the odd 375)."""
+    ops = tchain.FusedNorthStarOperators(default_design(), n, device=cuda_device)
+    x = torch.as_tensor(np.random.default_rng(frames).standard_normal(
+        (1, frames * n)), dtype=torch.float32, device=cuda_device)
+    x3, s3, _ = tchain.chain_prepass(ops, x, torch.zeros(1, ops.state_dim,
+                                                         device=cuda_device))
+    tabs = ops.tables(full=True)
+    got = tchain.chain_frames_full(x3, s3, tabs)
+    torch.cuda.synchronize()
+    assert got[0].shape == (frames, n)
     ref = tchain.chain_frames_full_reference(x3.double(), s3.double(),
                                              _tables64(tabs))
     assert _snr_db(ref, got) >= 130.0

@@ -44,9 +44,12 @@ def test_operators_equal_jax_bitwise(m, k, dtype):
         for a, b in zip(to.packed_tables(p), jo.packed_tables(p)):
             np.testing.assert_array_equal(a, b)
     tabs = to.tables()
-    np.testing.assert_array_equal(tabs.taps_jm.numpy(), jo.taps_t.T)
-    np.testing.assert_array_equal(tabs.wct.numpy(), jo.wfc.T)
-    assert tabs.taps_jm.is_contiguous() and tabs.wst.is_contiguous()
+    order = tabs.order.numpy()
+    np.testing.assert_array_equal(tabs.fir_taps.numpy(), jo.taps_t[order[0]].T)
+    np.testing.assert_array_equal(order[0], m - 1 - np.arange(m))
+    assert tabs.order.dtype == torch.int32
+    assert tabs.fir_taps.dtype == tabs.fft_tw.dtype == dtype
+    assert all(t.is_contiguous() for t in tabs)
 
 
 @pytest.mark.parametrize("m,k", [(16, 16), (8, 4), (32, 8), (16, 32),
@@ -250,3 +253,165 @@ def test_entries_refuse_what_they_do_not_take(data):
                              None, None, gain=0.0, g=G, decim=1,
                              emit_sum=False, tile=None)
     assert tpfb.pfb_flat_kernel.launches == launches
+
+
+# -- the CUDA kernel's arithmetic, walked in numpy from its host tables ------
+
+def _walk_fft(u, tw, order):
+    """(..., M) branch outputs through the kernel's FFT: input e takes row
+    order[0, e], radix-2 decimation-in-frequency stages with the twiddles
+    tw (log2 M, M, 2), output position e is channel order[1, e]."""
+    m = u.shape[-1]
+    v = u[..., order[0]].astype(complex)
+    w = tw[..., 0] + 1j * tw[..., 1]
+    for s in range(tw.shape[0]):
+        h = m >> (s + 1)
+        top = np.arange(m)[(np.arange(m) & h) == 0]
+        a, b = v[..., top].copy(), v[..., top + h].copy()
+        v[..., top] = a + b
+        v[..., top + h] = (a - b) * w[s, top + h]
+    y = np.empty_like(v)
+    y[..., order[1]] = v
+    return y
+
+
+def _walk_kernel(mode, tabs, fr, fi, prev, ahist, dtaps, gain, g, decim,
+                 emit_sum):
+    """The kernel's arithmetic on frame-major (B, g + K - 1, M) planes in
+    float64: the FIR by FFT input position from ``fir_taps``, the FFT of
+    :func:`_walk_fft`, the demod, and the decimator by phase from
+    ``decimator_phase_index``."""
+    taps = tabs.fir_taps.numpy()
+    order = tabs.order.numpy()
+    k = taps.shape[0]
+    x = fr + 1j * fi
+    xe = x[..., order[0]]                      # the row each position reads
+    u = sum(taps[j] * xe[:, k - 1 - j:k - 1 - j + g] for j in range(k))
+    # _walk_fft re-applies the row order: hand it u by row.
+    ur = np.empty_like(u)
+    ur[..., order[0]] = u
+    y = _walk_fft(ur, tabs.fft_tw.numpy(), order).transpose(0, 2, 1)
+    if mode == "chan":
+        return y.real, y.imag
+    if mode.startswith("fm"):
+        prv = np.concatenate([prev[0] + 1j * prev[1], y[..., :-1]], -1)
+        q = y * np.conj(prv)
+        sig = gain * np.arctan2(q.imag, q.real)
+        carry = (y.real[..., -1:], y.imag[..., -1:])
+    else:
+        sig = np.abs(y)
+    if mode == "fm":
+        return sig, carry
+    if mode == "am":
+        return sig
+    kd = len(dtaps)
+    idx = tpfb.decimator_phase_index(kd, decim)
+    ext = np.concatenate([ahist, sig], -1)
+    nt = g // decim
+    audio = np.zeros(sig.shape[:-1] + (nt,))
+    for ph in range(decim):
+        for o in range(idx.shape[1]):
+            if idx[ph, o] >= 0:
+                rows = (np.arange(nt) + o) * decim + ph
+                audio += dtaps[idx[ph, o]] * ext[..., rows]
+    ahist_out = ext[..., ext.shape[-1] - (kd - 1):]
+    if mode == "fm_dec":
+        return audio, carry, ahist_out
+    if emit_sum:
+        return audio, ahist_out, sig.sum(-1)
+    return audio, ahist_out
+
+
+WALK_MODES = [("fm", False), ("fm_dec", False), ("am", False),
+              ("am_dec", False), ("am_dec", True), ("chan", False)]
+
+
+@pytest.mark.parametrize("mode,emit_sum", WALK_MODES,
+                         ids=["fm", "fm_dec", "am", "am_dec", "am_dec_sum",
+                              "chan"])
+@pytest.mark.parametrize("k", [4, 16, 32])
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 32, 128])
+def test_kernel_tables_give_the_plain_version(m, k, mode, emit_sum):
+    """The kernel's host tables (FFT input rows, twiddles, output channels,
+    FIR taps by position, per-phase decimator taps) walked in numpy in
+    float64 in the kernel's order give ``pfb_flat_reference`` (and
+    ``pfb_frames_reference`` for chan) to 1e-12 of the largest output."""
+    rng = np.random.default_rng(m * 100 + k)
+    b, g, kd, decim = 2, 24, 11, 4
+    tabs = tpfb.PFBOperators(rng.standard_normal((m, k)),
+                             dtype=torch.float64).tables()
+    fr, fi = rng.standard_normal((2, b, g + k - 1, m))
+    prev = rng.standard_normal((2, b, m, 1))
+    ahist = rng.standard_normal((b, m, kd - 1))
+    dtaps = lowpass_taps(kd, 0.1, fs=1.0)
+    fm, dec = mode.startswith("fm"), mode.endswith("dec")
+    t = torch.as_tensor
+    args = (t(prev[0]) if fm else None, t(prev[1]) if fm else None,
+            t(ahist) if dec else None, t(dtaps) if dec else None)
+    kw = dict(gain=2.5, g=g, decim=decim, emit_sum=emit_sum)
+    if mode == "chan":
+        want = tpfb.pfb_frames_reference(
+            mode, tabs, t(fr).transpose(1, 2), t(fi).transpose(1, 2), *args,
+            **kw)
+    else:
+        want = tpfb.pfb_flat_reference(mode, tabs, t(fr).reshape(b, -1),
+                                       t(fi).reshape(b, -1), *args, **kw)
+    got = _walk_kernel(mode, tabs, fr, fi, prev, ahist, dtaps, 2.5, g, decim,
+                       emit_sum)
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    scale = max(np.abs(w).max() for w in want)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a, w, rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_fft_tables_give_the_jax_inverse_dft(m):
+    """Unit branch outputs through the kernel's FFT give the JAX package's
+    flipped inverse-DFT operators ``wfc + i wfs`` (float64, 1e-13), and the
+    FIR taps by position are the JAX ``taps_t`` rows in the FFT's input
+    order, bit for bit."""
+    branch = np.random.default_rng(m).standard_normal((m, 4))
+    tabs = tpfb.PFBOperators(branch, dtype=torch.float64).tables()
+    jo = jpfb.PFBOperators(branch, dtype=jnp.float64)
+    w = _walk_fft(np.eye(m), tabs.fft_tw.numpy(), tabs.order.numpy())
+    np.testing.assert_allclose(w.real.T, np.asarray(jo.wfc), rtol=0, atol=1e-13)
+    np.testing.assert_allclose(w.imag.T, np.asarray(jo.wfs), rtol=0, atol=1e-13)
+    order = tabs.order.numpy()
+    np.testing.assert_array_equal(tabs.fir_taps.numpy(),
+                                  np.asarray(jo.taps_t)[order[0]].T)
+    assert sorted(order[1].tolist()) == list(range(m))
+
+
+@pytest.mark.parametrize("kd,decim", [(64, 4), (11, 4), (3, 4), (24, 1),
+                                      (7, 3)])
+def test_decimator_phase_index_covers_every_tap_once(kd, decim):
+    idx = tpfb.decimator_phase_index(kd, decim)
+    assert idx.shape == (decim, -(-(-(-kd // decim)) // 4) * 4)
+    assert sorted(idx[idx >= 0].tolist()) == list(range(kd))
+    for ph in range(decim):
+        live = idx[ph][idx[ph] >= 0]
+        assert np.all((kd - 1 - ph - live) % decim == 0)
+        assert np.all(idx[ph][: len(live)] >= 0)   # the live taps come first
+
+
+def test_stage_cuts_of_the_pfb_source():
+    """``tools/pfb_stages.py`` cuts this tree's kernel through its
+    ``SDSP_PFB_CUT_AT`` hook and an older kernel without it by a return
+    before each stage's comment; it never launches anything here."""
+    from simpledsp_tpu_torch.kernels import _build
+    from simpledsp_tpu_torch.tools import pfb_stages
+
+    text = (_build.CSRC_DIR / "pfb.cu").read_text()
+    for n in range(1, pfb_stages.CUTS + 1):
+        cut = pfb_stages.cut_source(text, n)
+        assert cut.startswith(f"#define SDSP_PFB_CUT_AT {n}\n")
+        assert cut.endswith(text)
+    old = "".join(f"  x{i};\n{m}: stage\n" for i, m in
+                  enumerate(pfb_stages.OLD_MARKERS))
+    for n, marker in enumerate(pfb_stages.OLD_MARKERS, 1):
+        lines = pfb_stages.cut_source(old, n).splitlines()
+        at = lines.index(f"{marker}: stage")
+        assert lines[at - 1] == "  if (p.M > 0) return;"
+        assert lines.count("  if (p.M > 0) return;") == 1
