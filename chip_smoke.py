@@ -126,7 +126,7 @@ Phases (any failure exits nonzero before the result line):
 17. The rest of the chain kernel family against its float64 plain versions
     on the frames and starts of 16 x 2^20 float32 noise (seed 17): the
     full-spectrum kernel at N = 1000 (odd n2), 1024, 4096, 16384, and the
-    odd N = 375 and 8181 (the largest odd N it takes) against
+    odd N = 375, 8181 and 16129 (127 x 127, the largest odd N) against
     ``chain_frames_full_reference``, and every half-spectrum layout (reg,
     k1, regs, regw, reg2, reg4, regp, fmajor, pair) at N = 200, 1024, 4096,
     16384 through its wrapper against ``chain_frames_reference``: >= 130 dB,
@@ -1310,7 +1310,7 @@ def radar_path(dev, kfft, tfft, radar):
 
 # -- the rest of the chain kernel family ----------------------------------------
 
-FULL_SIZES = (1000, 1024, 4096, 16384, 375, 8181)   # 375, 8181: odd N
+FULL_SIZES = (1000, 1024, 4096, 16384, 375, 8181, 16129)   # odd: 375 ...
 LAYOUT_SIZES = (200, 1024, 4096, 16384)
 FAMILY_C = 16               # channels of T samples per size in phase 17
 # (record name, form timed in phase 17, source, TPU kernel replaced)

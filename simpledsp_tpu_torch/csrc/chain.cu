@@ -9,8 +9,8 @@
 //     counterpart here);
 //   chain_natural_kernel, forms kFull / kPairs / kOdd: _make_fused_kernel
 //     (:425), half_spectrum=False (the JAX default), the full complex
-//     spectrum in natural bin order, any n2 <= 128 (odd too), odd N up to
-//     kOddMax;
+//     spectrum in natural bin order, any n1, n2 <= 128 (odd too: odd N up
+//     to 127 x 127);
 //   chain_frames_kernel, modes kWide and kFmajor: the store orders of
 //     chain_variants.py _make_packed_regw_kernel (:144, 16-byte stores of
 //     the natural-order planes) and _make_packed_fmajor_kernel (:374, each
@@ -28,8 +28,8 @@
 // one all N bins, the upper half by the mirror X[N - k] = conj X[k] (a store
 // twice as wide, the same FFT).  n2 odd with N even reads each sample of a
 // pair at its own row (kPairs).  An odd N has no split: the N-point complex
-// FFT of (y, 0) runs on the core, one frame a block, its last pass storing
-// the bins.  What bounds it: at N = 4096 the IIR block is about 0.34 M FMAs
+// FFT of (y, 0) runs on the core, its last pass storing the bins.  What
+// bounds it: at N = 4096 the IIR block is about 0.34 M FMAs
 // a frame (0.30 M in the chunks of H^T it keeps, 0.04 M for the starts) and
 // the FFT about 0.12 MFLOP, against 32 KB of input and output (48 KB for the
 // full spectrum), about 24 flops a byte (16 for the full), near the card's
@@ -38,12 +38,16 @@
 // (1.3 M FMAs a frame for the half spectrum, 3.7 M in all for the full one
 // before), and the IIR block skips the all-zero chunks of the triangular
 // H^T (about half its FMAs).  A block takes g frames (two at N = 4096, four
-// at 2048, eight at 1024), so that the FFT's passes give every thread a
-// butterfly and the IIR block's bands balance; shared memory holds their x,
-// y and starts (71 KB at N = 4096, two blocks an SM at 128 registers), one
-// block's loads overlapping the other's work.  An odd N's odd-radix passes
-// run one frame a block, and are slow at small N (375) and at a large prime
-// factor (8181 = 81 x 101): the bar holds, the speed does not (PERF.md).
+// at 2048, eight at 1024, 32 at 200: rows stacked unpadded), so that the
+// FFT's passes give every thread a butterfly and the IIR block's bands
+// balance; shared memory holds their x, y and starts (71 KB at N = 4096,
+// two blocks an SM at 128 registers), one block's loads overlapping the
+// other's work.  An odd N stacks frames the same way (eight at 375); above
+// 4096 values, one frame a block, it runs 512 threads with 16 or 32 values
+// each (to 127 x 127 = 16129, whose planes, 126 KB, fit in x's and y's
+// space).  Its large odd-radix passes (101 at 8181, 127 at 16129) are
+// latency-bound: the largest N runs slower than the four-step form it
+// replaced (PERF.md).
 //
 // The store forms and the grouped form keep the four-step design.  Per
 // frame, with x viewed as (n1, n2) and the sub-block starts s as (D, n1),
@@ -327,7 +331,7 @@ __device__ __forceinline__ void iir_band_stage(float* y, const float* x,
   const int cl = lane >> 3, rl = lane & 7;
   const int dp = starts_stride(d);
   const int items = 8 * (n1p / (8 * TM));
-  for (int it = warp; it < items; it += kWarps) {
+  for (int it = warp; it < items; it += blockDim.x >> 5) {
     const int grp = it >> 3, b8 = it & 7;
     const int band = (grp & 1) ? 7 - b8 : b8;
     if (16 * band >= n2) continue;   // no column of the frame
@@ -405,37 +409,38 @@ struct SpectrumOut {
 // full spectrum (frames, N) in natural order: kFull (n2 even) and kPairs
 // (n2 odd, N even) through the split and its conjugate mirror
 // X[N - k] = conj X[k]; kOdd (N odd) as the N-point complex FFT of (y, 0),
-// one frame a block, its last pass storing the bins.
+// its last pass storing the bins.
 enum Form { kHalf = 0, kFull = 1, kPairs = 2, kOdd = 3 };
 
-// g frames a block (the last block may hold fewer), their rows stacked:
-// g > 1 only where n1 == n1p, so frame q's rows are q n1 .. q n1 + n1 - 1
-// and its z values q M .. q M + M - 1 (M = N/2).  Shared memory: x (rows x
-// kLdx, rows = g n1p), whose space then holds the FFT's two planes, y
-// (rows x kLdx) and the starts (rows x dp).  Per frame: the IIR block into
-// y; the M-point complex FFT of z read from y, into the planes; the split
+// g frames a block (the last block may hold fewer), their rows stacked
+// unpadded: frame q's rows are q n1 .. q n1 + n1 - 1, its z values q M ..
+// q M + M - 1 (M = N/2; an odd N's values q N .. q N + N - 1), and the
+// block's rows = g n1 rounded up to a multiple of 8 (zero rows after the
+// frames).  Shared memory: x (rows x kLdx), whose space then holds the
+// FFT's two planes, y (rows x kLdx) and the starts (rows x dp).  Per
+// frame: the IIR block into y; the M-point complex FFT of z read from y,
+// into the planes; the split
 // X[k] = E - i w^k D, E = (Z[k] + conj Z[M-k]) / 2, D = (Z[k] - conj
 // Z[M-k]) / 2, with bin M - k from the same two values (twiddle
 // -conj w^k); X[0] = Re Z[0] + Im Z[0] and X[M] = Re Z[0] - Im Z[0].  The
 // half spectrum stores bins 0 .. M - 1 with X[M] in the imaginary plane's
 // bin 0; the full one also bins M .. N - 1 by the mirror, and real X[0]
-// and X[M].  An odd N (one frame a block) has no split: its N-point FFT's
-// planes (2 N floats) overlap x's and y's space, which the first pass has
-// read into registers before any pass writes.  Several frames a block give
-// the FFT's radix-16 passes a butterfly for every thread (M = 2048 has
-// 128) and the IIR block rows enough for balanced bands.
-template <int TM, int kEPT, int kForm>
-__global__ void __launch_bounds__(kThreads,
-                                  kEPT > 16 ? 1 : (TM == 4 ? 2 : 3))
+// and X[M].  An odd N has no split: the N-point FFTs' planes (2 g N
+// floats) overlap x's and y's space, which the first pass has read into
+// registers before any pass writes.  Several frames a block give the FFT's
+// radix-16 passes a butterfly for every thread (M = 2048 has 128) and the
+// IIR block rows enough for balanced bands.
+template <int TM, int kEPT, int kForm, int kNT>
+__global__ void __launch_bounds__(kNT, kEPT > 16 || kNT > kThreads
+                                           ? 1 : (TM == 4 ? 2 : 3))
 chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
                      const float* __restrict__ HT,
                      const float* __restrict__ PhiT, sdsp_fft::Plan plan,
                      const float2* __restrict__ tab,
                      const float2* __restrict__ split, float* __restrict__ re,
                      float* __restrict__ im, int frames, int g, int n1,
-                     int n1p, int n2, int d, float rn2) {
+                     int rows, int n2, int d, float rn2) {
   extern __shared__ float4 smem4[];
-  const int rows = g * n1p;
   float* xs = reinterpret_cast<float*>(smem4);
   float* ys = xs + rows * kLdx;
   float* st = ys + rows * kLdx;
@@ -450,20 +455,20 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
   // Frames and starts; rows vr .. rows - 1 zero.
   if (n2 == kN2) {
     const float4* xf = reinterpret_cast<const float4*>(x + f0 * n1 * kN2);
-    for (int i = tid; i < vr * kN2 / 4; i += kThreads) {
+    for (int i = tid; i < vr * kN2 / 4; i += kNT) {
       *reinterpret_cast<float4*>(xs + (i >> 5) * kLdx + 4 * (i & 31)) = xf[i];
     }
   } else {
     const float* xf = x + f0 * n1 * n2;
-    for (int i = tid; i < vr * n2; i += kThreads) {
+    for (int i = tid; i < vr * n2; i += kNT) {
       const int p = i / n2;
       xs[p * kLdx + i - p * n2] = xf[i];
     }
   }
-  for (int i = tid; i < (rows - vr) * kLdx; i += kThreads) xs[vr * kLdx + i] = 0.f;
-  for (int i = tid; i < (rows - vr) * dp; i += kThreads) st[vr * dp + i] = 0.f;
+  for (int i = tid; i < (rows - vr) * kLdx; i += kNT) xs[vr * kLdx + i] = 0.f;
+  for (int i = tid; i < (rows - vr) * dp; i += kNT) st[vr * dp + i] = 0.f;
   const float* sf = s + f0 * d * n1;
-  for (int i = tid; i < nf * d * n1; i += kThreads) {
+  for (int i = tid; i < nf * d * n1; i += kNT) {
     const int q = i / (d * n1), r = i - q * d * n1;
     st[(q * n1 + r % n1) * dp + r / n1] = sf[i];
   }
@@ -473,10 +478,12 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
   __syncthreads();
 
   if constexpr (kForm == kOdd) {
-    const sdsp_fft::Planes<31> z{0, sdsp_fft::round32(nn)};
+    // Unswizzled: the swizzle spreads power-of-two strides only, and costs
+    // conflicts where a warp's consecutive values cross a row of 32.
+    const sdsp_fft::Planes<0> z{0, sdsp_fft::round32(g * nn)};
     sdsp_fft::fft_block<kEPT>(z, FrameReal{rows * kLdx, n2, rn2},
                               SpectrumOut{re + f0 * nn, im + f0 * nn}, plan,
-                              tab, nn);
+                              tab, nf * nn);
     return;
   }
 
@@ -497,7 +504,7 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
     float* ref = re + (f0 + q) * len;
     float* imf = im + (f0 + q) * len;
     const int zq = q * m;
-    for (int k = tid; 2 * k <= m; k += kThreads) {
+    for (int k = tid; 2 * k <= m; k += kNT) {
       const float2 a = z(zq + k);
       if (k == 0) {
         ref[0] = a.x + a.y;
@@ -534,45 +541,51 @@ chain_natural_kernel(const float* __restrict__ x, const float* __restrict__ s,
   }
 }
 
-template <int TM, int kEPT, int kForm>
+template <int TM, int kEPT, int kForm, int kNT = kThreads>
 cudaError_t launch_natural(const float* x, const float* s, const float* HT,
                            const float* PhiT, const sdsp_fft::Plan& plan,
                            const float2* tab, const float2* split, float* re,
-                           float* im, int frames, int g, int n1, int n1p,
+                           float* im, int frames, int g, int n1, int rows,
                            int n2, int d, size_t smem, cudaStream_t stream) {
-  const auto kernel = chain_natural_kernel<TM, kEPT, kForm>;
+  const auto kernel = chain_natural_kernel<TM, kEPT, kForm, kNT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<(frames + g - 1) / g, kThreads, smem, stream>>>(
-      x, s, HT, PhiT, plan, tab, split, re, im, frames, g, n1, n1p, n2, d,
+  kernel<<<(frames + g - 1) / g, kNT, smem, stream>>>(
+      x, s, HT, PhiT, plan, tab, split, re, im, frames, g, n1, rows, n2, d,
       1.0f / static_cast<float>(n2));
   return cudaGetLastError();
 }
 
 // The instance of the form for the block's rows (an even number of row
 // groups of 8 TM rows balances the bands) and values (kEPT 32 above 16 a
-// thread).
+// thread).  An odd N above 16 values a thread (one frame a block) runs 512
+// threads, TM 1: 16 or 32 values a thread, twice the warps to hide the
+// odd-radix passes' latency.
 template <int kForm>
 cudaError_t dispatch_natural(const float* x, const float* s, const float* HT,
                              const float* PhiT, const sdsp_fft::Plan& plan,
                              const float2* tab, const float2* split, float* re,
-                             float* im, int frames, int g, int n1, int n1p,
+                             float* im, int frames, int g, int n1, int rows,
                              int n2, int d, int values, size_t smem,
                              cudaStream_t st) {
-  const int rows = g * n1p;
-  const bool big = values > 16 * kThreads;
-#define SDSP_RUN(TM)                                                         \
-  (big ? launch_natural<TM, 32, kForm>(x, s, HT, PhiT, plan, tab, split, re, \
-                                       im, frames, g, n1, n1p, n2, d, smem,  \
-                                       st)                                   \
-       : launch_natural<TM, 16, kForm>(x, s, HT, PhiT, plan, tab, split, re, \
-                                       im, frames, g, n1, n1p, n2, d, smem,  \
-                                       st))
-  if (rows % 64 == 0) return SDSP_RUN(4);
-  if (rows % 32 == 0) return SDSP_RUN(2);
-  return SDSP_RUN(1);
+#define SDSP_RUN(TM, EPT, NT)                                                 \
+  launch_natural<TM, EPT, kForm, NT>(x, s, HT, PhiT, plan, tab, split, re, im, \
+                                     frames, g, n1, rows, n2, d, smem, st)
+  if constexpr (kForm == kOdd) {
+    if (values > 16 * 512) return SDSP_RUN(1, 32, 512);
+    if (values > 16 * kThreads) return SDSP_RUN(1, 16, 512);
+  } else {
+    if (values > 16 * kThreads) {
+      if (rows % 64 == 0) return SDSP_RUN(4, 32, kThreads);
+      if (rows % 32 == 0) return SDSP_RUN(2, 32, kThreads);
+      return SDSP_RUN(1, 32, kThreads);
+    }
+  }
+  if (rows % 64 == 0) return SDSP_RUN(4, 16, kThreads);
+  if (rows % 32 == 0) return SDSP_RUN(2, 16, kThreads);
+  return SDSP_RUN(1, 16, kThreads);
 #undef SDSP_RUN
 }
 
@@ -636,10 +649,6 @@ extern "C" size_t sdsp_chain_frames_smem_bytes(int rows, int d) {
   return sizeof(float) * smem_floats(rows, d, kN2);
 }
 
-// Largest odd N of the full spectrum: one frame a block, 32 values a thread
-// through a pass.
-constexpr int kOddMax = 32 * kThreads;
-
 // The half spectrum (full = 0) or the full spectrum (full = 1) in natural
 // order, on the FFT core.
 // Launch on `stream` of `device`; returns cudaGetLastError() after the
@@ -649,11 +658,12 @@ constexpr int kOddMax = 32 * kThreads;
 // j > i), as the IIR block's H^T is.  radices[0..npass) and tab are the
 // core's plan and table (fft_core.cuh make_plan) for M = n1 n2 / 2 points
 // where N = n1 n2 is even, for N points where it is odd (full spectrum
-// only, N <= kOddMax); split holds the M / 2 + 1 twiddles
+// only); split holds the M / 2 + 1 twiddles
 // exp(-2 pi i k / (2 M)), (re, im) float32 pairs (unread for an odd N).
 // re / im: (frames, M), the packed one-sided spectrum in natural order with
 // X[N/2].re in im[:, 0]; or with full, (frames, N), the spectrum in natural
-// order.  n2 is even for the half spectrum.
+// order.  n2 is even for the half spectrum.  A block that needs more
+// shared memory than kMaxSmem (a large d) is refused.
 extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
                                       const float* HT, const float* PhiT,
                                       const int* radices, int npass,
@@ -665,39 +675,38 @@ extern "C" int sdsp_chain_natural_f32(const float* x, const float* s,
   const bool odd = nn % 2 != 0;
   sdsp_fft::Plan plan;
   if (n2 < 1 || n2 > kN2 || (!full && n2 % 2) || n1 < 1 || n1 > 128 ||
-      d < 1 || frames < 0 || (odd && nn > kOddMax) ||
+      d < 1 || frames < 0 ||
       !sdsp_fft::make_plan(odd ? nn : nn / 2, radices, npass, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (frames == 0) return static_cast<int>(cudaSuccess);
-  const int n1p = (n1 + 7) & ~7;
   // Frames a block: as many as keep the block's FFT at 4096 values and its
-  // rows at 64 (two frames at N = 4096), where frames need no row padding.
+  // rows at 64 (two frames at N = 4096, eight at 1024 and at the odd 375).
+  const int per = odd ? nn : nn / 2;   // FFT values a frame
   int g = 1;
-  if (n1p == n1 && !odd) {
-    while (2 * g * n1 * n2 <= 8192 && 2 * g * n1 <= 64) g *= 2;
-  }
-  const int rows = g * n1p;
+  while (2 * g * per <= 4096 && ((2 * g * n1 + 7) & ~7) <= 64) g *= 2;
+  const int rows = (g * n1 + 7) & ~7;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(rows) * kLdx +
                                        static_cast<size_t>(starts_stride(d)) * rows);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* t2 = reinterpret_cast<const float2*>(tab);
   const auto* sp = reinterpret_cast<const float2*>(split);
-  const int values = odd ? nn : g * nn / 2;
+  const int values = g * per;
   if (!full) {
     err = dispatch_natural<kHalf>(x, s, HT, PhiT, plan, t2, sp, re, im, frames,
-                                  g, n1, n1p, n2, d, values, smem, st);
+                                  g, n1, rows, n2, d, values, smem, st);
   } else if (odd) {
     err = dispatch_natural<kOdd>(x, s, HT, PhiT, plan, t2, sp, re, im, frames,
-                                 g, n1, n1p, n2, d, values, smem, st);
+                                 g, n1, rows, n2, d, values, smem, st);
   } else if (n2 % 2) {
     err = dispatch_natural<kPairs>(x, s, HT, PhiT, plan, t2, sp, re, im,
-                                   frames, g, n1, n1p, n2, d, values, smem, st);
+                                   frames, g, n1, rows, n2, d, values, smem, st);
   } else {
     err = dispatch_natural<kFull>(x, s, HT, PhiT, plan, t2, sp, re, im, frames,
-                                  g, n1, n1p, n2, d, values, smem, st);
+                                  g, n1, rows, n2, d, values, smem, st);
   }
   return static_cast<int>(err);
 }

@@ -18,7 +18,8 @@
 // runs in registers as 4 x 4 (16) or 2 x 4 (8) with constant twiddles.  An
 // odd prime factor (3 ... 127) takes a table-driven small-DFT pass: the
 // twiddles applied in place, then every output is the sum of its r inputs
-// times exp(-2 pi i t m / r).  The odd passes come first.
+// times exp(-2 pi i t m / r), inputs t and r - t taken as a pair.  The odd
+// passes come first.
 //
 // Values cross a pass in registers, at most kEPT a thread, so one buffer
 // serves both sides: every thread reads, the block synchronises, every
@@ -359,11 +360,24 @@ __device__ __noinline__ void pass16(Src src, Dst out, Pass ps, int total) {
   __syncthreads();
 }
 
+// Adds the inputs t and r - t of an odd-radix butterfly's output m to e:
+// with w = exp(-2 pi i t m / r), x_t w + x_{r-t} conj(w) is
+// (a.re w.re - b.im w.im, a.im w.re + b.re w.im), a = x_t + x_{r-t},
+// b = x_t - x_{r-t}.
+__device__ __forceinline__ void pair_term(float2& e, float2 p, float2 n,
+                                          float2 w) {
+  e.x += (p.x + n.x) * w.x - (p.y - n.y) * w.y;
+  e.y += (p.y + n.y) * w.x + (p.x - n.x) * w.y;
+}
+
 // One pass of an odd radix r: the twiddles applied in place (ns > 1, so
 // never the first pass), then output m of butterfly j is
-// sum_t src[j + t q] W[(t m) mod r], W the r-point DFT table.  A thread
-// computes outputs o = m q + j, so a warp reads consecutive inputs and one
-// table entry.
+// sum_t src[j + t q] W[(t m) mod r], W the r-point DFT table, summed as
+// x_0 and the (r - 1) / 2 pairs t, r - t (pair_term: half the products and
+// one table entry a pair), alternately into two sums, which halves both the
+// chain of dependent adds and the terms each sum rounds.  A thread computes
+// outputs o = m q + j, so a warp reads consecutive inputs and one table
+// entry.
 template <int kEPT, class Buf, class Src, class Dst>
 __device__ __noinline__ void pass_odd(Buf s, Src src, Dst out, Pass ps,
                                       int total) {
@@ -397,17 +411,23 @@ __device__ __noinline__ void pass_odd(Buf s, Src src, Dst out, Pass ps,
       const int k = j - fdiv(j, rns) * ns;
       const int s0 = f * n + j;
       dst[i] = f * n + (j - k) * r + k + m * ns;
-      float2 sum = src(s0);
-      int idx = m;
-      for (int t = 1; t < r; ++t) {
-        const float2 x = src(s0 + t * q);
-        const float2 wv = __ldg(W + idx);
-        sum.x += x.x * wv.x - x.y * wv.y;
-        sum.y += x.x * wv.y + x.y * wv.x;
+      const int h = r >> 1;
+      float2 e0 = src(s0), e1 = make_float2(0.f, 0.f);
+      int idx = m;                      // (t m) mod r
+      int t = 1;
+      for (; t < h; t += 2) {
+        pair_term(e0, src(s0 + t * q), src(s0 + (r - t) * q), __ldg(W + idx));
+        idx += m;
+        if (idx >= r) idx -= r;
+        pair_term(e1, src(s0 + (t + 1) * q), src(s0 + (r - t - 1) * q),
+                  __ldg(W + idx));
         idx += m;
         if (idx >= r) idx -= r;
       }
-      acc[i] = sum;
+      if (t == h) {
+        pair_term(e0, src(s0 + t * q), src(s0 + (r - t) * q), __ldg(W + idx));
+      }
+      acc[i] = cadd(e0, e1);
     }
   }
   __syncthreads();

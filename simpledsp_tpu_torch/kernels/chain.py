@@ -24,8 +24,8 @@ place of the DFT products: the N/2-point complex FFT of z[t] = y[2t] +
 i y[2t+1] on the FFT core (``csrc/fft_core.cuh``, plan and table from
 ``kernels/fft.py``), then the split into the one-sided spectrum
 (:func:`kernels.fft._split_table_f64`), which the full spectrum completes
-with X[N - k] = conj X[k]; an odd N (full spectrum only, up to
-:data:`ODD_N_MAX`) takes the N-point complex FFT of the frame.
+with X[N - k] = conj X[k]; an odd N (full spectrum only, up to 127 x 127)
+takes the N-point complex FFT of the frame.
 :func:`chain_frames_reference` and
 :func:`chain_frames_full_reference` are the same functions in plain
 PyTorch, used for CPU tensors and as the kernels' oracles on the card.
@@ -55,7 +55,7 @@ from simpledsp_tpu_torch.kernels.fft import (_best_split, _consts,
 from simpledsp_tpu_torch.ops.iir import block_operators_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
 
-__all__ = ["ChainTables", "FusedNorthStarOperators", "LAYOUTS", "ODD_N_MAX",
+__all__ = ["ChainTables", "FusedNorthStarOperators", "LAYOUTS",
            "chain_frames", "chain_frames_full", "chain_frames_full_reference",
            "chain_frames_reference", "chain_full_kernel", "chain_kernel",
            "chain_prepass", "fused_chain_frames", "kernel_supports",
@@ -375,9 +375,24 @@ def _library() -> ctypes.CDLL:
 # The output forms of ``sdsp_chain_frames_f32`` (enum Mode in chain.cu);
 # "natural" and "full" have their own entry, ``sdsp_chain_natural_f32``.
 _MODES = {"wide": 1, "fmajor": 2}
-# The largest odd N of the full-spectrum kernel (kOddMax in chain.cu: one
-# frame a block, 32 values a thread of 256 through the FFT's passes).
-ODD_N_MAX = 8192
+# The shared memory a block may have (kMaxSmem in chain_common.cuh).
+_MAX_SMEM = 232448
+
+
+def _natural_smem_bytes(n1: int, n2: int, d: int) -> int:
+    """Shared memory of a block of the natural-order kernel
+    (``sdsp_chain_natural_f32`` in chain.cu): the rows of g frames stacked
+    and rounded up to a multiple of 8, each row of x and y kLdx = 132
+    floats wide, and the starts (rows, d rounded up to 4).  g as the kernel
+    picks it: as many frames as keep the block's FFT at 4096 values (N/2 a
+    frame, N for an odd N) and its rows at 64."""
+    n = n1 * n2
+    per = n if n % 2 else n // 2
+    g = 1
+    while 2 * g * per <= 4096 and -(-2 * g * n1 // 8) * 8 <= 64:
+        g *= 2
+    rows = -(-g * n1 // 8) * 8
+    return 4 * rows * (2 * 132 + -(-d // 4) * 4)
 
 
 @functools.lru_cache(maxsize=64)
@@ -389,16 +404,19 @@ def _split_table(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _check_operands(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables,
-                    t3_rows: int, what: str) -> None:
-    """Raises ValueError unless every operand is contiguous float32 on x3's
-    device in the shape the kernel reads."""
+                    t3_rows: Optional[int], what: str) -> None:
+    """Raises ValueError unless every operand the kernel reads is contiguous
+    float32 on x3's device in the shape it reads: x3, s3, HT and PhiT, and
+    the four-step tables W1cs, Tc, Ts and PQT (t3_rows rows) unless t3_rows
+    is None (the natural-order kernel reads none of them)."""
     nf, n1, n2 = x3.shape
     d = s3.shape[1]
     expect = {"x3": (x3, (nf, n1, n2)), "s3": (s3, (nf, d, n1)),
-              "HT": (tables.HT, (n2, n2)), "PhiT": (tables.PhiT, (d, n2)),
-              "W1cs": (tables.W1cs, (2 * n1, n1)),
-              "Tc": (tables.Tc, (n1, n2)), "Ts": (tables.Ts, (n1, n2)),
-              "PQT": (tables.PQT, (t3_rows, n2))}
+              "HT": (tables.HT, (n2, n2)), "PhiT": (tables.PhiT, (d, n2))}
+    if t3_rows is not None:
+        expect.update(W1cs=(tables.W1cs, (2 * n1, n1)),
+                      Tc=(tables.Tc, (n1, n2)), Ts=(tables.Ts, (n1, n2)),
+                      PQT=(tables.PQT, (t3_rows, n2)))
     for name, (t, shape) in expect.items():
         if t.device != x3.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: the CUDA {what} kernel takes float32 "
@@ -457,41 +475,45 @@ class _ChainKernel:
             raise ValueError(f"this kernel launches {self.modes}, not {mode!r}")
         nf, n1, n2 = x3.shape
         full = mode == "full"
+        natural = mode in ("natural", "full")
         if full:
             if not (1 <= n1 <= 128 and 1 <= n2 <= 128):
                 raise ValueError(f"the CUDA chain kernel needs frames of n1 x "
                                  f"n2 samples, n1 <= 128 and n2 <= 128; got "
                                  f"{tuple(x3.shape)}")
-            if (n1 * n2) % 2 and n1 * n2 > ODD_N_MAX:
-                raise ValueError(f"the CUDA full-spectrum kernel takes an odd "
-                                 f"N up to {ODD_N_MAX}; got N = {n1 * n2}")
         elif not kernel_supports(n1, n2):
             raise ValueError(f"the CUDA chain kernel needs frames of n1 x n2 "
                              f"samples, n1 <= 128 and n2 <= 128 even; got "
                              f"{tuple(x3.shape)}")
-        _check_operands(x3, s3, tables, (4 if full else 2) * n2, "chain")
-        if mode in ("natural", "full"):
-            _require_upper(tables.HT)
-        tables = _padded_tables(tables, n1, n2)
+        if natural and _natural_smem_bytes(n1, n2, s3.shape[1]) > _MAX_SMEM:
+            raise ValueError(f"frames of {n1} x {n2} samples with a state of "
+                             f"{s3.shape[1]} do not fit a block")
+        _check_operands(x3, s3, tables, None if natural else 2 * n2, "chain")
         shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
             mode, (nf, n1 * n2 // 2))
         spec_re = torch.empty(shape, dtype=x3.dtype, device=x3.device)
         spec_im = torch.empty_like(spec_re)
-        if mode in ("natural", "full"):
+        if natural:
             # The real FFT of N points as the complex FFT of N/2 on the
             # FFT core, then the split (and for the full spectrum its
             # conjugate mirror); an odd N as the complex FFT of N points.
+            # Only H^T and Phi^T are read, their rows 128 wide.
+            _require_upper(tables.HT)
+            ht, phit = tables.HT, tables.PhiT
+            if n2 < 128:
+                ht, phit = (torch.nn.functional.pad(t, (0, 128 - n2))
+                            for t in (ht, phit))
             n = n1 * n2
             odd = n % 2 == 1
             tab, plan, npass = _kernel_tables(n if odd else n // 2, x3.device)
             split = None if odd else _split_table(n, x3.device).data_ptr()
             rc = self.library().sdsp_chain_natural_f32(
-                x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
-                tables.PhiT.data_ptr(), ctypes.cast(plan, ctypes.c_void_p),
-                npass, tab.data_ptr(), split, spec_re.data_ptr(),
-                spec_im.data_ptr(), nf, n1, n2, s3.shape[1], int(full),
-                x3.device.index, _stream(x3))
+                x3.data_ptr(), s3.data_ptr(), ht.data_ptr(), phit.data_ptr(),
+                ctypes.cast(plan, ctypes.c_void_p), npass, tab.data_ptr(),
+                split, spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2,
+                s3.shape[1], int(full), x3.device.index, _stream(x3))
         else:
+            tables = _padded_tables(tables, n1, n2)
             rc = self.library().sdsp_chain_frames_f32(
                 x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
                 tables.PhiT.data_ptr(), tables.W1cs.data_ptr(),

@@ -9,12 +9,10 @@ wrapper's host work.  A stage's time is the difference of two cuts.
     python3 simpledsp_tpu_torch/tools/pfb_stages.py [--root DIR] [--m 16 --k 16]
 
 ``--root`` names the checkout whose package and kernel are timed (default:
-this one), so an older commit unpacked beside it is split by the same
-script.  A source that defines the ``SDSP_PFB_CUT_AT`` hook is cut by
-defining it (1 input, 2 FIR, 3 FFT, 4 demod); an older one, without the
-hook, by a ``return`` inserted before each stage's comment (``OLD_MARKERS``:
-input, FIR, the dense DFT, the demod).  Prints one JSON object; raises
-without a card.
+this one), so another commit unpacked beside it is split by the same
+script.  The source is cut by defining its ``SDSP_PFB_CUT_AT`` hook (1
+input, 2 FIR, 3 FFT, 4 demod).  Prints one JSON object; raises without a
+card.
 """
 
 from __future__ import annotations
@@ -26,23 +24,13 @@ import shutil
 import sys
 from pathlib import Path
 
-import numpy as np
-
 CUTS = 4
-# The stage comments of the kernel before the redesign (one block per tile,
-# every stage staged in shared memory); a cut returns just before one.
-OLD_MARKERS = ("  // 2. Branch FIR", "  // 3. Inverse DFT",
-               "  // The FM carry stands in", "  // The decimator's table")
 STAGES = ("input", "fir", "fft", "demod", "decim")
 
 
 def cut_source(text: str, n: int) -> str:
     """pfb.cu stopped after stage n (1-4)."""
-    if "SDSP_PFB_CUT_AT" in text:
-        return f"#define SDSP_PFB_CUT_AT {n}\n" + text
-    lines = text.splitlines(keepends=True)
-    at = next(i for i, s in enumerate(lines) if s.startswith(OLD_MARKERS[n - 1]))
-    return "".join(lines[:at] + ["  if (p.M > 0) return;\n"] + lines[at:])
+    return f"#define SDSP_PFB_CUT_AT {n}\n" + text
 
 
 def run(root=None, m: int = 16, k: int = 16, per: int = 20) -> dict:
@@ -54,6 +42,7 @@ def run(root=None, m: int = 16, k: int = 16, per: int = 20) -> dict:
     kpfb = importlib.import_module("simpledsp_tpu_torch.kernels.pfb")
     chan_mod = importlib.import_module("simpledsp_tpu_torch.ops.channelizer")
     fir = importlib.import_module("simpledsp_tpu_torch.design.fir")
+    common = importlib.import_module("simpledsp_tpu_torch.tools._common")
     if not torch.cuda.is_available():
         raise RuntimeError("the stage split times the card: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -76,27 +65,6 @@ def run(root=None, m: int = 16, k: int = 16, per: int = 20) -> dict:
                                     gain=0.2, g=g, decim=decim, emit_sum=False,
                                     tile=None)
 
-    def graph_ms():
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            call()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(per):
-                call()
-        times = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / per)
-        return float(np.median(times))
-
     src = build.CSRC_DIR / "pfb.cu"
     text = src.read_text()
     out = {"root": str(root), "m": m, "k": k, "device": torch.cuda.get_device_name(0),
@@ -115,7 +83,8 @@ def run(root=None, m: int = 16, k: int = 16, per: int = 20) -> dict:
             build.load_library.cache_clear()
             kpfb._library.cache_clear()
             kpfb._tile.cache_clear()
-            out["ms"][STAGES[n - 1] if n else "all"] = graph_ms()
+            out["ms"][STAGES[n - 1] if n else "all"] = common.graph_ms(
+                call, per=per)
     finally:
         build.CSRC_DIR = csrc
     return out

@@ -148,17 +148,18 @@ def test_half_spectrum_needs_even_n2_in_both_packages(rng):
 
 
 def test_full_kernel_wrapper_refuses_before_any_build():
-    """The CUDA wrapper checks its operands before it builds or launches:
-    float64, and the half table where the full one belongs."""
+    """The CUDA wrapper checks the operands the kernel reads before it
+    builds or launches: float64, and a Phi^T of the wrong shape."""
     _, tops = _ops(1000)
     x3 = torch.zeros(2, tops.n1, tops.n2, dtype=torch.float64)
     s3 = torch.zeros(2, tops.state_dim, tops.n1, dtype=torch.float64)
     launches = tchain.chain_full_kernel.launches
     with pytest.raises(ValueError, match="float32"):
         tchain.chain_full_kernel(x3, s3, tops.tables(full=True))
-    tabs32 = tchain.ChainTables(*(t.float() for t in tops.tables()))
+    tabs32 = tchain.ChainTables(*(t.float() for t in tops.tables(full=True)))
     with pytest.raises(ValueError, match="expected a contiguous"):
-        tchain.chain_full_kernel(x3.float(), s3.float(), tabs32)
+        tchain.chain_full_kernel(x3.float(), s3.float(),
+                                 tabs32._replace(PhiT=tabs32.PhiT[1:]))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tchain.chain_frames_full(x3.to("meta"), s3.to("meta"),
                                  tops.tables(full=True))
@@ -177,21 +178,20 @@ def _read_frame(y, n2, t, pairs):
     return y[:, row, e - row * n2] + 1j * y[:, row, e - row * n2 + 1]
 
 
-@pytest.mark.parametrize("n", [200, 375, 1000, 1024, 4096, 8181])
+@pytest.mark.parametrize("n", [200, 375, 1000, 1024, 4096, 8181, 16129])
 def test_full_kernel_walk_gives_the_plain_version(n, rng):
     """The full-spectrum kernel walked in numpy in float64: for an even N the
     N/2-point FFT core (plan and table) on z read by the frame reader (the
     pair reader at odd n2: 1000 = 8 x 125), the split, and the conjugate
     mirror X[N - k] = conj X[k] stored in natural order; for an odd N (375 =
-    3 x 125, and 8181, the largest the kernel takes) the N-point core on
-    (y, 0).  They give ``chain_frames_full_reference`` to 1e-12 of the
-    largest bin."""
+    3 x 125, 8181 = 81 x 101, and 16129 = 127 x 127, the largest there is)
+    the N-point core on (y, 0).  They give ``chain_frames_full_reference``
+    to 1e-12 of the largest bin."""
     from test_torch_fft import _core_walk
 
     from simpledsp_tpu_torch.kernels import fft as tkfft
 
     _, tops = _ops(n)
-    assert n % 2 == 0 or n <= tchain.ODD_N_MAX
     x = torch.as_tensor(rng.standard_normal((1, 2 * n)))
     s0 = torch.as_tensor(rng.standard_normal((1, tops.state_dim)))
     x3, s3, _ = tchain.chain_prepass(tops, x, s0)
@@ -229,15 +229,24 @@ def test_full_kernel_walk_gives_the_plain_version(n, rng):
 
 
 def test_full_kernel_refuses_an_odd_n_above_its_limit():
-    """An odd N above ``ODD_N_MAX`` (127 x 127) raises before any build."""
+    """The largest odd N, 127 x 127, fits a block at the chain's state
+    (its FFT's planes overlap x and y); with a state so large that the
+    block's shared memory exceeds the card's 227 KB it raises before any
+    build."""
     from simpledsp_tpu_torch.models.northstar import default_design
 
     ops = tchain.FusedNorthStarOperators(default_design(), 127 * 127,
                                          device="cpu")
     assert (ops.n1, ops.n2) == (127, 127)
+    d = ops.state_dim
+    assert tchain._natural_smem_bytes(127, 127, d) <= tchain._MAX_SMEM
+    assert 8 * 16160 <= 4 * 2 * 128 * 132      # the planes within x and y
+    big = 200
+    assert tchain._natural_smem_bytes(127, 127, big) > tchain._MAX_SMEM
     x3 = torch.zeros(1, 127, 127)
-    s3 = torch.zeros(1, ops.state_dim, 127)
+    s3 = torch.zeros(1, big, 127)
+    tables = ops.tables(full=True)._replace(PhiT=torch.zeros(big, 127))
     launches = tchain.chain_full_kernel.launches
-    with pytest.raises(ValueError, match="odd N up to 8192"):
-        tchain.chain_full_kernel(x3, s3, ops.tables(full=True))
+    with pytest.raises(ValueError, match="do not fit a block"):
+        tchain.chain_full_kernel(x3, s3, tables)
     assert tchain.chain_full_kernel.launches == launches

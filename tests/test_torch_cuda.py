@@ -94,7 +94,8 @@ def test_kernel_partial_last_wave(n, frames, cuda_device):
     """A frame count that leaves the last wave of blocks partial (132 SMs;
     two frames a block and two blocks an SM at N = 4096, one frame and one
     block at 16384), and the last block short of its frames (an odd count
-    at 4096, 3 of 8 at 1024)."""
+    at 4096, 3 of 8 at 1024, 9 of 32 at 200, whose frames of 2 rows stack
+    unpadded)."""
     ops = tchain.FusedNorthStarOperators(default_design(), n, device=cuda_device)
     x = torch.as_tensor(np.random.default_rng(frames).standard_normal(
         (1, frames * n)), dtype=torch.float32, device=cuda_device)
@@ -602,10 +603,12 @@ def _tables64(tables):
     return tchain.ChainTables(*(t.double() for t in tables))
 
 
-@pytest.mark.parametrize("n", [1000, 1024, 4096, 16384, 200, 375, 8181])
+@pytest.mark.parametrize("n", [1000, 1024, 4096, 16384, 200, 375, 8181,
+                               16129])
 def test_full_kernel_matches_plain_version(n, cuda_device):
     """The full-spectrum kernel, odd n2 (1000 = 8 x 125) and odd N (375 =
-    3 x 125, and 8181 = 81 x 101, the largest it takes) included."""
+    3 x 125, 8181 = 81 x 101 at 32 values a thread, and 16129 = 127 x 127,
+    the largest odd N, at 64) included."""
     ops, x3, s3 = _chain_frames(n, cuda_device)
     tabs = ops.tables(full=True)
     launches = tchain.chain_full_kernel.launches
@@ -619,11 +622,13 @@ def test_full_kernel_matches_plain_version(n, cuda_device):
 
 
 @pytest.mark.parametrize("n,frames", [(4096, 3 * 132 + 5), (16384, 133),
-                                      (1000, 8 * 132 + 3), (375, 133)])
+                                      (1000, 8 * 132 + 3), (375, 133),
+                                      (16129, 133)])
 def test_full_kernel_partial_last_wave(n, frames, cuda_device):
     """The full-spectrum kernel at frame counts that leave the last wave of
     blocks partial and the last block short of its frames (two frames a
-    block at 4096, eight at 1000, one at 16384 and at the odd 375)."""
+    block at 4096, eight at 1000 and at the odd 375 (5 in the last), one at
+    16384 and at the odd 16129)."""
     ops = tchain.FusedNorthStarOperators(default_design(), n, device=cuda_device)
     x = torch.as_tensor(np.random.default_rng(frames).standard_normal(
         (1, frames * n)), dtype=torch.float32, device=cuda_device)
@@ -729,7 +734,7 @@ def test_chain_variant_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="launches"):
         tcv.chain_store_kernel(x3, s3, tabs, "full")
     with pytest.raises(ValueError, match="expected"):
-        tchain.chain_full_kernel(x3, s3, tabs)     # the half table
+        tchain.chain_full_kernel(x3, s3, tabs._replace(PhiT=tabs.PhiT[1:]))
 
 
 # -- the probes' kernels (kernels/probes.py) ----------------------------------

@@ -249,9 +249,16 @@ def _core_walk(x, n):
         for t in range(1, r):
             v[t] = v[t] * tw[(t - 1) * ns + k]
         if r % 2:
+            # Output m: x_0 and the pairs t, r - t against one table entry,
+            # w = W[(t m) mod r] and its conjugate.
             w = tab[off: off + r]
             off += r
-            d = np.tensordot(w[np.outer(np.arange(r), np.arange(r)) % r], v, 1)
+            d = np.empty_like(v)
+            for m in range(r):
+                d[m] = v[0]
+                for t in range(1, r // 2 + 1):
+                    wt = w[t * m % r]
+                    d[m] += v[t] * wt + v[r - t] * np.conj(wt)
         else:
             assert r in (2, 4, 8, 16)
             d = _reg_dft(v, r)

@@ -397,21 +397,16 @@ def test_decimator_phase_index_covers_every_tap_once(kd, decim):
 
 
 def test_stage_cuts_of_the_pfb_source():
-    """``tools/pfb_stages.py`` cuts this tree's kernel through its
-    ``SDSP_PFB_CUT_AT`` hook and an older kernel without it by a return
-    before each stage's comment; it never launches anything here."""
+    """``tools/pfb_stages.py`` cuts the kernel through its
+    ``SDSP_PFB_CUT_AT`` hook (after the input, the FIR, the FFT, and the
+    demod, where every cut returns); it never launches anything here."""
     from simpledsp_tpu_torch.kernels import _build
     from simpledsp_tpu_torch.tools import pfb_stages
 
     text = (_build.CSRC_DIR / "pfb.cu").read_text()
+    assert all(f in text for f in ("SDSP_PFB_CUT_AT == 1", "SDSP_PFB_SINK(2)",
+                                   "SDSP_PFB_SINK(3)"))
     for n in range(1, pfb_stages.CUTS + 1):
         cut = pfb_stages.cut_source(text, n)
         assert cut.startswith(f"#define SDSP_PFB_CUT_AT {n}\n")
         assert cut.endswith(text)
-    old = "".join(f"  x{i};\n{m}: stage\n" for i, m in
-                  enumerate(pfb_stages.OLD_MARKERS))
-    for n, marker in enumerate(pfb_stages.OLD_MARKERS, 1):
-        lines = pfb_stages.cut_source(old, n).splitlines()
-        at = lines.index(f"{marker}: stage")
-        assert lines[at - 1] == "  if (p.M > 0) return;"
-        assert lines.count("  if (p.M > 0) return;") == 1
