@@ -130,8 +130,10 @@ Phases (any failure exits nonzero before the result line):
     ``chain_frames_full_reference``, and every half-spectrum layout (reg,
     k1, regs, regw, reg2, reg4, regp, fmajor, pair) at N = 200, 1024, 4096,
     16384 through its wrapper against ``chain_frames_reference``: >= 130 dB,
-    finite.  Kernel and float32 plain ms (median of 5 / 3), the group size
-    g of the grouped layouts, and the bound.
+    finite; regw and fmajor (after its transpose) equal reg bit for bit.
+    Kernel and float32 plain ms (median of 5 / 3), the group size g of the
+    grouped layouts, and the bound.  Every layout but regs runs
+    ``chain_natural_kernel``.
 18. Full-spectrum main path: ``fused_chain_frames(ops, x, s0)`` with its
     defaults (``FusedNorthStarOperators`` built with no device: CUDA) at
     N = 4096 on 64 x 2^20 float32 samples a call, 4 calls with the state
@@ -1389,15 +1391,25 @@ def chain_family_phase(dev, kchain, kcv, design):
                         return kcv.chain_frames_store(x3, s3, tabs, mode)
                 else:
                     g = groups[layout] = kcv.group_frames(
-                        layout, ops.n1, r, ops.state_dim)
+                        layout, ops.n1, ops.n2, r, ops.state_dim)
 
                     def run(g=g):
                         return kcv.chain_frames_grouped(x3, s3, tabs, g)
                 cases.append((layout, tabs, run, own_plain, half64))
         refs = {}
+        reg = None
         for form, tb, run, plain32, plain64 in cases:
             got = natural(run())
             torch.cuda.synchronize()
+            extra = ""
+            if form in groups:
+                extra = f", g = {groups[form]}, chain_natural_kernel"
+            elif form == "reg":
+                reg = got
+            elif form in ("regw", "fmajor"):
+                same = all(torch.equal(a, b) for a, b in zip(got, reg))
+                extra = f", chain_natural_kernel, reg's bits: {same}"
+                check(same, f"chain family {form} N={n}: not reg's bits")
             key = "full" if form == "full" else "half"
             if key not in refs:
                 refs[key] = plain64()
@@ -1412,7 +1424,6 @@ def chain_family_phase(dev, kchain, kcv, design):
             rec = dict(snr=snr, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        **chain_bound(x3, s3, tb, got, n))
             results[(form, n)] = rec
-            extra = f", g = {groups[form]}" if form in groups else ""
             print(f"chain family {form} N={n} ({ops.n1} x {ops.n2}{extra}) "
                   f"frames={x3.shape[0]}: {snr:.2f} dB vs float64 plain "
                   f"(float32 plain {own:.2f} dB), max |err| {err:.3e}; kernel "
@@ -1422,7 +1433,7 @@ def chain_family_phase(dev, kchain, kcv, design):
                   f"chain family {form} N={n}: {snr:.2f} dB < {MIN_SNR_DB} dB "
                   f"or not finite")
             del got
-        del refs, x3, s3, x64, s64
+        del refs, reg, x3, s3, x64, s64
     return results
 
 

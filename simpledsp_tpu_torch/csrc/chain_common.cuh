@@ -1,7 +1,11 @@
-// Building blocks of the fused chain kernels (chain.cu, chain_tc.cu): the
-// fp32 product loop on the CUDA cores and the stages every form of the chain
-// shares.  A frame of n1 rows of n2 <= 128 samples sits in shared memory as
-// rows of 128 floats; see chain.cu for the layouts of the tables.
+// Building blocks of the fused chain kernels: the fp32 product loop on the
+// CUDA cores (mac_rows, which chain.cu's IIR block also runs) and the stages
+// of the four-step form, which only chain_tc.cu ("regs") still runs.  There
+// a frame of n1 rows of n2 <= 128 samples sits in shared memory as rows of
+// 128 floats, and every table row is 128 wide: HT = H^T (n2, 128), PhiT =
+// Phi^T (D, 128), Tc / Ts (n1p, 128) and the step-3 table [P^T; Q^T]
+// (2 n2, 128), zero-padded to n1p = n1 rounded up to a multiple of 8 rows
+// (kernels/chain.py _padded_tables).
 
 #pragma once
 
@@ -166,16 +170,13 @@ __device__ __forceinline__ void iir_stage(float* y, int ldy, const float* x,
   }
 }
 
-// Twiddle in place over `rows` rows: tr = c Tc - s Ts, ti = s Tc + c Ts.
-// With kStacked the rows are a stack of frames of n1 rows and the twiddle
-// row is the row index mod n1 (the frame's k1); without, row = k1.
-template <bool kStacked>
+// Twiddle in place over `rows` rows, row = k1: tr = c Tc - s Ts,
+// ti = s Tc + c Ts.
 __device__ __forceinline__ void twiddle_stage(float* c, float* s,
                                               const float* Tc, const float* Ts,
-                                              int rows, int n1) {
+                                              int rows) {
   for (int i = threadIdx.x; i < rows * kN2; i += kThreads) {
-    const int t = kStacked ? (i / kN2) % n1 * kN2 + i % kN2 : i;
-    const float cv = c[i], sv = s[i], tc = Tc[t], ts = Ts[t];
+    const float cv = c[i], sv = s[i], tc = Tc[i], ts = Ts[i];
     c[i] = cv * tc - sv * ts;
     s[i] = sv * tc + cv * ts;
   }
@@ -212,17 +213,15 @@ __device__ __forceinline__ float nyquist_warp(const float* tr_row0) {
   return acc;
 }
 
-// Packed one-sided spectrum of one frame from the staged out^T (column
-// offset k1_0 selects the frame in a stack of frames): natural bin order
-// k = k1 + n1 k2, consecutive threads on consecutive k, X[N/2].re in the
-// imaginary plane's bin 0.
+// Packed one-sided spectrum of one frame from the staged out^T: natural
+// bin order k = k1 + n1 k2, consecutive threads on consecutive k, X[N/2].re
+// in the imaginary plane's bin 0.
 __device__ __forceinline__ void store_natural(float* re, float* im,
                                               const float* out_t, int ldo,
-                                              int k1_0, int n1, int n2,
-                                              float nyq) {
+                                              int n1, int n2, float nyq) {
   const int h = n1 * n2 / 2;
   for (int k = threadIdx.x; k < h; k += kThreads) {
-    const int k1 = k % n1 + k1_0, k2 = k / n1;
+    const int k1 = k % n1, k2 = k / n1;
     re[k] = out_t[k2 * ldo + k1];
     im[k] = k == 0 ? nyq : out_t[(n2 / 2 + k2) * ldo + k1];
   }

@@ -1,6 +1,15 @@
 // The fused chain with step 1 on the tensor cores (sm_90a): the packed
-// half-spectrum chain of chain.cu, one frame per block, where the step-1 DFT
-// [W1c; W1s] y runs as bf16 x bf16 -> fp32 mma.sync products that are exact.
+// half-spectrum chain on the four-step design (chain_common.cuh), one frame
+// per block, where the step-1 DFT [W1c; W1s] y runs as bf16 x bf16 -> fp32
+// mma.sync products that are exact.  Per frame, with x viewed as (n1, n2)
+// and the sub-block starts s as (D, n1):
+//
+//   1. IIR block     y[p, i]  = sum_j x[p, j] H[i, j] + sum_e s[e, p] Phi[i, e]
+//   2. step 1        [c; s][k1, t] = sum_p W1cs[k1, p] y[p, t]
+//   3. twiddle       tr = c Tc - s Ts,  ti = s Tc + c Ts
+//   4. step 3        out[k1, l] = sum_t tr[k1, t] P[l, t] + ti[k1, t] Q[l, t]
+//                    (lanes l < n2/2: Re X, l >= n2/2: Im X, bin k1 + n1 (l % (n2/2)))
+//   5. Nyquist       X[N/2] = sum_t tr[0, t] (-1)^t into the Im slot of bin 0
 //
 // Replaces the TPU kernel simpledsp_tpu/kernels/chain_variants.py
 // _make_packed_regs_kernel (:67), fused_chain_frames(layout="regs"): float32
@@ -21,8 +30,9 @@
 // the split table in global memory, (3, 2 n1p, K16) bf16, row-major; B
 // fragments from y in shared memory, stored at a row stride of 132 floats so
 // that the four k rows a warp reads fall in different banks, and split into
-// bf16 parts in registers.  What bounds the kernel is the same FMA issue as
-// chain.cu's: step 1 is about a tenth of a frame's FMAs at N = 4096.
+// bf16 parts in registers.  What bounds the kernel is FMA issue on the
+// CUDA cores: at N = 4096 a frame is about 3.7 MFLOP of fp32 FMAs against
+// 32 KB of input and output, and step 1 is about a tenth of them.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -148,7 +158,7 @@ chain_regs_kernel(const float* __restrict__ x, const float* __restrict__ s,
   __syncthreads();
   step1_split(buf_a, buf_c, buf_b, W3, n1p, k16);
   __syncthreads();
-  twiddle_stage<false>(buf_a, buf_c, Tc, Ts, n1p, n1);
+  twiddle_stage(buf_a, buf_c, Tc, Ts, n1p);
   __syncthreads();
   step3_stage<TM>(buf_b, ldo, buf_a, buf_c, PQT, n1p, n2_arg);
   if ((threadIdx.x >> 5) == 0) {
@@ -157,7 +167,7 @@ chain_regs_kernel(const float* __restrict__ x, const float* __restrict__ s,
   }
   __syncthreads();
   const size_t h = static_cast<size_t>(n1) * n2 / 2;
-  store_natural(re + f * h, im + f * h, buf_b, ldo, 0, n1, n2, nyq);
+  store_natural(re + f * h, im + f * h, buf_b, ldo, n1, n2, nyq);
 }
 
 template <int TM, bool kPad>
@@ -178,10 +188,14 @@ cudaError_t launch(const float* x, const float* s, const float* HT,
 
 }  // namespace
 
-// Launch on `stream` of `device`; returns cudaGetLastError() after the launch.
-// As sdsp_chain_frames_f32 (chain.cu) in mode kWide, except W3: the step-1
-// table's three bf16 parts, (3, 2 n1p, K16) with K16 = n1p rounded up to a
-// multiple of 16, zero-padded as W1cs is.
+// Launch on `stream` of `device`; returns cudaGetLastError() after the launch
+// (0 when the launch was accepted).  Every pointer is device memory holding
+// contiguous float32: x (frames, n1, n2), s (frames, d, n1), the tables as
+// chain_common.cuh lays them out, and W3: the step-1 table's three bf16
+// parts, (3, 2 n1p, K16) with K16 = n1p rounded up to a multiple of 16,
+// cos rows at 0 and sin rows at n1p, zero-padded.  re / im (frames,
+// n1 n2 / 2): the packed one-sided spectrum in natural order, X[N/2].re in
+// im[:, 0].  n2 is even.
 extern "C" int sdsp_chain_regs_f32(const float* x, const float* s,
                                    const float* HT, const float* PhiT,
                                    const void* W3, const float* Tc,

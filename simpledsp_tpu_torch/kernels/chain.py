@@ -18,9 +18,9 @@ tr W2s^T), the full complex spectrum, the JAX function's default.
 
 The kernels are ``csrc/chain.cu`` (:func:`chain_frames`,
 :func:`chain_frames_full`, and the layouts of ``kernels/chain_variants.py``)
-and ``csrc/chain_tc.cu`` ("regs").  The kernel of :func:`chain_frames` and
-:func:`chain_frames_full` computes the same spectra with a radix FFT in
-place of the DFT products: the N/2-point complex FFT of z[t] = y[2t] +
+and ``csrc/chain_tc.cu`` ("regs").  The kernel of ``chain.cu`` computes the
+same spectra with a radix FFT in place of the DFT products: the N/2-point
+complex FFT of z[t] = y[2t] +
 i y[2t+1] on the FFT core (``csrc/fft_core.cuh``, plan and table from
 ``kernels/fft.py``), then the split into the one-sided spectrum
 (:func:`kernels.fft._split_table_f64`), which the full spectrum completes
@@ -75,9 +75,10 @@ def kernel_supports(n1: int, n2: int) -> bool:
 
 
 def _padded_tables(tables: ChainTables, n1: int, n2: int) -> ChainTables:
-    """The tables in the kernel's padded shapes (``csrc/chain.cu``): rows
-    128 wide and n1 rounded up to n1p, a multiple of 8, with zeros.  The
-    tables of an n1 % 8 == 0, n2 == 128 frame are returned as they are."""
+    """The tables in the "regs" kernel's padded shapes
+    (``csrc/chain_common.cuh``): rows 128 wide and n1 rounded up to n1p, a
+    multiple of 8, with zeros.  The tables of an n1 % 8 == 0, n2 == 128
+    frame are returned as they are."""
     n1p = -(-n1 // 8) * 8
     if n1p == n1 and n2 == 128:
         return tables
@@ -357,42 +358,54 @@ def chain_frames_full_reference(x3: torch.Tensor, s3: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """``csrc/chain.cu`` built and loaded, its entry points typed."""
+    """``csrc/chain.cu`` built and loaded, its entry point typed."""
     lib = _build.load_library("sdsp_chain", ("chain.cu",),
                               ("chain_common.cuh", "fft_core.cuh"))
-    for fn in (lib.sdsp_chain_frames_f32, lib.sdsp_chain_grouped_f32):
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     fn = lib.sdsp_chain_natural_f32
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-# The output forms of ``sdsp_chain_frames_f32`` (enum Mode in chain.cu);
-# "natural" and "full" have their own entry, ``sdsp_chain_natural_f32``.
-_MODES = {"wide": 1, "fmajor": 2}
+# The half spectrum's stores (enum Store in chain.cu): natural order
+# straight from the split, the same in 16-byte stores, k1-major rows.
+_STORES = ("natural", "wide", "fmajor")
 # The shared memory a block may have (kMaxSmem in chain_common.cuh).
 _MAX_SMEM = 232448
 
 
-def _natural_smem_bytes(n1: int, n2: int, d: int) -> int:
-    """Shared memory of a block of the natural-order kernel
-    (``sdsp_chain_natural_f32`` in chain.cu): the rows of g frames stacked
-    and rounded up to a multiple of 8, each row of x and y kLdx = 132
-    floats wide, and the starts (rows, d rounded up to 4).  g as the kernel
-    picks it: as many frames as keep the block's FFT at 4096 values (N/2 a
-    frame, N for an odd N) and its rows at 64."""
+def _natural_frames(n1: int, n2: int) -> int:
+    """Frames a block as the kernel picks them (``g = 0`` in
+    ``sdsp_chain_natural_f32``): as many as keep the block's FFT at 4096
+    values (N/2 a frame, N for an odd N) and its rows at 64."""
     n = n1 * n2
     per = n if n % 2 else n // 2
     g = 1
     while 2 * g * per <= 4096 and -(-2 * g * n1 // 8) * 8 <= 64:
         g *= 2
-    rows = -(-g * n1 // 8) * 8
+    return g
+
+
+def _natural_smem_bytes(n1: int, n2: int, d: int,
+                        g: Optional[int] = None) -> int:
+    """Shared memory of a block of the natural-order kernel
+    (``sdsp_chain_natural_f32`` in chain.cu) with g frames (default: the
+    kernel's own choice): the rows of g frames stacked and rounded up to a
+    multiple of 8, each row of x and y kLdx = 132 floats wide, and the
+    starts (rows, d rounded up to 4)."""
+    rows = -(-(g or _natural_frames(n1, n2)) * n1 // 8) * 8
     return 4 * rows * (2 * 132 + -(-d // 4) * 4)
+
+
+def _natural_fits(n1: int, n2: int, d: int, g: int) -> bool:
+    """Whether g frames of n1 x n2 samples (N even) fit a block of the
+    natural-order kernel: 1 <= g <= 128, its shared memory within the
+    card's, and at most 8192 FFT values (32 a thread, the largest
+    instance)."""
+    return (1 <= g <= 128 and g * n1 * n2 // 2 <= 8192
+            and _natural_smem_bytes(n1, n2, d, g) <= _MAX_SMEM)
 
 
 @functools.lru_cache(maxsize=64)
@@ -452,10 +465,64 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _launch_natural(library, x3: torch.Tensor, s3: torch.Tensor,
+                    tables: ChainTables, mode: str, g: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``chain_natural_kernel`` (``sdsp_chain_natural_f32``):
+    the half spectrum in one of :data:`_STORES`, or the full spectrum
+    ("full"), with g frames a block (0: the kernel's choice).  Checks every
+    operand before ``library()`` builds or loads the kernel.  Returns
+    (re, im): (F, N/2) natural-order planes, (F, n1, n2/2) k1-major rows for
+    "fmajor", (F, N) for "full"."""
+    nf, n1, n2 = x3.shape
+    d = s3.shape[1]
+    full = mode == "full"
+    if full:
+        if not (1 <= n1 <= 128 and 1 <= n2 <= 128):
+            raise ValueError(f"the CUDA chain kernel needs frames of n1 x "
+                             f"n2 samples, n1 <= 128 and n2 <= 128; got "
+                             f"{tuple(x3.shape)}")
+    elif not kernel_supports(n1, n2):
+        raise ValueError(f"the CUDA chain kernel needs frames of n1 x n2 "
+                         f"samples, n1 <= 128 and n2 <= 128 even; got "
+                         f"{tuple(x3.shape)}")
+    if g and not _natural_fits(n1, n2, d, g):
+        raise ValueError(f"{g} frames of {n1} rows do not fit a block")
+    if not g and _natural_smem_bytes(n1, n2, d) > _MAX_SMEM:
+        raise ValueError(f"frames of {n1} x {n2} samples with a state of "
+                         f"{d} do not fit a block")
+    _check_operands(x3, s3, tables, None, "chain")
+    _require_upper(tables.HT)
+    shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
+        mode, (nf, n1 * n2 // 2))
+    spec_re = torch.empty(shape, dtype=x3.dtype, device=x3.device)
+    spec_im = torch.empty_like(spec_re)
+    # The real FFT of N points as the complex FFT of N/2 on the FFT core,
+    # then the split (and for the full spectrum its conjugate mirror); an
+    # odd N as the complex FFT of N points.  Only H^T and Phi^T are read,
+    # their rows 128 wide.
+    ht, phit = tables.HT, tables.PhiT
+    if n2 < 128:
+        ht, phit = (torch.nn.functional.pad(t, (0, 128 - n2))
+                    for t in (ht, phit))
+    n = n1 * n2
+    odd = n % 2 == 1
+    tab, plan, npass = _kernel_tables(n if odd else n // 2, x3.device)
+    split = None if odd else _split_table(n, x3.device).data_ptr()
+    rc = library().sdsp_chain_natural_f32(
+        x3.data_ptr(), s3.data_ptr(), ht.data_ptr(), phit.data_ptr(),
+        ctypes.cast(plan, ctypes.c_void_p), npass, tab.data_ptr(), split,
+        spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2, d, int(full), g,
+        0 if full else _STORES.index(mode), x3.device.index, _stream(x3))
+    if rc != 0:
+        raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
+    return spec_re, spec_im
+
+
 class _ChainKernel:
-    """A form of the CUDA chain kernel in ``csrc/chain.cu`` (``modes``: the
-    output forms it launches), built at first launch; ``launches`` counts
-    its launches."""
+    """A form of ``chain_natural_kernel`` in ``csrc/chain.cu`` (``modes``:
+    the outputs it launches, :data:`_STORES` or "full"), built at first
+    launch; ``launches`` counts its launches."""
 
     def __init__(self, *modes: str):
         self.modes = modes
@@ -467,64 +534,14 @@ class _ChainKernel:
     def __call__(self, x3: torch.Tensor, s3: torch.Tensor,
                  tables: ChainTables, mode: Optional[str] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Launch in ``mode`` (default: the first of ``modes``).  Returns
-        (re, im): (F, N/2) natural-order planes, (F, n1, n2/2) k1-major rows
-        for "fmajor", (F, N) for "full"."""
+        """Launch in ``mode`` (default: the first of ``modes``), the
+        kernel's own frames a block; see :func:`_launch_natural`."""
         mode = mode or self.modes[0]
         if mode not in self.modes:
             raise ValueError(f"this kernel launches {self.modes}, not {mode!r}")
-        nf, n1, n2 = x3.shape
-        full = mode == "full"
-        natural = mode in ("natural", "full")
-        if full:
-            if not (1 <= n1 <= 128 and 1 <= n2 <= 128):
-                raise ValueError(f"the CUDA chain kernel needs frames of n1 x "
-                                 f"n2 samples, n1 <= 128 and n2 <= 128; got "
-                                 f"{tuple(x3.shape)}")
-        elif not kernel_supports(n1, n2):
-            raise ValueError(f"the CUDA chain kernel needs frames of n1 x n2 "
-                             f"samples, n1 <= 128 and n2 <= 128 even; got "
-                             f"{tuple(x3.shape)}")
-        if natural and _natural_smem_bytes(n1, n2, s3.shape[1]) > _MAX_SMEM:
-            raise ValueError(f"frames of {n1} x {n2} samples with a state of "
-                             f"{s3.shape[1]} do not fit a block")
-        _check_operands(x3, s3, tables, None if natural else 2 * n2, "chain")
-        shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
-            mode, (nf, n1 * n2 // 2))
-        spec_re = torch.empty(shape, dtype=x3.dtype, device=x3.device)
-        spec_im = torch.empty_like(spec_re)
-        if natural:
-            # The real FFT of N points as the complex FFT of N/2 on the
-            # FFT core, then the split (and for the full spectrum its
-            # conjugate mirror); an odd N as the complex FFT of N points.
-            # Only H^T and Phi^T are read, their rows 128 wide.
-            _require_upper(tables.HT)
-            ht, phit = tables.HT, tables.PhiT
-            if n2 < 128:
-                ht, phit = (torch.nn.functional.pad(t, (0, 128 - n2))
-                            for t in (ht, phit))
-            n = n1 * n2
-            odd = n % 2 == 1
-            tab, plan, npass = _kernel_tables(n if odd else n // 2, x3.device)
-            split = None if odd else _split_table(n, x3.device).data_ptr()
-            rc = self.library().sdsp_chain_natural_f32(
-                x3.data_ptr(), s3.data_ptr(), ht.data_ptr(), phit.data_ptr(),
-                ctypes.cast(plan, ctypes.c_void_p), npass, tab.data_ptr(),
-                split, spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2,
-                s3.shape[1], int(full), x3.device.index, _stream(x3))
-        else:
-            tables = _padded_tables(tables, n1, n2)
-            rc = self.library().sdsp_chain_frames_f32(
-                x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
-                tables.PhiT.data_ptr(), tables.W1cs.data_ptr(),
-                tables.Tc.data_ptr(), tables.Ts.data_ptr(),
-                tables.PQT.data_ptr(), spec_re.data_ptr(), spec_im.data_ptr(),
-                nf, n1, n2, s3.shape[1], _MODES[mode], x3.device.index,
-                _stream(x3))
-        if rc != 0:
-            raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
+        out = _launch_natural(self.library, x3, s3, tables, mode)
         self.launches += 1
-        return spec_re, spec_im
+        return out
 
 
 chain_kernel = _ChainKernel("natural")
@@ -644,8 +661,9 @@ def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
       function; they differ in how the kernel is scheduled:
       "reg" / "k1" the chain kernel; "regs" step 1 as exact split-bf16
       products on the tensor cores (float32 only); "reg2" / "reg4" /
-      "regp" / "pair" g frames a block (:func:`chain_variants.group_frames`);
-      "regw" 16-byte stores; "fmajor" k1-major rows, reordered here by a
+      "regp" / "pair" the chain kernel with g frames a block
+      (:func:`chain_variants.group_frames`); "regw" the chain kernel with
+      16-byte stores; "fmajor" with k1-major rows, reordered here by a
       transpose as the JAX package does outside its kernel.
     frames_per_tile: the JAX kernel's tile, from which the grouped layouts
       take their group size.
@@ -695,7 +713,7 @@ def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
             zr, zi = zr.transpose(1, 2), zi.transpose(1, 2)
     else:
         r = _tile_frames(f_total, N, x3.element_size(), frames_per_tile)
-        g = cv.group_frames(layout, n1, r, ops.state_dim)
+        g = cv.group_frames(layout, n1, n2, r, ops.state_dim)
         zr, zi = cv.chain_frames_grouped(x3, s3, tables, g)
     if flat_out and layout not in ("pair", "fmajor"):
         qf = cv._regw_qf(n1, h) if layout == "regw" else 1

@@ -11,16 +11,16 @@ in scheduling only, so that is their plain version, with one exception:
 
 - "regs": step 1 as bf16 x bf16 -> fp32 tensor-core products of three-way
   split factors (``csrc/chain_tc.cu``), float32 only.
-- "reg2" / "reg4" / "regp" / "pair": g frames a CUDA block, their rows
-  stacked (``chain.cu`` ``chain_grouped_kernel``).  The TPU variants fed a
-  block-diagonal step-1 table to the matrix unit; on the CUDA cores its
-  zero blocks would only be multiplied, so step 1 runs per frame against
-  the one (2 n1, n1) table while the row-wise stages run over all g n1
-  rows.  g as the JAX package resolves it (:func:`group_frames`).
-- "regw" / "fmajor": the chain kernel with another store: 16-byte stores of
-  the natural-order planes, or each frame's (n1, n2/2) rows k1-major from
-  the step-3 accumulators (the caller transposes, as the JAX package does
-  outside its kernel).
+- "reg2" / "reg4" / "regp" / "pair": the chain kernel
+  (``chain.cu`` ``chain_natural_kernel``) with the layout's g frames a CUDA
+  block, their rows stacked.  The TPU variants fed a block-diagonal step-1
+  table to the matrix unit; here the group is only the block's frames.  g
+  as the JAX package resolves it, then halved until the block fits
+  (:func:`group_frames`).
+- "regw" / "fmajor": the chain kernel with another store, its planes
+  staged in shared memory: 16-byte stores of the natural-order planes, or
+  each frame's (n1, n2/2) rows k1-major (the caller transposes, as the JAX
+  package does outside its kernel).
 
 Each kernel launches through a wrapper with a ``launches`` count; on CPU
 tensors the wrappers run the plain version, and there is no fallback from
@@ -47,11 +47,6 @@ __all__ = ["chain_frames_grouped", "chain_frames_regs",
            "chain_frames_regs_reference", "chain_frames_store",
            "chain_grouped_kernel", "chain_regs_kernel", "chain_store_kernel",
            "group_frames"]
-
-# Shared memory a block may opt into on an H100, less the grouped kernel's
-# static Nyquist array (128 floats).
-_GROUP_SMEM = 232448 - 4 * 128
-
 
 def _bf16_round(a: np.ndarray) -> np.ndarray:
     """float64 -> bfloat16 as the JAX package casts (ml_dtypes): rounded to
@@ -87,19 +82,12 @@ def _regw_qf(n1: int, n2h: int) -> int:
     return qf
 
 
-def _group_smem_bytes(g: int, n1: int, d: int) -> int:
-    """Shared memory of a grouped block (``sdsp_chain_frames_smem_bytes`` in
-    ``csrc/chain.cu`` for g n1 rows padded to a multiple of 8)."""
-    rows = -(-g * n1 // 8) * 8
-    dp = (d + 3) & ~3
-    return 4 * (2 * rows * 128 + 128 * (rows + 1) + dp * rows)
-
-
-def group_frames(layout: str, n1: int, r: int, d: int) -> int:
+def group_frames(layout: str, n1: int, n2: int, r: int, d: int) -> int:
     """Frames a block for a grouped layout, as the JAX package resolves
     them from its tile of r frames (``chain.py:755-762``): "reg2" 2, "reg4"
     4, "regp" 128 // n1, each halved until it divides r; "pair" 2 where r
-    is even, else 1.  Then halved until the block fits in shared memory."""
+    is even, else 1.  Then halved until the chain kernel's block fits
+    (``chain._natural_fits``: shared memory, and at most 8192 FFT values)."""
     if layout in ("reg2", "reg4"):
         g = int(layout[3:])
     elif layout == "regp":
@@ -110,7 +98,7 @@ def group_frames(layout: str, n1: int, r: int, d: int) -> int:
         raise ValueError(f"{layout!r} is not a grouped layout")
     while g > 1 and r % g:
         g //= 2
-    while g > 1 and _group_smem_bytes(g, n1, d) > _GROUP_SMEM:
+    while g > 1 and not _chain._natural_fits(n1, n2, d, g):
         g //= 2
     return g
 
@@ -214,9 +202,9 @@ class _RegsKernel:
 
 
 class _GroupedKernel:
-    """The grouped chain kernel (``chain_grouped_kernel`` in
-    ``csrc/chain.cu``); ``launches`` counts its launches and ``last_g``
-    holds the frames a block of the last launch."""
+    """The chain kernel (``chain_natural_kernel`` in ``csrc/chain.cu``) with
+    the caller's g frames a block; ``launches`` counts its launches and
+    ``last_g`` holds the frames a block of the last launch."""
 
     def __init__(self):
         self.launches = 0
@@ -228,32 +216,14 @@ class _GroupedKernel:
     def __call__(self, x3: torch.Tensor, s3: torch.Tensor,
                  tables: ChainTables, g: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        nf, n1, n2 = x3.shape
-        d = s3.shape[1]
-        if not _chain.kernel_supports(n1, n2):
-            raise ValueError(f"the CUDA grouped kernel needs frames of n1 x "
-                             f"n2 samples, n1 <= 128 and n2 <= 128 even; got "
-                             f"{tuple(x3.shape)}")
-        if not 1 <= g <= 128 or _group_smem_bytes(g, n1, d) > _GROUP_SMEM:
-            raise ValueError(f"{g} frames of {n1} rows do not fit a block")
-        _chain._check_operands(x3, s3, tables, 2 * n2, "grouped")
-        # Step 1 reads the unpadded (2 n1, n1) table.
-        padded = _chain._padded_tables(tables, n1, n2)._replace(
-            W1cs=tables.W1cs)
-        spec_re = torch.empty((nf, n1 * n2 // 2), dtype=x3.dtype,
-                              device=x3.device)
-        spec_im = torch.empty_like(spec_re)
-        rc = self.library().sdsp_chain_grouped_f32(
-            x3.data_ptr(), s3.data_ptr(), padded.HT.data_ptr(),
-            padded.PhiT.data_ptr(), padded.W1cs.data_ptr(),
-            padded.Tc.data_ptr(), padded.Ts.data_ptr(), padded.PQT.data_ptr(),
-            spec_re.data_ptr(), spec_im.data_ptr(), nf, n1, n2, d, g,
-            x3.device.index, _chain._stream(x3))
-        if rc != 0:
-            raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
+        if g < 1:
+            raise ValueError(f"{g} frames of {x3.shape[1]} rows do not fit "
+                             f"a block")
+        out = _chain._launch_natural(self.library, x3, s3, tables,
+                                     "natural", g)
         self.launches += 1
         self.last_g = g
-        return spec_re, spec_im
+        return out
 
 
 chain_regs_kernel = _RegsKernel()
@@ -272,7 +242,7 @@ def chain_frames_regs(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables
 def chain_frames_grouped(x3: torch.Tensor, s3: torch.Tensor,
                          tables: ChainTables, g: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Layouts "reg2" / "reg4" / "regp" / "pair": the grouped kernel with g
+    """Layouts "reg2" / "reg4" / "regp" / "pair": the chain kernel with g
     frames a block on CUDA tensors, the plain version on CPU tensors.
     (F, N/2) natural-order planes."""
     return _chain._on_device(

@@ -17,8 +17,9 @@ counterpart of that HLO is a ``torch.profiler`` trace of the device:
    package's own CUDA kernels marked as such.
 
 All of them are traced in one profiler session, each call in a
-``record_function`` range and synchronized before the next; a device event
-belongs to the call whose range started last before it.
+``record_function`` range, synchronized before the next and with a margin
+of idle time on both sides; a device event belongs to the call whose range
+started last before it.
 
     python -m simpledsp_tpu_torch.tools.probe_hlo
 """
@@ -26,6 +27,7 @@ belongs to the call whose range started last before it.
 from __future__ import annotations
 
 import bisect
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -38,12 +40,17 @@ from simpledsp_tpu_torch.tools._common import (cuda_device, main, randn,
 
 # The __global__ functions of csrc/: a device event whose name holds one of
 # them is one of the package's own kernels.
-HAND_KERNELS = ("chain_natural_kernel", "chain_frames_kernel",
-                "chain_grouped_kernel",
-                "chain_regs_kernel", "pfb_kernel", "sum_partials_kernel",
+HAND_KERNELS = ("chain_natural_kernel", "chain_regs_kernel", "pfb_kernel", "sum_partials_kernel",
                 "ols_frames_kernel", "conv2d_valid_kernel", "fft_frames_kernel",
                 "scale_copy_kernel", "permute_kernel", "contract_kernel",
                 "row_sum_kernel")
+
+# Idle seconds before each call inside its range and after it outside: the
+# trace's host and device timestamps may disagree by microseconds, and
+# without a margin a kernel launched at once after its range began was
+# seen before that range, in the previous call's work (once in about ten
+# runs on the H100).
+MARGIN_S = 1e-3
 
 
 def device_events(calls: dict) -> dict:
@@ -58,8 +65,10 @@ def device_events(calls: dict) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for label, name in labels.items():
             with record_function(label):
+                time.sleep(MARGIN_S)
                 calls[name]()
                 torch.cuda.synchronize()
+            time.sleep(MARGIN_S)
     events = list(prof.events())
     starts = sorted((e.time_range.start, labels[e.name]) for e in events
                     if e.name in labels

@@ -4,8 +4,9 @@
 in Pallas interpret mode, and against the scipy + numpy oracle, on the CPU.
 
 On the CPU each layout runs its kernel's plain version; the kernels
-themselves are checked against it in ``test_torch_cuda.py``.  The grouped
-and "regs" kernels' index arithmetic is emulated here on the CPU.
+themselves are checked against it in ``test_torch_cuda.py``.  The index
+arithmetic of the chain kernel at a layout's g, of its store forms'
+staging, and of the "regs" kernel's table is emulated here on the CPU.
 
 Tolerances: float64 layouts agree with JAX and the packed oracle to 1e-11
 of the largest bin (sums in different orders); "regs" is a float32 scheme:
@@ -13,6 +14,8 @@ of the largest bin (sums in different orders); "regs" is a float32 scheme:
 within 2e-6 of the largest bin of the JAX "regs" result (float32 sums in
 another order).  Host tables bit for bit.
 """
+
+import math
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -29,6 +32,7 @@ from simpledsp_tpu.ops.fft import _dft_mats_f64 as j_dft_mats
 from simpledsp_tpu_torch.convert import design_from_numpy
 from simpledsp_tpu_torch.kernels import chain as tchain
 from simpledsp_tpu_torch.kernels import chain_variants as tcv
+from simpledsp_tpu_torch.kernels.fft import _best_split
 
 HALF_LAYOUTS = ["reg", "regp", "regw", "reg2", "reg4", "k1", "fmajor", "pair"]
 
@@ -158,65 +162,144 @@ def test_regs_needs_float32_and_unknown_layouts_raise(rng):
     assert yr.shape == (2, 4, tops.n2, tops.n1)
 
 
-@pytest.mark.parametrize("layout,n1,r,want", [
-    ("reg2", 32, 64, 2), ("reg4", 32, 64, 4), ("reg4", 32, 2, 2),
-    ("reg4", 32, 1, 1), ("regp", 8, 64, 16), ("regp", 8, 4, 4),
-    ("regp", 6, 64, 2), ("regp", 2, 64, 64), ("regp", 128, 64, 1),
-    ("pair", 32, 64, 2), ("pair", 32, 3, 1), ("reg4", 128, 64, 1)])
-def test_group_frames(layout, n1, r, want):
+@pytest.mark.parametrize("layout,n1,n2,r,want", [
+    ("reg2", 32, 128, 64, 2), ("reg4", 32, 128, 64, 4),
+    ("reg4", 32, 128, 2, 2), ("reg4", 32, 128, 1, 1),
+    ("regp", 8, 128, 64, 16), ("regp", 8, 128, 4, 4),
+    ("regp", 6, 128, 64, 2), ("regp", 2, 128, 64, 64),
+    ("regp", 128, 128, 64, 1), ("pair", 32, 128, 64, 2),
+    ("pair", 32, 128, 3, 1), ("reg4", 128, 128, 64, 1),
+    # N = 4096, 16384 and 200 at the tiles of 16 x 2^20 samples.
+    ("reg2", 32, 128, 64, 2), ("reg4", 32, 128, 64, 4),
+    ("regp", 32, 128, 64, 4), ("pair", 32, 128, 64, 2),
+    ("reg2", 128, 128, 32, 1), ("reg4", 128, 128, 32, 1),
+    ("regp", 128, 128, 32, 1), ("pair", 128, 128, 32, 1),
+    ("regp", 2, 100, 32, 32)])
+def test_group_frames(layout, n1, n2, r, want):
     """g as the JAX package resolves it from its tile r, then halved until
-    the block fits: 4 frames of 128 rows do not, 64 of 2 do."""
-    assert tcv.group_frames(layout, n1, r, 10) == want
-    assert tcv._group_smem_bytes(want, n1, 10) <= tcv._GROUP_SMEM
+    the chain kernel's block fits: 4 frames of 128 x 128 do not (32768 FFT
+    values a block, the kernel takes 8192), 64 of 2 x 128 do."""
+    assert tcv.group_frames(layout, n1, n2, r, 10) == want
+    assert tchain._natural_fits(n1, n2, 10, want)
+
+
+def _natural_walk(x3, s3, tables, g):
+    """``chain_natural_kernel``'s half spectrum (``csrc/chain.cu``) walked in
+    float64 with its own index arithmetic, g frames a block: each block's
+    frames stacked as rows of kLdx = 132 floats with no per-frame padding,
+    zero rows up to g n1 rounded up to 8, the starts transposed into rows
+    of d rounded up to 4, the IIR block over every row, z read from y by the
+    block's value index, the FFT core (``_core_walk``) per frame, the split.
+    The last block may hold fewer frames."""
+    from test_torch_fft import _core_walk
+
+    from simpledsp_tpu_torch.kernels import fft as tkfft
+
+    frames, n1, n2 = x3.shape
+    d = s3.shape[1]
+    m = n1 * n2 // 2
+    ldx, dp = 132, -(-d // 4) * 4
+    rows = -(-g * n1 // 8) * 8
+    ht = np.zeros((128, 128))
+    ht[:n2, :n2] = tables.HT.numpy()
+    phit = np.zeros((d, 128))
+    phit[:, :n2] = tables.PhiT.numpy()
+    x, s = x3.numpy().reshape(-1), s3.numpy().reshape(-1)
+    sp = tkfft._split_table_f64(n1 * n2)
+    spec = np.empty((frames, m), dtype=complex)
+    for f0 in range(0, frames, g):
+        nf = min(g, frames - f0)
+        xs = np.zeros(rows * ldx)
+        st = np.zeros(rows * dp)
+        i = np.arange(nf * n1 * n2)
+        p = i // n2
+        xs[p * ldx + i - p * n2] = x[f0 * n1 * n2 + i]
+        i = np.arange(nf * d * n1)
+        q, r = i // (d * n1), i % (d * n1)
+        st[(q * n1 + r % n1) * dp + r // n1] = s[f0 * d * n1 + i]
+        ys = np.zeros((rows, ldx))
+        ys[:, :128] = (xs.reshape(rows, ldx)[:, :128] @ ht
+                       + st.reshape(rows, dp)[:, :d] @ phit)
+        ys = ys.reshape(-1)
+        e = 2 * np.arange(nf * m)
+        row = e // n2
+        at = row * ldx + e - row * n2
+        z = _core_walk((ys[at] + 1j * ys[at + 1]).reshape(nf, m), m)
+        out = spec[f0:f0 + nf]
+        out[:, 0] = (z[:, 0].real + z[:, 0].imag
+                     + 1j * (z[:, 0].real - z[:, 0].imag))
+        for k in range(1, m // 2 + 1):
+            a, b = z[:, k], z[:, m - k]
+            wr, wi = sp[k]
+            er, ei = 0.5 * (a.real + b.real), 0.5 * (a.imag - b.imag)
+            dr, di = 0.5 * (a.real - b.real), 0.5 * (a.imag + b.imag)
+            u, v = wr * di + wi * dr, wi * di - wr * dr
+            out[:, k] = (er + u) + 1j * (ei + v)
+            if 2 * k < m:
+                out[:, m - k] = (er - u) + 1j * (v - ei)
+    return spec
 
 
 @pytest.mark.parametrize("n,g", [(200, 16), (768, 3), (1024, 4), (4096, 2)])
-def test_grouped_stacking_reproduces_the_spectra(n, g, rng):
-    """The grouped kernel's arithmetic (``chain_grouped_kernel`` in
-    ``csrc/chain.cu``) emulated in float64: g frames' rows stacked with no
-    per-frame padding, padded tables, step 1 per frame against the unpadded
-    table, twiddle row = row mod n1, stores at column offset q n1; the last
-    block partial.  Gives the plain version's spectra (1e-12)."""
+def test_grouped_natural_walk_gives_the_spectra(n, g, rng):
+    """The grouped layouts' kernel, ``chain_natural_kernel`` at the
+    caller's g, walked in float64 (:func:`_natural_walk`) over 2 g + 1
+    frames (the last block partial), gives the plain version's spectra
+    (1e-12 of the largest bin)."""
     _, tops = _ops(n)
-    n1, n2 = tops.n1, tops.n2
-    nf = 2 * g + 1
-    x = torch.as_tensor(rng.standard_normal((1, nf * n)))
-    x3, s3, _ = tchain.chain_prepass(tops, x, torch.zeros(1, tops.state_dim,
-                                                          dtype=x.dtype))
+    x = torch.as_tensor(rng.standard_normal((1, (2 * g + 1) * n)))
+    s0 = torch.as_tensor(rng.standard_normal((1, tops.state_dim)))
+    x3, s3, _ = tchain.chain_prepass(tops, x, s0)
+    spec = _natural_walk(x3, s3, tops.tables(), g)
     ref_re, ref_im = tchain.chain_frames_reference(x3, s3, tops.tables())
-    tp = tchain._padded_tables(tops.tables(), n1, n2)._replace(
-        W1cs=tops.tables().W1cs)
-    alt = torch.tensor([(-1.0) ** t for t in range(128)], dtype=x3.dtype)
-    h = n1 * n2 // 2
-    got_re = torch.empty(nf, h, dtype=x3.dtype)
-    got_im = torch.empty_like(got_re)
-    for f0 in range(0, nf, g):
-        gv = min(g, nf - f0)
-        rows = torch.zeros(g * n1, 128, dtype=x3.dtype)
-        rows[:gv * n1, :n2] = x3[f0:f0 + gv].reshape(-1, n2)
-        st = torch.zeros(g * n1, tops.state_dim, dtype=x3.dtype)
-        st[:gv * n1] = s3[f0:f0 + gv].transpose(1, 2).reshape(-1,
-                                                             tops.state_dim)
-        y = rows[:, :n2] @ tp.HT + st @ tp.PhiT
-        c = torch.zeros_like(y)
-        s = torch.zeros_like(y)
-        for q in range(g):
-            cs = tp.W1cs @ y[q * n1:(q + 1) * n1]
-            c[q * n1:(q + 1) * n1], s[q * n1:(q + 1) * n1] = cs[:n1], cs[n1:]
-        k1_of_row = torch.arange(g * n1) % n1
-        tr = c * tp.Tc[k1_of_row] - s * tp.Ts[k1_of_row]
-        ti = s * tp.Tc[k1_of_row] + c * tp.Ts[k1_of_row]
-        out_t = (tr[:, :n2] @ tp.PQT[:n2] + ti[:, :n2] @ tp.PQT[n2:]).T
-        k = torch.arange(h)
-        for q in range(gv):
-            k1, k2 = k % n1 + q * n1, k // n1
-            got_re[f0 + q] = out_t[k2, k1]
-            got_im[f0 + q] = out_t[n2 // 2 + k2, k1]
-            got_im[f0 + q, 0] = (tr[q * n1] * alt).sum()
-    np.testing.assert_allclose(got_re.numpy(), ref_re.numpy(), rtol=0,
-                               atol=1e-12 * float(ref_re.abs().max()))
-    np.testing.assert_allclose(got_im.numpy(), ref_im.numpy(), rtol=0,
-                               atol=1e-12 * float(ref_re.abs().max()))
+    scale = float(max(ref_re.abs().max(), ref_im.abs().max()))
+    np.testing.assert_allclose(spec.real, ref_re.numpy(), rtol=0,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(spec.imag, ref_im.numpy(), rtol=0,
+                               atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("n", [256, 768, 1024, 4096, 16384])
+def test_store_staging_maps(n, rng):
+    """The staging of the store forms in ``chain_natural_kernel`` (kWide,
+    "regw"; kFmajor, "fmajor"), walked at the kernel's own g for n1 = 2, 6,
+    8, 32 and 128: the split puts bin k of frame q at p = q M + k (kWide)
+    or p + p // lcm(n1, 32) (kFmajor), each place once, within half of y's
+    space (rows x 66 floats a plane); the kWide readout (16-byte quads of
+    consecutive places) gives the natural-order planes and the kFmajor
+    readout (value e = (q, k1, k2) from the place of bin k1 + n1 k2) the
+    k1-major rows, also for a block short of frames; and each warp's
+    kFmajor read (32 consecutive e) touches 32 distinct banks."""
+    n1, n2 = _best_split(n)
+    m, h = n // 2, n2 // 2
+    g = tchain._natural_frames(n1, n2)
+    rows = -(-g * n1 // 8) * 8
+    lpad = n1 * 32 // math.gcd(n1, 32)
+    place = {"wide": lambda p: p, "fmajor": lambda p: p + p // lpad}
+    for nf in sorted({g, max(1, g - 1)}):
+        spec = rng.standard_normal((nf, m))
+        p = np.arange(nf * m)
+        e = np.arange(nf * m)
+        q, r = e // m, e % m
+        k1 = r // h
+        bins = q * m + k1 + n1 * (r - k1 * h)
+        for store, at in place.items():
+            assert at(p).max() < rows * 66
+            assert len(np.unique(at(p))) == len(p)
+            stage = np.full(rows * 66, np.nan)
+            stage[at(p)] = spec.reshape(-1)
+            if store == "wide":
+                assert m % 4 == 0
+                got = stage[:nf * m].reshape(-1, 4).reshape(nf, m)
+                np.testing.assert_array_equal(got, spec)
+                continue
+            got = stage[at(bins)].reshape(nf, n1, h)
+            np.testing.assert_array_equal(
+                got, spec.reshape(nf, h, n1).transpose(0, 2, 1))
+            if nf == g:
+                for w0 in range(0, nf * m, 32):
+                    banks = at(bins[w0:w0 + 32]) % 32
+                    assert len(set(banks.tolist())) == len(banks), (n, w0)
 
 
 @pytest.mark.parametrize("n1", [2, 6, 8, 32, 128])
@@ -257,6 +340,16 @@ def test_variant_wrappers_refuse_before_any_build():
         tcv.chain_grouped_kernel(x3, s3, tabs, 2)
     with pytest.raises(ValueError, match="fit a block"):
         tcv.chain_grouped_kernel(x3, s3, tabs, 64)
+    with pytest.raises(ValueError, match="fit a block"):
+        tcv.chain_grouped_kernel(x3, s3, tabs, 0)
+    # Both read H^T by bands up to each band's last column only.
+    x32, s32 = x3.float(), s3.float()
+    tabs32 = tchain.ChainTables(*(t.float() for t in tabs))
+    lower = tabs32._replace(HT=tabs32.HT.T.contiguous())
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tcv.chain_grouped_kernel(x32, s32, lower, 2)
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tcv.chain_store_kernel(x32, s32, lower, "fmajor")
     with pytest.raises(ValueError, match="float32"):
         tcv.chain_store_kernel(x3, s3, tabs, "wide")
     with pytest.raises(ValueError, match="launches"):
@@ -279,3 +372,12 @@ def test_fmajor_plain_rows_are_the_k1_major_spectrum(rng):
     # Row k1, column k2 holds bin k1 + n1 k2.
     assert torch.equal(fr.transpose(1, 2).reshape(3, -1), rr)
     assert torch.equal(fi.transpose(1, 2).reshape(3, -1), ri)
+
+
+def test_chain_forms_tool_needs_a_card():
+    """``tools/chain_forms.py`` times the card and raises without one."""
+    from simpledsp_tpu_torch.tools import chain_forms
+
+    assert set(chain_forms.LAYOUTS) == set(tchain.LAYOUTS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain_forms.run(sizes=(200,))

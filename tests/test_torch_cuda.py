@@ -22,7 +22,8 @@ and no more than 6 dB below the float32 plain version's own SNR; the paths
 on the engine >= 100 dB against numpy / scipy in float64 (the JAX package's
 on-chip bar for the fused transforms).  The full-spectrum chain kernel and
 the layout kernels (regs, grouped, store): >= 130 dB against the float64
-plain version, as the chain kernel.  The probes' kernels: the copy and the
+plain version, as the chain kernel; the store forms give the chain
+kernel's bits.  The probes' kernels: the copy and the
 transpose equal their plain versions bit for bit; the product and the row
 sum >= 120 dB against the float64 plain version and no more than 6 dB below
 the float32 plain version (the frames FFT kernel's bar).  The FFT engine
@@ -660,18 +661,35 @@ def test_layout_kernels_match_plain_version(layout, n, cuda_device):
         kernel, run = tcv.chain_store_kernel, lambda: tcv.chain_frames_store(
             x3, s3, tabs, mode)
     else:
-        g = tcv.group_frames(layout, ops.n1, 64, ops.state_dim)
+        g = tcv.group_frames(layout, ops.n1, ops.n2, 64, ops.state_dim)
         kernel, run = tcv.chain_grouped_kernel, lambda: tcv.chain_frames_grouped(
             x3, s3, tabs, g)
     launches = kernel.launches
     got = run()
     torch.cuda.synchronize()
     assert kernel.launches == launches + 1
+    if kernel is tcv.chain_grouped_kernel:
+        assert kernel.last_g == g
     if layout == "fmajor":
         got = tuple(p.transpose(1, 2).reshape(x3.shape[0], -1) for p in got)
     ref = tchain.chain_frames_reference(x3.double(), s3.double(),
                                         _tables64(tabs))
     assert _snr_db(ref, got) >= 130.0
+
+
+@pytest.mark.parametrize("n", [200, 1024, 4096, 16384])
+def test_store_forms_give_the_bits_of_reg(n, cuda_device):
+    """regw and fmajor change only the chain kernel's store: their planes,
+    fmajor's after the transpose to natural order, are reg's bits."""
+    ops, x3, s3 = _chain_frames(n, cuda_device)
+    tabs = ops.tables()
+    want = tchain.chain_frames(x3, s3, tabs)
+    wide = tcv.chain_frames_store(x3, s3, tabs, "wide")
+    fmajor = tcv.chain_frames_store(x3, s3, tabs, "fmajor")
+    assert fmajor[0].shape == (x3.shape[0], ops.n1, ops.n2 // 2)
+    fmajor = tuple(p.transpose(1, 2).reshape(x3.shape[0], -1) for p in fmajor)
+    for got in (wide, fmajor):
+        assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
 
 
 @pytest.mark.parametrize("g", [1, 3, 16])
@@ -733,6 +751,11 @@ def test_chain_variant_kernels_reject_what_they_do_not_take(cuda_device):
         tcv.chain_grouped_kernel(x3, s3, tabs, 64)
     with pytest.raises(ValueError, match="launches"):
         tcv.chain_store_kernel(x3, s3, tabs, "full")
+    lower = tabs._replace(HT=tabs.HT.T.contiguous())
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tcv.chain_grouped_kernel(x3, s3, lower, 2)
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tcv.chain_store_kernel(x3, s3, lower, "wide")
     with pytest.raises(ValueError, match="expected"):
         tchain.chain_full_kernel(x3, s3, tabs._replace(PhiT=tabs.PhiT[1:]))
 

@@ -219,6 +219,7 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.tools.probe_transpose\n"
             "import simpledsp_tpu_torch.tools.probe_relayout\n"
             "import simpledsp_tpu_torch.tools.probe_mosaic\n"
+            "import simpledsp_tpu_torch.tools.chain_forms\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
             "assert not bad, bad\n")
