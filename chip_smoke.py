@@ -12,8 +12,10 @@ Phases (any failure exits nonzero before the result line):
 1. Device: a CUDA device is required; prints the card's name and power limit.
 2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``chain_tc.cu``,
    ``pfb.cu``, ``ols.cu``, ``conv2d.cu``, ``fft.cu`` and ``probes.cu`` into
-   ``build/``, one nvcc for each, started together (``chain.cu`` and
-   ``fft.cu`` both include the FFT core ``fft_core.cuh``).
+   ``build/``, one nvcc for each, started together (``chain.cu``,
+   ``chain_tc.cu``, ``ols.cu`` and ``fft.cu`` include the FFT core
+   ``fft_core.cuh``; the two chain sources the kernel's template
+   ``chain_natural.cuh``); prints nvcc's seconds for each.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -63,7 +65,8 @@ Phases (any failure exits nonzero before the result line):
     float32 noise (seed 0) gives: >= 100 dB SNR against
     ``conv_ols_frames_reference`` in float64 on the same float32 frames, and
     no more than 6 dB below the float32 plain version's own SNR.  Kernel
-    and float32 plain ms (median of 5).
+    and float32 plain ms (median of 5), and the kernel's CUDA-graph
+    (device) ms.
 11. 1-D main path on the same 256 x 65536 float32 with 301 random taps:
     ``fftconvolve(x, h, "same")``, ``convolve(x, h, "full")``,
     ``correlate(x, h, "same")`` and ``oaconvolve(x, h)`` each launch the
@@ -132,8 +135,9 @@ Phases (any failure exits nonzero before the result line):
     16384 through its wrapper against ``chain_frames_reference``: >= 130 dB,
     finite; regw and fmajor (after its transpose) equal reg bit for bit.
     Kernel and float32 plain ms (median of 5 / 3), the group size g of the
-    grouped layouts, and the bound.  Every layout but regs runs
-    ``chain_natural_kernel``.
+    grouped layouts, and the bound.  Every layout runs
+    ``chain_natural_kernel``; regs with its IIR block on the tensor cores
+    (``chain_tc.cu``), against its own plain version in float32 too.
 18. Full-spectrum main path: ``fused_chain_frames(ops, x, s0)`` with its
     defaults (``FusedNorthStarOperators`` built with no device: CUDA) at
     N = 4096 on 64 x 2^20 float32 samples a call, 4 calls with the state
@@ -174,7 +178,7 @@ contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
-from phase 6.  The line before the last is a JSON object with the
+from phase 6, and the OLS record its CUDA-graph time from phase 10.  The line before the last is a JSON object with the
 kernels' records; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -714,9 +718,10 @@ def bank_phases(dev, kpfb, sdr, PFBChannelizer):
 
 def ols_kernel_phase(dev, kols):
     """Phase 10; returns {nfft: (max |err|, kernel ms, plain ms, bound,
-    library ms)}: the library call is ``F.conv1d`` of the signal, the same
-    full convolution."""
+    library ms, device ms)}: the library call is ``F.conv1d`` of the signal,
+    the same full convolution; device ms the kernel's CUDA-graph time."""
     from simpledsp_tpu_torch.kernels.fft import _best_split
+    from simpledsp_tpu_torch.tools._common import graph_ms
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (CB, CT), dtype=np.float32), device=dev)
     results = {}
@@ -740,13 +745,17 @@ def ols_kernel_phase(dev, kols):
         err = float((got.double() - ref).abs().max())
         check(bool(torch.isfinite(got).all()), f"ols nfft={nfft} not finite")
         del ref, own
-        ms = median_ms(lambda: kols.conv_ols_frames(frames, taps,
-                                                    overlap_rows=o1), per=STEADY)
+        def run():
+            return kols.conv_ols_frames(frames, taps, overlap_rows=o1)
+
+        ms = median_ms(run, per=STEADY)
+        dev_ms = graph_ms(run, per=STEADY)
         plain_ms = median_ms(lambda: kols.conv_ols_frames_reference(
             frames, t32, o1), reps=3, per=STEADY)
         print(f"ols kernel nfft={nfft} m={m} frames={CB * nf}: {snr:.2f} dB vs "
               f"float64 plain (float32 plain {plain_snr:.2f} dB), max |err| "
-              f"{err:.3e}; kernel {ms:.3f} ms, float32 plain {plain_ms:.3f} ms")
+              f"{err:.3e}; kernel {ms:.4f} ms, {dev_ms:.4f} ms device (CUDA "
+              f"graph), float32 plain {plain_ms:.3f} ms")
         check(snr >= MIN_CONV_DB and snr >= plain_snr - 6.0,
               f"ols kernel nfft={nfft}: {snr:.2f} dB (float32 plain "
               f"{plain_snr:.2f} dB)")
@@ -764,7 +773,7 @@ def ols_kernel_phase(dev, kols):
         print(f"ols kernel nfft={nfft}: bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}); F.conv1d of the same convolution "
               f"{lib_ms:.3f} ms")
-        results[nfft] = (err, ms, plain_ms, b, lib_ms)
+        results[nfft] = (err, ms, plain_ms, b, lib_ms, dev_ms)
         del got, frames
     return results
 
@@ -1710,7 +1719,7 @@ def main() -> int:
     probe_records = probe_phase(dev, kprobes)
     flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain, fr_bound, fr_dev = pfb[("frames", "chan")]
-    ols_err, ols_ms, ols_plain, ols_bound, ols_lib = ols[4096]
+    ols_err, ols_ms, ols_plain, ols_bound, ols_lib, ols_dev = ols[4096]
     k2_err, k2_ms, k2_plain, k2_bound, k2_lib = k2[(9, 9)]
     print(smi)
     print(json.dumps({"kernels": [chain_record, {
@@ -1732,7 +1741,8 @@ def main() -> int:
         "source": "simpledsp_tpu_torch/csrc/ols.cu",
         "replaces": "simpledsp_tpu/kernels/ols.py:83",
         "launches": ols_launches, "max_abs_err": ols_err,
-        "ms": ols_ms, "plain_ms": ols_plain, **ols_bound,
+        "ms": ols_ms, "device_ms": ols_dev, "plain_ms": ols_plain,
+        **ols_bound,
         "library_ms": ols_lib,
     }, {
         "name": "conv2d", "route": "cuda",

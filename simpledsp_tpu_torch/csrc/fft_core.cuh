@@ -259,6 +259,11 @@ __device__ __forceinline__ void dft<8>(float2 (&v)[8]) {
   dft_split<2, 4>(v);
 }
 
+template <>
+__device__ __forceinline__ void dft<16>(float2 (&v)[16]) {
+  dft_split<4, 4>(v);
+}
+
 // One power-of-two pass of radix R over the block's `total` values; each
 // thread holds kEPT / R butterflies.  Reads through `src`, writes through
 // `out`.  The caller synchronises before; the pass ends synchronised.
@@ -451,6 +456,69 @@ __device__ __forceinline__ void run_pass(const Buf& s, const Src& src,
     case 4: pass_pow2<4, kEPT>(src, out, ps, total); break;
     case 2: pass_pow2<2, kEPT>(src, out, ps, total); break;
     default: pass_odd<kEPT>(s, src, out, ps, total);
+  }
+}
+
+// The last pass of one transform and the first of the next, fused in
+// registers (a power-of-two radix R): the last pass's butterfly j (ns = q =
+// n / R, so k = j) leaves bins j + m ns of its frame, which are the inputs
+// t = m of the next transform's first butterfly j (ns = 1, the same q), so
+// the thread hands each bin p through mid(p, value) and runs the second
+// R-point DFT at once, writing its outputs to the next pass's places
+// f n + j R + m.  The next transform's plan must start with radix R (the
+// reverse of this one, say).  Saves one exchange through `s` and its two
+// barriers.  The caller synchronises before; the pass ends synchronised.
+template <int R, int kEPT, class Buf, class Mid>
+__device__ __noinline__ void pass_turn(Buf s, Mid mid, Pass ps, int total) {
+  constexpr int kB = kEPT / R;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int n = ps.n, q = ps.q;
+  const float2* __restrict__ tw = ps.tw;
+  const int nb = total / R;
+  float2 v[kB][R];
+  int dst[kB];
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    const int w = tid + b * nt;
+    if (w < nb) {
+      const int f = fdiv(w, ps.rq);
+      const int j = w - f * q;
+      const int s0 = f * n + j;
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        v[b][t] = s(s0 + t * q);
+        if (t > 0) v[b][t] = cmul(v[b][t], __ldg(tw + (t - 1) * q + j));
+      }
+      dft<R>(v[b]);
+#pragma unroll
+      for (int m = 0; m < R; ++m) v[b][m] = mid(s0 + m * q, v[b][m]);
+      dft<R>(v[b]);
+      dst[b] = f * n + j * R;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    if (tid + b * nt < nb) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) s.put(dst[b] + m, v[b][m]);
+    }
+  }
+  __syncthreads();
+}
+
+// pass_turn for pass p, the last, of a power-of-two plan.
+template <int kEPT, class Buf, class Mid>
+__device__ __forceinline__ void run_turn(const Buf& s, const Mid& mid,
+                                         const float2* __restrict__ tab,
+                                         const Plan& pl, int p, int total) {
+  const Pass ps{pl.radix[p], pl.n, pl.ns[p], pl.q[p], pl.rn, pl.rq[p],
+                pl.rns[p], tab + pl.tw[p], tab + pl.dft[p]};
+  switch (ps.r) {
+    case 16: pass_turn<16, kEPT>(s, mid, ps, total); break;
+    case 8: pass_turn<8, kEPT>(s, mid, ps, total); break;
+    case 4: pass_turn<4, kEPT>(s, mid, ps, total); break;
+    default: pass_turn<2, kEPT>(s, mid, ps, total);
   }
 }
 

@@ -16,12 +16,12 @@ Nyquist bin X[N/2].re in the imaginary plane's bin-0 slot; or, with the
 full-spectrum step 3 (Re X = tr W2c^T - ti W2s^T, Im X = ti W2c^T +
 tr W2s^T), the full complex spectrum, the JAX function's default.
 
-The kernels are ``csrc/chain.cu`` (:func:`chain_frames`,
-:func:`chain_frames_full`, and the layouts of ``kernels/chain_variants.py``)
-and ``csrc/chain_tc.cu`` ("regs").  The kernel of ``chain.cu`` computes the
-same spectra with a radix FFT in place of the DFT products: the N/2-point
-complex FFT of z[t] = y[2t] +
-i y[2t+1] on the FFT core (``csrc/fft_core.cuh``, plan and table from
+The kernel is ``chain_natural_kernel`` (``csrc/chain_natural.cuh``),
+built as ``csrc/chain.cu`` (:func:`chain_frames`, :func:`chain_frames_full`
+and the layouts of ``kernels/chain_variants.py``) and as ``csrc/chain_tc.cu``
+("regs", its IIR block as split-bf16 products on the tensor cores).  It
+computes the same spectra with a radix FFT in place of the DFT products:
+the N/2-point complex FFT of z[t] = y[2t] + i y[2t+1] on the FFT core (``csrc/fft_core.cuh``, plan and table from
 ``kernels/fft.py``), then the split into the one-sided spectrum
 (:func:`kernels.fft._split_table_f64`), which the full spectrum completes
 with X[N - k] = conj X[k]; an odd N (full spectrum only, up to 127 x 127)
@@ -74,29 +74,6 @@ def kernel_supports(n1: int, n2: int) -> bool:
     return 1 <= n1 <= 128 and 2 <= n2 <= 128 and n2 % 2 == 0
 
 
-def _padded_tables(tables: ChainTables, n1: int, n2: int) -> ChainTables:
-    """The tables in the "regs" kernel's padded shapes
-    (``csrc/chain_common.cuh``): rows 128 wide and n1 rounded up to n1p, a
-    multiple of 8, with zeros.  The tables of an n1 % 8 == 0, n2 == 128
-    frame are returned as they are."""
-    n1p = -(-n1 // 8) * 8
-    if n1p == n1 and n2 == 128:
-        return tables
-    pad = torch.nn.functional.pad
-
-    def cols(t):
-        return pad(t, (0, 128 - t.shape[1]))
-
-    def rows(t):
-        return pad(t, (0, 0, 0, n1p - t.shape[0]))
-
-    w1 = [pad(w, (0, n1p - n1, 0, n1p - n1))
-          for w in (tables.W1cs[:n1], tables.W1cs[n1:])]
-    return ChainTables(cols(tables.HT), cols(tables.PhiT),
-                       torch.cat(w1).contiguous(), rows(cols(tables.Tc)),
-                       rows(cols(tables.Ts)), cols(tables.PQT))
-
-
 class ChainTables(NamedTuple):
     """Constant tables of the per-frame chain, in the layouts the kernel
     reads (each product's right-hand operand row-major over n2 columns)."""
@@ -109,6 +86,9 @@ class ChainTables(NamedTuple):
     PQT: torch.Tensor    # (2 n2, n2)  [P^T; Q^T], packed step-3 DFT; for
     #                      the full spectrum (4 n2, n2), [W2c^T; -W2s^T;
     #                      W2s^T; W2c^T] (Re rows, then Im rows)
+    T3: torch.Tensor     # (3, n2 + D, n2) [H^T; Phi^T] as three bfloat16
+    #                      parts h, m, l split from its float64 values
+    #                      ("regs": the IIR block as split products)
 
 
 class FusedNorthStarOperators(nn.Module):
@@ -180,11 +160,14 @@ class FusedNorthStarOperators(nn.Module):
         p_tab = np.concatenate([w2c[:h], w2s[:h]], 0)     # (n2, n2)
         q_tab = np.concatenate([-w2s[:h], w2c[:h]], 0)
 
+        # chain_variants imports this module: its split comes in here.
+        from simpledsp_tpu_torch.kernels.chain_variants import iir_split3
         host = dict(
             H=H, Phi=Phi, K=K, Ff=pw[nb], TKt=TKt, KT=K.T, TO=TO, FpT=FpT,
             HT=H.T, PhiT=Phi.T, W1cs=np.concatenate([w1c, w1s], 0),
             Tc=tc.T, Ts=ts.T, PQT=np.concatenate([p_tab.T, q_tab.T], 0),
-            FT=np.concatenate([w2c.T, -w2s.T, w2s.T, w2c.T], 0))
+            FT=np.concatenate([w2c.T, -w2s.T, w2s.T, w2c.T], 0),
+            T3=iir_split3(H.T, Phi.T))
         npdt = torch.empty((), dtype=dtype).numpy().dtype
         for name, a in host.items():
             self.register_buffer(name, torch.as_tensor(
@@ -195,7 +178,7 @@ class FusedNorthStarOperators(nn.Module):
         """The kernel's tables: packed half-spectrum step 3, or with
         ``full`` the full-spectrum one."""
         return ChainTables(self.HT, self.PhiT, self.W1cs, self.Tc, self.Ts,
-                           self.FT if full else self.PQT)
+                           self.FT if full else self.PQT, self.T3)
 
     def frame_prefix_tables(self, F: int) -> dict:
         """Tables for the two-level frame-state prefix over F frames (see
@@ -356,11 +339,14 @@ def chain_frames_full_reference(x3: torch.Tensor, s3: torch.Tensor,
             yi.transpose(1, 2).reshape(nf, n1 * n2))
 
 
+# The headers ``csrc/chain.cu`` and ``csrc/chain_tc.cu`` include.
+_HEADERS = ("chain_common.cuh", "chain_natural.cuh", "fft_core.cuh")
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """``csrc/chain.cu`` built and loaded, its entry point typed."""
-    lib = _build.load_library("sdsp_chain", ("chain.cu",),
-                              ("chain_common.cuh", "fft_core.cuh"))
+    lib = _build.load_library("sdsp_chain", ("chain.cu",), _HEADERS)
     fn = lib.sdsp_chain_natural_f32
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
@@ -417,19 +403,17 @@ def _split_table(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _check_operands(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables,
-                    t3_rows: Optional[int], what: str) -> None:
+                    what: str, split: bool = False) -> None:
     """Raises ValueError unless every operand the kernel reads is contiguous
-    float32 on x3's device in the shape it reads: x3, s3, HT and PhiT, and
-    the four-step tables W1cs, Tc, Ts and PQT (t3_rows rows) unless t3_rows
-    is None (the natural-order kernel reads none of them)."""
+    float32 on x3's device in the shape it reads: x3, s3, and HT and PhiT,
+    or with ``split`` (the "regs" form) T3 in their place."""
     nf, n1, n2 = x3.shape
     d = s3.shape[1]
-    expect = {"x3": (x3, (nf, n1, n2)), "s3": (s3, (nf, d, n1)),
-              "HT": (tables.HT, (n2, n2)), "PhiT": (tables.PhiT, (d, n2))}
-    if t3_rows is not None:
-        expect.update(W1cs=(tables.W1cs, (2 * n1, n1)),
-                      Tc=(tables.Tc, (n1, n2)), Ts=(tables.Ts, (n1, n2)),
-                      PQT=(tables.PQT, (t3_rows, n2)))
+    expect = {"x3": (x3, (nf, n1, n2)), "s3": (s3, (nf, d, n1))}
+    if split:
+        expect.update(T3=(tables.T3, (3, n2 + d, n2)))
+    else:
+        expect.update(HT=(tables.HT, (n2, n2)), PhiT=(tables.PhiT, (d, n2)))
     for name, (t, shape) in expect.items():
         if t.device != x3.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: the CUDA {what} kernel takes float32 "
@@ -491,7 +475,7 @@ def _launch_natural(library, x3: torch.Tensor, s3: torch.Tensor,
     if not g and _natural_smem_bytes(n1, n2, d) > _MAX_SMEM:
         raise ValueError(f"frames of {n1} x {n2} samples with a state of "
                          f"{d} do not fit a block")
-    _check_operands(x3, s3, tables, None, "chain")
+    _check_operands(x3, s3, tables, "chain")
     _require_upper(tables.HT)
     shape = {"full": (nf, n1 * n2), "fmajor": (nf, n1, n2 // 2)}.get(
         mode, (nf, n1 * n2 // 2))
@@ -659,8 +643,8 @@ def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
     layout: the half-spectrum kernel variant, one of :data:`LAYOUTS`
       (default :func:`resolve_layout`).  Every layout computes the same
       function; they differ in how the kernel is scheduled:
-      "reg" / "k1" the chain kernel; "regs" step 1 as exact split-bf16
-      products on the tensor cores (float32 only); "reg2" / "reg4" /
+      "reg" / "k1" the chain kernel; "regs" the IIR block as exact
+      split-bf16 products on the tensor cores (float32 only); "reg2" / "reg4" /
       "regp" / "pair" the chain kernel with g frames a block
       (:func:`chain_variants.group_frames`); "regw" the chain kernel with
       16-byte stores; "fmajor" with k1-major rows, reordered here by a

@@ -6,11 +6,15 @@ with a Hopper counterpart here so that the card can measure them against
 the chain kernel.  Every layout computes the function of
 :func:`simpledsp_tpu_torch.kernels.chain.chain_frames_reference`; they differ
 in scheduling only, so that is their plain version, with one exception:
-"regs", whose step 1 is the exact split-bf16 product
+"regs", whose IIR block is the exact split-bf16 product
 (:func:`chain_frames_regs_reference`).
 
-- "regs": step 1 as bf16 x bf16 -> fp32 tensor-core products of three-way
-  split factors (``csrc/chain_tc.cu``), float32 only.
+- "regs": the chain kernel (``chain_natural_kernel``, built as
+  ``csrc/chain_tc.cu``) with its IIR block y = [x | starts^T] [H^T; Phi^T]
+  as bf16 x bf16 -> fp32 tensor-core products of three-way split factors,
+  float32 only.  The JAX variant split step 1 of its four-step FFT, its
+  matrix unit's product; on the FFT core the IIR block is the one product
+  left, so that is what is split here.
 - "reg2" / "reg4" / "regp" / "pair": the chain kernel
   (``chain.cu`` ``chain_natural_kernel``) with the layout's g frames a CUDA
   block, their rows stacked.  The TPU variants fed a block-diagonal step-1
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -40,7 +45,7 @@ import torch
 from simpledsp_tpu_torch.kernels import _build
 from simpledsp_tpu_torch.kernels import chain as _chain
 from simpledsp_tpu_torch.kernels.chain import ChainTables
-from simpledsp_tpu_torch.ops.fft import _dft_mats_f64
+from simpledsp_tpu_torch.kernels.fft import _kernel_tables
 from simpledsp_tpu_torch.precision import ieee_fp32
 
 __all__ = ["chain_frames_grouped", "chain_frames_regs",
@@ -103,98 +108,171 @@ def group_frames(layout: str, n1: int, n2: int, r: int, d: int) -> int:
     return g
 
 
-@functools.lru_cache(maxsize=None)
-def _w1_split3(n1: int) -> np.ndarray:
-    """The step-1 table [W1c; W1s] split from its float64 values: (3, 2 n1,
-    n1), the h, m and l parts, as float64."""
-    w1c, w1s = _dft_mats_f64(n1)
-    parts = _bf16_split3(np.concatenate([w1c, w1s], axis=0))
-    return parts.reshape(3, 2 * n1, 3 * n1)[:, :, :n1].copy()
+def iir_split3(ht: np.ndarray, phit: np.ndarray) -> np.ndarray:
+    """The "regs" IIR block's table T = [H^T; Phi^T] ((n2 + D, n2), float64)
+    as its three bfloat16 parts split from the float64 values
+    (:func:`_bf16_split3`): (3, n2 + D, n2) float64 holding bfloat16
+    values, h + m + l = T within 2^-24 |T| entry by entry."""
+    t = np.concatenate([ht, phit], axis=0)
+    k, n2 = t.shape
+    return _bf16_split3(t).reshape(3, k, 3 * n2)[:, :, :n2].copy()
 
 
 def _split3(v: torch.Tensor):
-    """Three-way bf16 split of float32 v, as the TPU kernel splits y."""
+    """Three-way bf16 split of float32 v, as the kernel splits its operand:
+    v_h, v_m, v_l, each the bfloat16 rounding (nearest, ties to even) of
+    what the parts before it leave, held as float32."""
     vh = v.to(torch.bfloat16).to(v.dtype)
     r1 = v - vh
     vm = r1.to(torch.bfloat16).to(v.dtype)
     return vh, vm, (r1 - vm).to(torch.bfloat16).to(v.dtype)
 
 
+def _split_operands(x3: torch.Tensor, s3: torch.Tensor):
+    """A = [x | starts^T] (F, n1, n2 + D), the IIR block's left operand, as
+    its three bfloat16 parts (:func:`_split3`)."""
+    return _split3(torch.cat([x3, s3.transpose(1, 2)], dim=2))
+
+
+def _split_iir_block(x3: torch.Tensor, s3: torch.Tensor,
+                     t3: torch.Tensor) -> torch.Tensor:
+    """The "regs" IIR block y = A T as exact split products: A's three
+    bfloat16 parts against the table's (t3), the nine products exact in
+    float32 and summed in float32, as the JAX kernel sums its split step 1:
+    one K-stacked product per table part, the three added (h + m) + l."""
+    a3 = torch.cat(_split_operands(x3, s3), dim=2)           # (F, n1, 3 K)
+    with ieee_fp32():
+        parts = [a3 @ t.repeat(3, 1) for t in t3]
+    return (parts[0] + parts[1]) + parts[2]
+
+
 def chain_frames_regs_reference(x3: torch.Tensor, s3: torch.Tensor,
                                 tables: ChainTables
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the "regs" kernel: the chain with step 1 as the
-    exact split product.  y and the table are split into three bfloat16
-    parts each; the nine products, exact in float32, are summed in float32
-    as the JAX kernel sums them (one K-stacked product per table part, the
-    three added).  Everything else as :func:`chain_frames_reference`."""
-    n1 = x3.shape[1]
-    y = _chain._iir_block(x3, s3, tables)
-    y3 = torch.cat(_split3(y), dim=1)                       # (F, 3 n1, n2)
-    w3 = torch.as_tensor(_w1_split3(n1), dtype=y.dtype, device=y.device)
-    with ieee_fp32():
-        cs3 = [torch.einsum("kp,fpt->fkt", w.repeat(1, 3), y3) for w in w3]
-    cs = cs3[0] + cs3[1] + cs3[2]
-    return _chain._packed_spectrum(*_chain._twiddled(cs, tables), tables)
+    """Plain version of the "regs" kernel: the chain with its IIR block as
+    the exact split product (:func:`_split_iir_block` of ``tables.T3``),
+    everything after it as :func:`chain_frames_reference`."""
+    y = _split_iir_block(x3, s3, tables.T3)
+    return _chain._packed_spectrum(
+        *_chain._twiddled(_chain._step1(y, tables), tables), tables)
+
+
+def _regs_fragments(t3: np.ndarray) -> np.ndarray:
+    """The "regs" kernel's table: T's three bfloat16 parts (t3, (3, K0, n2),
+    K0 = n2 + D) in ``mma.sync.m16n8k16`` B-fragment order.  T is padded
+    with zeros to K = K0 rounded up to 16 rows and 8 ceil(n2 / 8) columns;
+    for each N tile nt (columns 8 nt ..) and K step ks (rows 16 ks ..), 192
+    words: lane l = 4 gid + tig's (h.b0, h.b1, m.b0, m.b1) at 4 l, then its
+    (l.b0, l.b1) at 128 + 2 l, where part p's b0 packs rows 16 ks + 2 tig
+    (low half) and + 1 of column 8 nt + gid, and b1 the same 8 rows on.
+    Flat uint32, (nt, ks) blocks in order."""
+    _, k0, n2 = t3.shape
+    kp = -(-k0 // 16) * 16
+    ntiles, ksteps = -(-n2 // 8), kp // 16
+    b = np.zeros((3, kp, 8 * ntiles), np.float32)
+    b[:, :k0, :n2] = t3
+    u = b.view(np.uint32)
+    if (u & np.uint32(0xFFFF)).any():
+        raise ValueError("T3 holds values that are not bfloat16")
+    bits = u >> np.uint32(16)
+    lane = np.arange(32)
+    n = 8 * np.arange(ntiles)[:, None, None] + (lane >> 2)      # (NT, 1, 32)
+    k = 16 * np.arange(ksteps)[None, :, None] + 2 * (lane & 3)  # (1, KS, 32)
+
+    def reg(p, kk):
+        return bits[p, kk, n] | (bits[p, kk + 1, n] << np.uint32(16))
+
+    hm = np.stack([reg(0, k), reg(0, k + 8), reg(1, k), reg(1, k + 8)], -1)
+    lo = np.stack([reg(2, k), reg(2, k + 8)], -1)
+    words = np.concatenate([hm.reshape(ntiles, ksteps, 128),
+                            lo.reshape(ntiles, ksteps, 64)], -1)
+    return np.ascontiguousarray(words, dtype=np.uint32).reshape(-1)
+
+
+def _regs_smem_bytes(n1: int, n2: int, d: int) -> int:
+    """Shared memory of a block of the "regs" kernel (``split_smem_bytes``
+    in ``csrc/chain_natural.cuh``): the kernel's own g frames, their rows
+    rounded up to 16; A's three bfloat16 planes at a row stride of
+    (n2 + d rounded up to 16) + 8, and y at 132 floats a row."""
+    rows = -(-_chain._natural_frames(n1, n2) * n1 // 16) * 16
+    lda = -(-(n2 + d) // 16) * 16 + 8
+    return 6 * rows * lda + 4 * rows * 132
+
+
+# id -> (weak reference, version, device table) of each T3 the kernel took:
+# the table is built, and H^T's triangle checked, once a tensor and version.
+_FRAGMENTS = {}
+
+
+def _fragments_on(t3: torch.Tensor) -> torch.Tensor:
+    """:func:`_regs_fragments` of ``t3`` on its device (int32 words).
+    Raises ValueError unless t3's H^T rows are upper-triangular (H
+    lower-triangular): the kernel skips, for each N tile, the K steps of H^T
+    after the tile's last column."""
+    key = id(t3)
+    seen = _FRAGMENTS.get(key)
+    if seen is not None and seen[0]() is t3 and seen[1] == t3._version:
+        return seen[2]
+    h = t3[:, :t3.shape[2]]
+    if not torch.equal(h, torch.triu(h)):
+        raise ValueError("T3: the CUDA regs kernel needs H^T upper-triangular "
+                         "(H lower-triangular)")
+    words = _regs_fragments(t3.detach().cpu().numpy())
+    table = torch.as_tensor(words.view(np.int32), device=t3.device)
+    _FRAGMENTS[key] = (weakref.ref(t3, lambda _, key=key: _FRAGMENTS.pop(
+        key, None)), t3._version, table)
+    return table
 
 
 @functools.lru_cache(maxsize=None)
 def _tc_library() -> ctypes.CDLL:
     """``csrc/chain_tc.cu`` built and loaded, its entry point typed."""
     lib = _build.load_library("sdsp_chain_tc", ("chain_tc.cu",),
-                              ("chain_common.cuh",))
+                              _chain._HEADERS)
     fn = lib.sdsp_chain_regs_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
 class _RegsKernel:
-    """The tensor-core chain kernel (``csrc/chain_tc.cu``); ``launches``
-    counts its launches."""
+    """The "regs" form of the chain kernel (``csrc/chain_tc.cu``: the IIR
+    block as split-bf16 products on the tensor cores); ``launches`` counts
+    its launches."""
 
     def __init__(self):
         self.launches = 0
-        self._w3 = {}
 
     def library(self) -> ctypes.CDLL:
         return _tc_library()
 
-    def split_table(self, n1: int, device: torch.device) -> torch.Tensor:
-        """The kernel's (3, 2 n1p, K16) bfloat16 step-1 table: the parts of
-        :func:`_w1_split3`, cos rows at 0, sin rows at n1p, zero-padded."""
-        key = (n1, device)
-        if key not in self._w3:
-            n1p = -(-n1 // 8) * 8
-            k16 = -(-n1p // 16) * 16
-            w = np.zeros((3, 2 * n1p, k16))
-            parts = _w1_split3(n1)
-            w[:, :n1, :n1] = parts[:, :n1]
-            w[:, n1p:n1p + n1, :n1] = parts[:, n1:]
-            self._w3[key] = torch.as_tensor(w, dtype=torch.float32).to(
-                device=device, dtype=torch.bfloat16)
-        return self._w3[key]
-
     def __call__(self, x3: torch.Tensor, s3: torch.Tensor,
                  tables: ChainTables) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(F, N/2) natural-order planes.  Checks every operand, and that a
+        block fits, before ``library()`` builds or loads the kernel."""
         nf, n1, n2 = x3.shape
         if not _chain.kernel_supports(n1, n2):
             raise ValueError(f"the CUDA regs kernel needs frames of n1 x n2 "
                              f"samples, n1 <= 128 and n2 <= 128 even; got "
                              f"{tuple(x3.shape)}")
-        _chain._check_operands(x3, s3, tables, 2 * n2, "regs")
-        w3 = self.split_table(n1, x3.device)
-        tables = _chain._padded_tables(tables, n1, n2)
-        spec_re = torch.empty((nf, n1 * n2 // 2), dtype=x3.dtype,
-                              device=x3.device)
+        _chain._check_operands(x3, s3, tables, "regs", split=True)
+        d = s3.shape[1]
+        if _regs_smem_bytes(n1, n2, d) > _chain._MAX_SMEM:
+            raise ValueError(f"frames of {n1} x {n2} samples with a state of "
+                             f"{d} do not fit a block")
+        tc = _fragments_on(tables.T3)
+        n = n1 * n2
+        tab, plan, npass = _kernel_tables(n // 2, x3.device)
+        split = _chain._split_table(n, x3.device)
+        spec_re = torch.empty((nf, n // 2), dtype=x3.dtype, device=x3.device)
         spec_im = torch.empty_like(spec_re)
         rc = self.library().sdsp_chain_regs_f32(
-            x3.data_ptr(), s3.data_ptr(), tables.HT.data_ptr(),
-            tables.PhiT.data_ptr(), w3.data_ptr(), tables.Tc.data_ptr(),
-            tables.Ts.data_ptr(), tables.PQT.data_ptr(), spec_re.data_ptr(),
-            spec_im.data_ptr(), nf, n1, n2, s3.shape[1], x3.device.index,
-            _chain._stream(x3))
+            x3.data_ptr(), s3.data_ptr(), tc.data_ptr(),
+            ctypes.cast(plan, ctypes.c_void_p), npass, tab.data_ptr(),
+            split.data_ptr(), spec_re.data_ptr(), spec_im.data_ptr(), nf, n1,
+            n2, d, x3.device.index, _chain._stream(x3))
         if rc != 0:
             raise RuntimeError(f"regs kernel launch failed: CUDA error {rc}")
         self.launches += 1

@@ -151,15 +151,16 @@ def _plan(n: int) -> List[int]:
     return radices
 
 
-def _kernel_table_f64(n: int) -> np.ndarray:
+def _kernel_table_f64(n: int, radices=None) -> np.ndarray:
     """The twiddles and small-DFT tables of ``csrc/fft_core.cuh`` in the
-    order it reads them, (count, 2) float64 (re, im): for each pass of radix
-    r and stride ns, the (r - 1) ns twiddles exp(-2 pi i t k / (r ns)) laid
-    out [t - 1][k]; then, for an odd r, exp(-2 pi i t / r), t < r.  Phases
-    are exact integers mod n before the one trig evaluation."""
+    order it reads them, (count, 2) float64 (re, im), for the plan
+    ``radices`` (default :func:`_plan`): for each pass of radix r and stride
+    ns, the (r - 1) ns twiddles exp(-2 pi i t k / (r ns)) laid out
+    [t - 1][k]; then, for an odd r, exp(-2 pi i t / r), t < r.  Phases are
+    exact integers mod n before the one trig evaluation."""
     parts = []
     ns = 1
-    for r in _plan(n):
+    for r in (_plan(n) if radices is None else radices):
         t = np.arange(1, r, dtype=np.int64)[:, None]
         k = np.arange(ns, dtype=np.int64)[None, :]
         ph = (t * k * (n // (r * ns))) % n

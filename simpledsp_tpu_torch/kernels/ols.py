@@ -8,8 +8,12 @@ rounds the aliased overlap up to whole n2-sample rows of the four-step
 split nfft = n1 n2 (``kernels/fft._best_split``).
 
 :func:`conv_ols_frames` and :func:`convolve_ols_fused` launch the CUDA
-kernel (``csrc/ols.cu``, a radix-4 Stockham FFT in shared memory, two real
-frames per complex transform) on CUDA tensors and run
+kernel (``csrc/ols.cu``: two real frames per complex transform on the FFT
+core ``csrc/fft_core.cuh``, with the frames FFT kernel's plan and table
+from ``kernels/fft.py`` and the plan reversed for the inverse; the forward
+transform's last pass turns into the inverse's first through conj(Z H) in
+registers, the inverse's last pass stores the samples) on CUDA tensors and
+run
 :func:`conv_ols_frames_reference` on CPU tensors.  The reference is the JAX
 kernel's own math: the forward four-step as matmuls against the float64-built
 tables of :func:`_ols_consts`, the product with the 1/N-scaled spectrum,
@@ -33,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from simpledsp_tpu_torch.kernels import _build
-from simpledsp_tpu_torch.kernels.fft import _best_split
+from simpledsp_tpu_torch.kernels.fft import (_best_split, _kernel_table_f64,
+                                             _kernel_tables as _fft_tables,
+                                             _plan)
 from simpledsp_tpu_torch.ops.fft import _dft_mats_f64, _twiddle_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
 
@@ -125,44 +131,35 @@ def conv_ols_frames_reference(frames: torch.Tensor, tables: OLSTables,
     return y[..., o1:, :].reshape(lead + ((n1 - o1) * n2,))
 
 
-def _stockham_twiddles(n: int) -> np.ndarray:
-    """The twiddles of ``csrc/ols.cu``'s radix-4 Stockham passes, in the
-    order it reads them: for each pass of stride ns = 1, 4, 16, ... the
-    planes exp(-2 pi i r k / (4 ns)), r = 1, 2, 3, k < ns; then, for an odd
-    log2 n, the radix-2 pass's exp(-2 pi i j / n), j < n / 2.  Built in
-    float64 with exact integer phase indices; (count, 2) (re, im)."""
-    idx = []
-    ns = 1
-    while 4 * ns <= n:
-        k = np.arange(ns, dtype=np.int64)
-        idx += [r * k * (n // (4 * ns)) for r in (1, 2, 3)]
-        ns *= 4
-    if ns < n:
-        idx.append(np.arange(n // 2, dtype=np.int64))
-    ang = (-2.0 * np.pi / n) * np.concatenate(idx)
-    return np.stack([np.cos(ang), np.sin(ang)], -1)
+@functools.lru_cache(maxsize=64)
+def _inverse_table(nfft: int, device: torch.device) -> torch.Tensor:
+    """The FFT core's table for the plan of ``kernels/fft.py`` reversed,
+    float32 on ``device``: the kernel's inverse transform starts with the
+    radix its forward transform ends with."""
+    tab = _kernel_table_f64(nfft, _plan(nfft)[::-1])
+    return torch.as_tensor(tab.astype(np.float32), device=device)
 
 
 @functools.lru_cache(maxsize=64)
-def _kernel_tables(nfft: int, taps_bytes: bytes, m: int, device: torch.device):
-    """The kernel's float32 tables on ``device``, built in float64: the
-    passes' twiddles (:func:`_stockham_twiddles`) and the taps' spectrum
-    divided by nfft in natural order, (nfft, 2)."""
-    tw = _stockham_twiddles(nfft)
+def _tap_spectrum(nfft: int, taps_bytes: bytes, m: int,
+                  device: torch.device) -> torch.Tensor:
+    """The kernel's tap spectrum on ``device``: the nfft-point spectrum of
+    the taps divided by nfft, built in float64, (nfft, 2) float32 (re, im)
+    in natural order."""
     H = np.fft.fft(np.frombuffer(taps_bytes, np.float64, count=m), nfft) / nfft
-    hs = np.stack([H.real, H.imag], -1)
-    return tuple(torch.as_tensor(a.astype(np.float32), device=device)
-                 for a in (tw, hs))
+    return torch.as_tensor(np.stack([H.real, H.imag], -1).astype(np.float32),
+                           device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """``csrc/ols.cu`` built and loaded, its entry point typed."""
-    lib = _build.load_library("sdsp_ols", ("ols.cu",))
+    lib = _build.load_library("sdsp_ols", ("ols.cu",), ("fft_core.cuh",))
     fn = lib.sdsp_ols_frames_f32
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -199,13 +196,16 @@ class _OLSKernel:
             raise ValueError(f"expected rows (R, W) with unit sample stride, "
                              f"got shape {tuple(x.shape)} strides {x.stride()}")
         rows, row_stride = x.shape[0], x.stride(0)
-        tw, hs = _kernel_tables(nfft, taps64.tobytes(), taps64.size, x.device)
+        tab, plan, npass = _fft_tables(nfft, x.device)
+        itab = _inverse_table(nfft, x.device)
+        hs = _tap_spectrum(nfft, taps64.tobytes(), taps64.size, x.device)
         out = torch.empty((rows * nf, nfft - skip), dtype=x.dtype,
                           device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = self.library().sdsp_ols_frames_f32(
             x.data_ptr(), row_stride, frame_stride, offset, valid, rows, nf,
-            tw.data_ptr(), hs.data_ptr(), out.data_ptr(), nfft, skip,
+            ctypes.cast(plan, ctypes.c_void_p), npass, tab.data_ptr(),
+            itab.data_ptr(), hs.data_ptr(), out.data_ptr(), nfft, skip,
             x.device.index, stream)
         if rc != 0:
             raise RuntimeError(f"overlap-save kernel launch failed: CUDA error "

@@ -7,10 +7,13 @@ float32 noise (seed 17, phase 17 of ``chip_smoke.py``) at N = 200, 1024,
 launches timed by CUDA events, so the card's queue stays full and the
 number is the kernel's device time, not the wrapper's host work.  The
 grouped layouts take g as the checkout's ``group_frames`` resolves it from
-the JAX tile.  Beside them, "NorthStarChain@4096": the chain's main path,
-``NorthStarChain(fft_size=4096)`` on 64 x 2^20 float32 a call (phase 5 of
-``chip_smoke.py``), in ms a call over 7 windows of 10 calls: host-bound,
-so host time and device time both.
+the JAX tile.  Beside them, "ols@nfft": the overlap-save kernel through
+``conv_ols_frames`` on the frames of 256 x 65536 float32 noise (seed 0)
+with 301 / 1000 / 2000 taps at nfft 4096 / 8192 / 16384 (phase 10 of
+``chip_smoke.py``), timed the same way; and "NorthStarChain@4096": the
+chain's main path, ``NorthStarChain(fft_size=4096)`` on 64 x 2^20
+float32 a call (phase 5 of ``chip_smoke.py``), in ms a call over 7
+windows of 10 calls: host-bound, so host time and device time both.
 
     python3 simpledsp_tpu_torch/tools/chain_forms.py [--root DIR] [--sizes 4096 ...]
 
@@ -29,6 +32,7 @@ import sys
 from pathlib import Path
 
 SIZES = (200, 1024, 4096, 16384)
+OLS_CASES = ((4096, 301), (8192, 1000), (16384, 2000))   # (nfft, taps)
 LAYOUTS = ("reg", "k1", "regs", "regw", "fmajor", "reg2", "reg4", "regp",
            "pair")
 
@@ -79,6 +83,22 @@ def run(root=None, sizes=SIZES, per: int = 20, reps: int = 7) -> dict:
         for name, fn in forms.items():
             out[f"{name}@{n}"] = common.median_ms(fn, reps=reps, per=per)
         del x3, s3
+    kols = importlib.import_module("simpledsp_tpu_torch.kernels.ols")
+    kfft = importlib.import_module("simpledsp_tpu_torch.kernels.fft")
+    xo = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (256, 1 << 16), dtype=np.float32), device=dev)
+    for nfft, m in OLS_CASES:
+        taps = np.random.default_rng(m).standard_normal(m)
+        n2 = kfft._best_split(nfft)[1]
+        o1 = -(-(m - 1) // n2)
+        hop = nfft - o1 * n2
+        nf = -(-(xo.shape[1] + m - 1) // hop)
+        frames = torch.nn.functional.pad(
+            xo, (o1 * n2, nf * hop - xo.shape[1])).unfold(-1, nfft, hop)
+        out[f"ols@{nfft}"] = common.median_ms(
+            lambda: kols.conv_ols_frames(frames, taps, overlap_rows=o1),
+            reps=reps, per=per)
+        del frames
     chain = ns.NorthStarChain(fft_size=4096, device=dev)
     xc = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (64, 1 << 20), dtype=np.float32), device=dev)

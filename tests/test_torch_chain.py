@@ -215,44 +215,6 @@ def test_northstar_cuda_size_check_matches_jax():
                                   half_spectrum=True, interpret=True)
 
 
-@pytest.mark.parametrize("n", [200, 256, 768, 1152, 1024])
-def test_padded_tables_reproduce_the_spectra(n, rng):
-    """The kernel's padded arithmetic, emulated in float64: frames and
-    tables zero-padded to (n1p, 128) as ``csrc/chain.cu`` holds them give
-    the plain version's spectra in every stored bin (1e-12)."""
-    _, tops = _ops(n, torch.float64)
-    n1, n2, d = tops.n1, tops.n2, tops.state_dim
-    n1p = -(-n1 // 8) * 8
-    x = torch.as_tensor(rng.standard_normal((2, 3 * n)))
-    x3, s3, _ = tchain.chain_prepass(tops, x, torch.as_tensor(
-        _warm_state(rng, 2)))
-    ref_re, ref_im = tchain.chain_frames_reference(x3, s3, tops.tables())
-    tp = tchain._padded_tables(tops.tables(), n1, n2)
-    assert tp.HT.shape == (n2, 128) and tp.W1cs.shape == (2 * n1p, n1p)
-    assert tp.Tc.shape == (n1p, 128) and tp.PQT.shape == (2 * n2, 128)
-    nf = x3.shape[0]
-    xp = torch.zeros(nf, n1p, 128, dtype=x3.dtype)
-    xp[:, :n1, :n2] = x3
-    sp = torch.zeros(nf, d, n1p, dtype=x3.dtype)
-    sp[:, :, :n1] = s3
-    y = xp[:, :, :n2] @ tp.HT + sp.transpose(1, 2) @ tp.PhiT
-    cs = tp.W1cs @ y
-    c, s_ = cs[:, :n1p], cs[:, n1p:]
-    tr = c * tp.Tc - s_ * tp.Ts
-    ti = s_ * tp.Tc + c * tp.Ts
-    out = tr[..., :n2] @ tp.PQT[:n2] + ti[..., :n2] @ tp.PQT[n2:]
-    alt = torch.tensor([(-1.0) ** t for t in range(128)], dtype=x3.dtype)
-    k = torch.arange(n1 * n2 // 2)
-    k1, k2 = k % n1, k // n1
-    re = out[:, k1, k2]
-    im = out[:, k1, n2 // 2 + k2]
-    im[:, 0] = (tr[:, 0] * alt).sum(-1)
-    np.testing.assert_allclose(re.numpy(), ref_re.numpy(), rtol=0,
-                               atol=1e-12)
-    np.testing.assert_allclose(im.numpy(), ref_im.numpy(), rtol=0,
-                               atol=1e-12)
-
-
 def test_ieee_fp32_pins_and_restores_both_tf32_flags():
     """Matmuls and cuDNN convolutions are both pinned to IEEE float32 and
     both caller settings come back, also after an exception."""

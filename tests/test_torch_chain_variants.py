@@ -6,7 +6,8 @@ in Pallas interpret mode, and against the scipy + numpy oracle, on the CPU.
 On the CPU each layout runs its kernel's plain version; the kernels
 themselves are checked against it in ``test_torch_cuda.py``.  The index
 arithmetic of the chain kernel at a layout's g, of its store forms'
-staging, and of the "regs" kernel's table is emulated here on the CPU.
+staging, and of the "regs" kernel's split IIR block (its planes, table,
+fragments and K steps) is emulated here on the CPU.
 
 Tolerances: float64 layouts agree with JAX and the packed oracle to 1e-11
 of the largest bin (sums in different orders); "regs" is a float32 scheme:
@@ -302,26 +303,181 @@ def test_store_staging_maps(n, rng):
                     assert len(set(banks.tolist())) == len(banks), (n, w0)
 
 
+def _ldmatrix_x4(plane, lda, row0, col0):
+    """``ldmatrix.x4`` as the kernel runs it: lane l gives the address of
+    row row0 + l % 16, column col0 + 8 (l / 16) of a row-major bf16 plane
+    (row stride lda); matrix i is the 8 rows lanes 8 i .. 8 i + 7 address,
+    and lane T receives row T / 4, columns 2 (T % 4) and + 1 of each.
+    Returns (32, 4, 2): lane, register, half."""
+    lane = np.arange(32)
+    addr = (row0 + (lane & 15)) * lda + col0 + ((lane >> 4) << 3)
+    regs = np.empty((32, 4, 2))
+    for i in range(4):
+        rows = addr[8 * i: 8 * i + 8]               # the matrix's 8 rows
+        at = rows[lane >> 2] + 2 * (lane & 3)
+        regs[:, i, 0], regs[:, i, 1] = plane[at], plane[at + 1]
+    return regs
+
+
+def _mma(a, b):
+    """``mma.sync.m16n8k16.row.col``: (32, 4, 2) A registers and (32, 2, 2)
+    B registers (lane = 4 gid + tig) as the PTX fragment layout places them
+    (a0: row gid, columns 2 tig + {0, 1}; a1: row gid + 8; a2, a3: columns
+    + 8; b0: rows 2 tig + {0, 1} of column gid, b1: rows + 8), multiplied in
+    float64; returns the (32, 4) C registers (c0, c1: row gid, columns
+    2 tig + {0, 1}; c2, c3: row gid + 8)."""
+    lane = np.arange(32)
+    gid, tig = lane >> 2, lane & 3
+    am = np.zeros((16, 16))
+    bm = np.zeros((16, 8))
+    for e in range(2):
+        am[gid, 2 * tig + e] = a[:, 0, e]
+        am[gid + 8, 2 * tig + e] = a[:, 1, e]
+        am[gid, 2 * tig + 8 + e] = a[:, 2, e]
+        am[gid + 8, 2 * tig + 8 + e] = a[:, 3, e]
+        bm[2 * tig + e, gid] = b[:, 0, e]
+        bm[2 * tig + 8 + e, gid] = b[:, 1, e]
+    d = am @ bm
+    return np.stack([d[gid, 2 * tig], d[gid, 2 * tig + 1],
+                     d[gid + 8, 2 * tig], d[gid + 8, 2 * tig + 1]], -1)
+
+
+def _bf16_pair(words):
+    """uint32 words -> (low, high) bfloat16 halves as float64."""
+    w = np.asarray(words, np.uint32)
+    lo = (w << np.uint32(16)).view(np.float32).astype(np.float64)
+    hi = (w & np.uint32(0xFFFF0000)).view(np.float32).astype(np.float64)
+    return np.stack([lo, hi], -1)
+
+
+def _regs_walk(x3, s3, t3, g):
+    """The "regs" form's IIR block (``split_load`` and ``iir_mma_stage`` in
+    ``csrc/chain_natural.cuh``) walked in float64 with the kernel's index
+    arithmetic, g frames a block: A's three bf16 planes written as
+    split_load writes them (everything else NaN, so that a read of an
+    unwritten place shows), each warp's N tiles, M-tile groups and K steps
+    (the triangular skip), its B fragments read from the host table
+    (``_regs_fragments``) at the kernel's offsets, its A fragments by
+    ldmatrix, nine products a step, and the C registers stored to y.
+    Returns y (F, n1, n2) and the K steps read, against the dense count."""
+    frames, n1, n2 = x3.shape
+    d = s3.shape[1]
+    kp = -(-(n2 + d) // 16) * 16
+    lda = kp + 8
+    rows = -(-g * n1 // 16) * 16
+    ntiles, ksteps, mtiles = -(-n2 // 8), kp // 16, rows // 16
+    hlast, phi0 = (n2 - 1) >> 4, n2 >> 4
+    words = tcv._regs_fragments(t3)
+    ax, as_ = (np.stack([p.numpy().astype(np.float64) for p in tcv._split3(v)])
+               for v in (x3, s3))
+    ax, as_ = ax.reshape(3, -1), as_.reshape(3, -1)
+    y_all = np.full((frames, n1, n2), np.nan)
+    steps = dense = 0
+    for f0 in range(0, frames, g):
+        nf = min(g, frames - f0)
+        vr = nf * n1
+        plane = rows * lda
+        a3 = np.full(3 * plane, np.nan)
+        pl = np.arange(3)[:, None] * plane
+        i = np.arange(vr * n2)
+        p = i // n2
+        a3[pl + p * lda + i - p * n2] = ax[:, f0 * n1 * n2 + i]
+        i = np.arange(nf * d * n1)
+        q, r = i // (d * n1), i % (d * n1)
+        a3[pl + (q * n1 + r % n1) * lda + n2 + r // n1] = \
+            as_[:, f0 * d * n1 + i]
+        pc = kp - n2 - d
+        i = np.arange(vr * pc)
+        p = i // pc
+        a3[pl + p * lda + n2 + d + i - p * pc] = 0.0
+        z = (rows - vr) * lda // 8
+        for a in range(3):
+            a3[a * plane + vr * lda: a * plane + vr * lda + 8 * z] = 0.0
+        y = np.full((rows, 132), np.nan)
+        nw = 8
+        for warp in range(nw):
+            j = 0
+            while j * nw < ntiles:
+                nt = (j + 1) * nw - 1 - warp if j & 1 else j * nw + warp
+                j += 1
+                if nt >= ntiles:
+                    continue
+                hend = min((8 * nt + 7) >> 4, hlast)
+                ks_list = (list(range(hend + 1))
+                           + list(range(max(hend + 1, phi0), ksteps)))
+                for m0 in range(0, mtiles, 8):
+                    acc = np.zeros((8, 32, 4))
+                    for ks in ks_list:
+                        base = (nt * ksteps + ks) * 192
+                        lane = np.arange(32)
+                        hm = words[base + 4 * lane[:, None] + np.arange(4)]
+                        lo = words[base + 128 + 2 * lane[:, None]
+                                   + np.arange(2)]
+                        b = [_bf16_pair(hm[:, :2]), _bf16_pair(hm[:, 2:]),
+                             _bf16_pair(lo)]
+                        for i4 in range(8):
+                            if m0 + i4 >= mtiles:
+                                continue
+                            steps += 1
+                            a = [_ldmatrix_x4(a3[k * plane:(k + 1) * plane],
+                                              lda, 16 * (m0 + i4), 16 * ks)
+                                 for k in range(3)]
+                            part = sum(_mma(a[ka], b[kb])
+                                       for ka, kb in ((2, 2), (2, 1), (1, 2),
+                                                      (1, 1), (2, 0), (0, 2),
+                                                      (1, 0), (0, 1), (0, 0)))
+                            acc[i4] += part
+                    for i4 in range(8):
+                        if m0 + i4 >= mtiles:
+                            continue
+                        dense += ksteps
+                        gid, tig = np.arange(32) >> 2, np.arange(32) & 3
+                        row = 16 * (m0 + i4) + gid
+                        col = 8 * nt + 2 * tig
+                        y[row, col] = acc[i4][:, 0]
+                        y[row, col + 1] = acc[i4][:, 1]
+                        y[row + 8, col] = acc[i4][:, 2]
+                        y[row + 8, col + 1] = acc[i4][:, 3]
+        y_all[f0:f0 + nf] = y[:vr, :n2].reshape(nf, n1, n2)
+    return y_all, steps, dense
+
+
+@pytest.mark.parametrize("n2", [100, 128])
 @pytest.mark.parametrize("n1", [2, 6, 8, 32, 128])
-def test_regs_split_table_layout(n1):
-    """The tensor-core kernel's table: the three bfloat16 parts of
-    [W1c; W1s], cos rows at 0 and sin rows at n1p, zero-padded to
-    (2 n1p, K16); the parts sum to the float64 table within 2^-24."""
-    n1p = -(-n1 // 8) * 8
-    k16 = -(-n1p // 16) * 16
-    w3 = tcv.chain_regs_kernel.split_table(n1, torch.device("cpu"))
-    assert w3.dtype == torch.bfloat16 and w3.shape == (3, 2 * n1p, k16)
-    parts = w3.double().numpy()
-    np.testing.assert_array_equal(parts[:, :n1, :n1], tcv._w1_split3(n1)[:, :n1])
-    np.testing.assert_array_equal(parts[:, n1p:n1p + n1, :n1],
-                                  tcv._w1_split3(n1)[:, n1:])
-    full = parts.sum(0)
-    w1c, w1s = j_dft_mats(n1)
-    assert np.abs(full[:n1, :n1] - w1c).max() <= 2.0 ** -24
-    assert np.abs(full[n1p:n1p + n1, :n1] - w1s).max() <= 2.0 ** -24
-    mask = np.ones_like(full, dtype=bool)
-    mask[:n1, :n1] = mask[n1p:n1p + n1, :n1] = False
-    assert not full[mask].any()
+def test_regs_walk_gives_the_split_iir_block(n1, n2, rng):
+    """The "regs" kernel's IIR block walked on the CPU (:func:`_regs_walk`)
+    at its own g over 2 g + 1 frames (the last block partial) gives the
+    split product the plain version sums, ``_split_iir_block``: within 1e-12
+    of the same parts' nine products summed in float64, and within float32
+    rounding (2e-6 of the largest |y|) of the plain version's float32 sums;
+    it reads no unwritten place (NaN), and skips H^T's zero K steps.  The
+    split table's parts sum to the float64 table [H^T; Phi^T] within 2^-24
+    of each entry."""
+    from simpledsp_tpu_torch.models.northstar import default_design
+    from simpledsp_tpu_torch.ops.iir import block_operators_f64
+
+    H, Phi, *_ = block_operators_f64(default_design(), n2)
+    d = Phi.shape[1]
+    t3 = tcv.iir_split3(H.T, Phi.T)
+    table = np.concatenate([H.T, Phi.T])
+    assert np.all(np.abs(t3.sum(0) - table) <= 2.0 ** -24 * np.abs(table))
+    g = tchain._natural_frames(n1, n2)
+    frames = 2 * g + 1
+    x3 = torch.as_tensor(rng.standard_normal((frames, n1, n2)),
+                         dtype=torch.float32)
+    s3 = torch.as_tensor(1e-5 * rng.standard_normal((frames, d, n1)),
+                         dtype=torch.float32)
+    y, steps, dense = _regs_walk(x3, s3, t3, g)
+    assert not np.isnan(y).any()
+    assert steps < 0.75 * dense
+    parts = [p.double() for p in tcv._split_operands(x3, s3)]
+    exact = sum(parts[a] @ torch.as_tensor(t3[b]) for a in range(3)
+                for b in range(3)).numpy()
+    scale = float(np.abs(exact).max())
+    np.testing.assert_allclose(y, exact, rtol=0, atol=1e-12 * scale)
+    plain = tcv._split_iir_block(x3, s3, torch.as_tensor(t3, dtype=torch.float32))
+    np.testing.assert_allclose(y, plain.double().numpy(), rtol=0,
+                               atol=2e-6 * scale)
 
 
 def test_variant_wrappers_refuse_before_any_build():
@@ -350,6 +506,13 @@ def test_variant_wrappers_refuse_before_any_build():
         tcv.chain_grouped_kernel(x32, s32, lower, 2)
     with pytest.raises(ValueError, match="upper-triangular"):
         tcv.chain_store_kernel(x32, s32, lower, "fmajor")
+    # The regs form reads T's split parts, skipping H^T's zero K steps.
+    t3 = tabs32.T3.clone()
+    t3[0, 5, 0] = 1.0
+    with pytest.raises(ValueError, match="upper-triangular"):
+        tcv.chain_regs_kernel(x32, s32, tabs32._replace(T3=t3))
+    with pytest.raises(ValueError, match="expected"):
+        tcv.chain_regs_kernel(x32, s32, tabs32._replace(T3=t3[:, 1:]))
     with pytest.raises(ValueError, match="float32"):
         tcv.chain_store_kernel(x3, s3, tabs, "wide")
     with pytest.raises(ValueError, match="launches"):
@@ -381,3 +544,19 @@ def test_chain_forms_tool_needs_a_card():
     assert set(chain_forms.LAYOUTS) == set(tchain.LAYOUTS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         chain_forms.run(sizes=(200,))
+
+
+def test_chain_stages_tool_has_its_hook_and_needs_a_card():
+    """``tools/chain_stages.py`` cuts the chain kernel through the
+    ``SDSP_CHAIN_CUT_AT`` hook of ``csrc/chain_natural.cuh`` (after the
+    loads, 1, and after the IIR block, 2, in both IIR forms) and raises
+    without a card."""
+    from simpledsp_tpu_torch.kernels import _build
+    from simpledsp_tpu_torch.tools import chain_stages
+
+    text = (_build.CSRC_DIR / "chain_natural.cuh").read_text()
+    assert "defined(SDSP_CHAIN_CUT_AT)" in text
+    assert text.count("SDSP_CHAIN_SINK(1, smem);") == 2
+    assert text.count("SDSP_CHAIN_SINK(2, ys);") == 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain_stages.run(sizes=(200,))

@@ -23,10 +23,12 @@ on the engine >= 100 dB against numpy / scipy in float64 (the JAX package's
 on-chip bar for the fused transforms).  The full-spectrum chain kernel and
 the layout kernels (regs, grouped, store): >= 130 dB against the float64
 plain version, as the chain kernel; the store forms give the chain
-kernel's bits.  The probes' kernels: the copy and the
-transpose equal their plain versions bit for bit; the product and the row
-sum >= 120 dB against the float64 plain version and no more than 6 dB below
-the float32 plain version (the frames FFT kernel's bar).  The FFT engine
+kernel's bits; regs >= 120 dB against its own float32 plain version
+(the same split products summed in another order).  The probes' kernels:
+the copy and the transpose equal their plain versions bit for bit; the
+product and the row sum >= 120 dB against the float64 plain version and no
+more than 6 dB below the float32 plain version (the frames FFT kernel's
+bar).  The FFT engine
 gives a row the same bits in any batch, as on the CPU.
 """
 
@@ -334,6 +336,56 @@ def test_ols_kernel_matches_plain_version(nfft, m, rows, t, cuda_device):
     assert snr >= 100.0 and snr >= _ols_snr(ref32, ref64) - 6.0
     full = np.stack([np.convolve(r, h) for r in x.cpu().double().numpy()])
     assert _ols_snr(y.cpu(), torch.as_tensor(full)) >= 100.0
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nfft", [64, 128, 256, 512, 1024, 2048, 4096, 8192,
+                                  16384])
+def test_ols_kernel_at_every_size(nfft, aligned, cuda_device):
+    """The kernel on the signal path's source at every frame size it takes,
+    an odd frame count (the last pair without frame b) and rows of 16-byte
+    copies (aligned) or 4-byte ones (the signal one sample into its
+    storage, a row stride of t + 3): >= 100 dB against numpy's full
+    convolution in float64 and, where the four-step split leaves output
+    (nfft >= 256), against the plain version in float64 on the padded
+    frames, no more than 6 dB below the float32 plain version."""
+    rng = np.random.default_rng(nfft)
+    rows, m = 3, 33
+    n1, n2 = _best_split(nfft)
+    o1 = -(-(m - 1) // n2)
+    skip = o1 * n2 if o1 < n1 else 32
+    hop = nfft - skip
+    t = 5 * hop - m
+    nf = -(-(t + m - 1) // hop)
+    assert (rows * nf) % 2 == 1
+    h = rng.standard_normal(m)
+    host = rng.standard_normal((rows, t))
+    if aligned:
+        x = torch.as_tensor(host, dtype=torch.float32, device=cuda_device)
+    else:
+        store = torch.zeros(rows, t + 3, device=cuda_device)
+        x = store[:, 1:t + 1]
+        x.copy_(torch.as_tensor(host, dtype=torch.float32))
+    launches = tols.ols_kernel.launches
+    y = tols.ols_kernel(x, nf=nf, frame_stride=hop, offset=skip, valid=t,
+                        nfft=nfft, skip=skip, taps64=h)
+    torch.cuda.synchronize()
+    assert tols.ols_kernel.launches == launches + 1
+    got = y.reshape(rows, -1)[:, : t + m - 1].cpu()
+    xs = x.cpu().double().numpy()
+    full = np.stack([np.convolve(r, h) for r in xs])
+    assert bool(torch.isfinite(y).all())
+    assert _ols_snr(got, torch.as_tensor(full)) >= 100.0
+    if o1 < n1:
+        frames = torch.nn.functional.pad(x, (skip, nf * hop - t)).unfold(
+            -1, nfft, hop)
+        ref64 = tols.conv_ols_frames_reference(
+            frames.double(), tols.ols_tables(nfft, h, torch.float64,
+                                             cuda_device), o1)
+        ref32 = tols.conv_ols_frames_reference(
+            frames, tols.ols_tables(nfft, h, torch.float32, cuda_device), o1)
+        snr = _ols_snr(y, ref64.reshape(rows * nf, hop))
+        assert snr >= 100.0 and snr >= _ols_snr(ref32, ref64) - 6.0
 
 
 def test_ols_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -677,6 +729,29 @@ def test_layout_kernels_match_plain_version(layout, n, cuda_device):
     assert _snr_db(ref, got) >= 130.0
 
 
+@pytest.mark.parametrize("n,frames", [(200, 65), (768, 13), (16384, 3)])
+def test_regs_kernel_partial_last_block(n, frames, cuda_device):
+    """The regs form at frame counts that leave its last block short of the
+    kernel's own g (32 at N = 200, 8 at 768, 1 at 16384): >= 130 dB against
+    the float64 plain version, and within float32 rounding of its own plain
+    version (the split product summed in float32)."""
+    ops = tchain.FusedNorthStarOperators(default_design(), n, device=cuda_device)
+    x = torch.as_tensor(np.random.default_rng(frames).standard_normal(
+        (1, frames * n)), dtype=torch.float32, device=cuda_device)
+    x3, s3, _ = tchain.chain_prepass(ops, x, torch.zeros(1, ops.state_dim,
+                                                         device=cuda_device))
+    tabs = ops.tables()
+    launches = tcv.chain_regs_kernel.launches
+    got = tcv.chain_frames_regs(x3, s3, tabs)
+    torch.cuda.synchronize()
+    assert tcv.chain_regs_kernel.launches == launches + 1
+    ref = tchain.chain_frames_reference(x3.double(), s3.double(),
+                                        _tables64(tabs))
+    assert _snr_db(ref, got) >= 130.0
+    own = tcv.chain_frames_regs_reference(x3, s3, tabs)
+    assert _snr_db(tuple(o.double() for o in own), got) >= 120.0
+
+
 @pytest.mark.parametrize("n", [200, 1024, 4096, 16384])
 def test_store_forms_give_the_bits_of_reg(n, cuda_device):
     """regw and fmajor change only the chain kernel's store: their planes,
@@ -747,6 +822,11 @@ def test_chain_variant_kernels_reject_what_they_do_not_take(cuda_device):
     tabs = ops.tables()
     with pytest.raises(ValueError, match="float32"):
         tcv.chain_regs_kernel(x3.double(), s3, tabs)
+    with pytest.raises(ValueError, match="fit a block"):
+        tcv.chain_regs_kernel(x3, torch.zeros(x3.shape[0], 400, x3.shape[1],
+                                              device=cuda_device),
+                              tabs._replace(T3=torch.zeros(
+                                  3, 528, 128, device=cuda_device)))
     with pytest.raises(ValueError, match="fit a block"):
         tcv.chain_grouped_kernel(x3, s3, tabs, 64)
     with pytest.raises(ValueError, match="launches"):

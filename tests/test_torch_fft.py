@@ -227,19 +227,21 @@ def _reg_dft(v, r):
     return out
 
 
-def _core_walk(x, n):
+def _core_walk(x, n, radices=None):
     """x (..., n) complex through ``csrc/fft_core.cuh``'s passes, walked in
     float64 in the kernel's order: each pass reads its butterflies from the
     swizzled buffer, twiddles them from the host table, runs the r-point
-    DFT and writes the Stockham places back through the swizzle."""
-    tab = tkfft._kernel_table_f64(n)
+    DFT and writes the Stockham places back through the swizzle.  The plan
+    is ``radices`` (default ``kernels/fft._plan``), the table built for it."""
+    radices = tkfft._plan(n) if radices is None else radices
+    tab = tkfft._kernel_table_f64(n, radices)
     tab = tab[:, 0] + 1j * tab[:, 1]
     mask = 31 if n & (n - 1) == 0 else 0      # swz_mask
     buf = np.zeros(x.shape[:-1] + (-(-n // 32) * 32,), dtype=complex)
     buf[..., _swz(np.arange(n), mask)] = x
     ns, off = 1, 0
-    assert int(np.prod(tkfft._plan(n))) == n
-    for r in tkfft._plan(n):
+    assert int(np.prod(radices)) == n
+    for r in radices:
         tw = tab[off: off + (r - 1) * ns]
         off += (r - 1) * ns
         q = n // r

@@ -5,7 +5,10 @@ on the CPU.
 The JAX kernel runs in Pallas interpret mode, as its own tests run it.
 Tolerance: 1e-12 relative to the largest output magnitude (float64 rounding
 of four-step sums in a different order); the tables are equal bit for bit
-(the same float64 host code); streaming is exact (equal bits).
+(the same float64 host code); streaming is exact (equal bits).  The CUDA
+kernel's index arithmetic (its loads, the FFT core's passes, the tap
+product between the transforms and the store) is walked here in float64
+on the CPU.
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from simpledsp_tpu.kernels import ols as jols
 from simpledsp_tpu.ops import fir as jfir
 from simpledsp_tpu_torch import convert
 from simpledsp_tpu_torch.kernels import ols as tols
+from simpledsp_tpu_torch.kernels.fft import _best_split
 from simpledsp_tpu_torch.ops import fir as tfir
 
 TOL = 1e-12
@@ -184,3 +188,164 @@ def test_state_carried_from_jax_continues_the_jax_stream(rng):
     back = convert.fir_state_to_numpy(st2)
     assert isinstance(back, np.ndarray)
     np.testing.assert_array_equal(back, np.asarray(jst2.hist))
+
+
+def _ols_walk(x, nf, frame_stride, offset, valid, nfft, skip, taps):
+    """``csrc/ols.cu``'s kernel walked in float64 with its own index
+    arithmetic: blocks of ppb = max(1, 4096 / N) frame pairs, each frame's
+    row offset and start, the load (16-byte chunks zero-filled past
+    ``valid`` where the strides allow, else single samples; planes re = frame
+    a, im = frame b), the forward transform on the FFT core
+    (``_core_walk``), TapTurn between its last pass and the inverse's first
+    (bin p times H[p mod N], conjugated), the inverse transform on the
+    reversed plan and its last pass's SkipSplitStore (sample p of pair
+    p / N: Re to frame a, -Im to frame b, samples below skip dropped, no
+    frame b past the last).  x: (rows, W) float64.  Returns (rows nf,
+    N - skip), NaN where nothing was stored."""
+    from test_torch_fft import _core_walk
+
+    from simpledsp_tpu_torch.kernels import fft as tkfft
+
+    rows, n = x.shape[0], nfft
+    total = rows * nf
+    lg, mask, hop = n.bit_length() - 1, n - 1, n - skip
+    ppb = 1 if n >= 4096 else 4096 // n
+    wide = x.shape[1] % 4 == 0 and frame_stride % 4 == 0 and offset % 4 == 0
+    flat = x.reshape(-1)
+    h = np.fft.fft(taps, n) / n
+    out = np.full((total, hop), np.nan)
+    pairs = (total + 1) // 2
+    for blk in range(-(-pairs // ppb)):
+        pair0 = blk * ppb
+        g0 = 2 * pair0
+        np_ = min(ppb, pairs - pair0)
+        frames = min(2 * np_, total - g0)
+        row_at, start = [], []
+        for i in range(2 * np_):
+            g = g0 + i
+            if i < frames:
+                row = g // nf
+                row_at.append(row * x.shape[1])
+                start.append((g - row * nf) * frame_stride - offset)
+            else:
+                row_at.append(0)
+                start.append(valid)
+        tot = np_ * n
+        planes = np.full((2, tot), np.nan)
+        for e0 in range(0, tot, 4 if wide else 1):
+            q, t = e0 >> lg, e0 & mask
+            for half in range(2):
+                pos = start[2 * q + half] + t
+                if wide:
+                    left = valid - pos
+                    count = 0 if pos < 0 else min(4, max(0, left))
+                    chunk = np.zeros(4)
+                    at = row_at[2 * q + half] + pos
+                    chunk[:count] = flat[at: at + count]
+                    planes[half, e0: e0 + 4] = chunk
+                else:
+                    ok = 0 <= pos < valid
+                    planes[half, e0] = flat[row_at[2 * q + half] + pos] if ok \
+                        else 0.0
+        z = _core_walk((planes[0] + 1j * planes[1]).reshape(np_, n), n)
+        p = np.arange(tot)
+        yv = z.reshape(-1) * h[p & mask]
+        w = _core_walk(np.conj(yv).reshape(np_, n), n,
+                       tkfft._plan(n)[::-1]).reshape(-1)
+        keep = (p & mask) >= skip
+        fa = g0 + 2 * (p >> lg)
+        out[fa[keep], (p & mask)[keep] - skip] = w.real[keep]
+        hasb = keep & (fa + 1 < g0 + frames)
+        out[fa[hasb] + 1, (p & mask)[hasb] - skip] = -w.imag[hasb]
+    return out
+
+
+@pytest.mark.parametrize("nfft,m,rows,t", [(64, 9, 3, 301), (256, 40, 1, 1000),
+                                           (1024, 65, 3, 4094),
+                                           (4096, 301, 3, 16000),
+                                           (16384, 2000, 1, 40000)])
+def test_ols_kernel_walk_gives_the_plain_version(nfft, m, rows, t, rng):
+    """The kernel walked on the CPU (:func:`_ols_walk`), on the signal path's
+    source (frame stride hop, offset the zero history, valid the signal's
+    length), gives ``conv_ols_frames_reference`` in float64 on the padded
+    frames and numpy's full convolution (1e-12 of the largest output) at
+    every frame, an odd frame count included (the last pair's frame b
+    absent); rows of a length that is not a multiple of 4 take the
+    single-sample loads.  nfft 64 splits as 1 x 64, where the plain version
+    leaves no output past one overlap row: the kernel takes any skip, here
+    16 samples, held to numpy."""
+    x = rng.standard_normal((rows, t))
+    h = rng.standard_normal(m)
+    n1, n2 = _best_split(nfft)
+    o1 = -(-(m - 1) // n2)
+    skip = o1 * n2 if o1 < n1 else 16
+    hop = nfft - skip
+    nf = -(-(t + m - 1) // hop)
+    assert (rows * nf) % 2 == 1
+    got = _ols_walk(x, nf, hop, skip, t, nfft, skip, h)
+    full = np.stack([np.convolve(r, h) for r in x])
+    _close(got.reshape(rows, -1)[:, : t + m - 1], full)
+    if o1 < n1:
+        frames = torch.nn.functional.pad(
+            torch.as_tensor(x), (skip, nf * hop - t)).unfold(-1, nfft, hop)
+        want = tols.conv_ols_frames_reference(
+            frames, tols.ols_tables(nfft, h, torch.float64), o1)
+        _close(got, want.reshape(rows * nf, hop).numpy())
+
+
+@pytest.mark.parametrize("nfft", [64, 128, 256, 512, 1024, 2048, 4096, 8192,
+                                  16384])
+def test_ols_kernel_exchanges_have_no_bank_conflict(nfft):
+    """Every access of the kernel's interleaved buffer (value p at float2
+    index p ^ ((p >> 4) & 15), 8 bytes: a phase of 16 lanes) falls in 16
+    distinct bank pairs: the forward passes' reads after the first (which
+    reads the copies' planes) and their writes, the turn's writes (f n +
+    j R + m), and the inverse passes on the reversed plan, whose last pass
+    writes device memory."""
+    from simpledsp_tpu_torch.kernels import fft as tkfft
+
+    ppb = 1 if nfft >= 4096 else 4096 // nfft
+    nt = ppb * nfft // 16
+    tid = np.arange(nt)
+    fwd = tkfft._plan(nfft)
+    accesses = []
+    for plan, inverse in ((fwd, False), (fwd[::-1], True)):
+        ns = 1
+        for p, r in enumerate(plan):
+            q = nfft // r
+            last = p == len(plan) - 1
+            for b in range(16 // r):
+                w = tid + b * nt
+                f, j = w // q, w % q
+                k = j % ns
+                live = w < ppb * nfft // r
+                if p > 0 or inverse:
+                    accesses += [np.where(live, f * nfft + j + t * q, -1)
+                                 for t in range(r)]
+                if last and not inverse:       # the turn's writes
+                    accesses += [np.where(live, f * nfft + j * r + m, -1)
+                                 for m in range(r)]
+                elif not last:
+                    accesses += [np.where(live, f * nfft + (j - k) * r + k
+                                          + m * ns, -1) for m in range(r)]
+            ns *= r
+    for idx in accesses:
+        for w0 in range(0, nt, 16):
+            p = idx[w0: w0 + 16]
+            p = p[p >= 0]
+            slots = (p ^ ((p >> 4) & 15)) % 16
+            assert len(set(slots.tolist())) == len(p), (nfft, p)
+
+
+def test_ols_variants_tool_edits_apply_and_need_a_card():
+    """``tools/ols_variants.py`` builds each variant by one edit of
+    ``csrc/ols.cu``: every edit's text is in the source once, and the tool
+    times the card and raises without one."""
+    from simpledsp_tpu_torch.kernels import _build
+    from simpledsp_tpu_torch.tools import ols_variants
+
+    text = (_build.CSRC_DIR / "ols.cu").read_text()
+    for name, edit in ols_variants.VARIANTS.items():
+        assert edit is None or text.count(edit[0]) == 1, name
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ols_variants.run(variants=("all",))
