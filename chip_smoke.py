@@ -84,14 +84,17 @@ Phases (any failure exits nonzero before the result line):
 12. conv2d kernel against its plain version at 32 x 512 x 512 float32 with
     3x3, 9x9 and 13x13 random taps, and on that image padded so the output
     is whole 32 x 128 tiles (512 x 512) and padded by k - 1 on every side as
-    the 'same' path pads it: equal bit for bit.  Kernel and plain ms.
+    the 'same' path pads it: equal bit for bit.  Kernel and plain ms, and
+    the kernel's CUDA-graph (device) ms.
 13. 2-D main path on the same image: ``convolve2d(x, k9, "same")`` with each
     boundary and ``correlate2d(x, k9, "same")`` launch the conv2d kernel once
     each; ``convolve2d(x, k64, "same", method="fft")`` launches none.  The
     direct calls' 32 images equal, bit for bit, the same call with a tensor
     kernel (the plain direct route).  Image 0 holds against scipy in
     float64: <= 1e-5 relative max error on the direct route, >= 100 dB on
-    the FFT route.  ms/call.
+    the FFT route.  ms/call; for the direct calls also their CUDA-graph
+    (device) ms and, beside it, the kernel's alone on the image the call
+    pads (the rest is the boundary pad and the crop).
     Phases 10-13 time windows of 10 back-to-back calls, as phases 6 and 9 do.
 14. Frames FFT kernel against its plain version at N = 100, 256, 384, 1152,
     2048, 4096, 8192 and 16384, 1024 x 4096 samples' worth of frames at each
@@ -178,7 +181,8 @@ contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
-from phase 6, and the OLS record its CUDA-graph time from phase 10.  The line before the last is a JSON object with the
+from phase 6, the OLS record its CUDA-graph time from phase 10 and the
+conv2d record its CUDA-graph time at 9x9 from phase 12.  The line before the last is a JSON object with the
 kernels' records; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -889,7 +893,9 @@ def conv1d_path(dev, kols, conv, OverlapSaveFIR):
 
 def conv2d_kernel_phase(dev, k2d):
     """Phase 12; returns {(kh, kw): (max |err|, kernel ms, plain ms, bound,
-    library ms)}: the library call is ``F.conv2d``, VALID."""
+    library ms, device ms)}: the library call is ``F.conv2d``, VALID;
+    device ms the kernel's CUDA-graph time."""
+    from simpledsp_tpu_torch.tools._common import graph_ms
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(
         (IB, IH, IH), dtype=np.float32), device=dev)
     results = {}
@@ -911,12 +917,14 @@ def conv2d_kernel_phase(dev, k2d):
         got = k2d.conv2d_valid_fused(x, k)
         err = float((got - k2d.conv2d_valid_reference(x, k32)).abs().max())
         ms = median_ms(lambda: k2d.conv2d_valid_fused(x, k), per=STEADY)
+        dev_ms = graph_ms(lambda: k2d.conv2d_valid_fused(x, k), per=STEADY)
         plain_ms = median_ms(lambda: k2d.conv2d_valid_reference(x, k32),
                              reps=3, per=STEADY)
         print(f"conv2d kernel {ks[0]}x{ks[1]} on {IB} x {IH} x {IH}, "
               f"{IH + ks[0] - 1} and {IH + 2 * (ks[0] - 1)} square: bit for "
-              f"bit its float32 plain version; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms on {IH} x {IH}")
+              f"bit its float32 plain version; kernel {ms:.4f} ms, "
+              f"{dev_ms:.4f} ms device (CUDA graph), plain {plain_ms:.3f} ms "
+              f"on {IH} x {IH}")
         b = bound(nbytes(x, k32, got), 2 * ks[0] * ks[1] * got.numel())
         kflip = k32.flip(0, 1).reshape(1, 1, *ks).contiguous()
         lib_ms = median_ms(lambda: torch.nn.functional.conv2d(x[:, None],
@@ -924,13 +932,15 @@ def conv2d_kernel_phase(dev, k2d):
                            per=STEADY)
         print(f"conv2d kernel {ks[0]}x{ks[1]}: bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}); F.conv2d (TF32 off) {lib_ms:.3f} ms")
-        results[ks] = (err, ms, plain_ms, b, lib_ms)
+        results[ks] = (err, ms, plain_ms, b, lib_ms, dev_ms)
     return results
 
 
 def conv2d_path(dev, k2d, conv2d):
     """Phase 13; returns the conv2d kernel's launches on the path."""
     import scipy.signal as ss
+
+    from simpledsp_tpu_torch.tools._common import graph_ms
     x_host = np.random.default_rng(8).standard_normal((IB, IH, IH),
                                                       dtype=np.float32)
     x = torch.as_tensor(x_host, device=dev)
@@ -980,9 +990,22 @@ def conv2d_path(dev, k2d, conv2d):
             quality = f"image 0 {snr:.2f} dB vs scipy float64"
             check(snr >= MIN_CONV_DB, f"{name}: {snr:.2f} dB")
         ms = median_ms(run, per=STEADY)
+        split = ""
+        if want:
+            # The call's device time, and its kernel's alone on the image
+            # the call pads: the rest is the pad and the crop.
+            b = name.split()[-1] if name.startswith("convolve2d") else "fill"
+            xp = conv2d._pad_boundary(x, 9, 9, b, 0.0)
+            k_run = k9 if name.startswith("correlate2d") else k9[::-1, ::-1]
+            call_dev = graph_ms(run, per=STEADY)
+            kern_dev = graph_ms(lambda: k2d.conv2d_valid_fused(xp, k_run),
+                                per=STEADY)
+            split = (f"; device {call_dev:.4f} ms/call (CUDA graph), the "
+                     f"kernel {kern_dev:.4f} of it, pad and crop "
+                     f"{call_dev - kern_dev:.4f}")
         print(f"2-D path {name}: {IB} x {IH} x {IH} float32, {want} kernel "
               f"launch(es); {quality}; {ms:.3f} ms/call "
-              f"({IB * IH * IH / ms / 1e3:.1f} Msamples/s)")
+              f"({IB * IH * IH / ms / 1e3:.1f} Msamples/s){split}")
     return launches
 
 
@@ -1720,7 +1743,7 @@ def main() -> int:
     flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain, fr_bound, fr_dev = pfb[("frames", "chan")]
     ols_err, ols_ms, ols_plain, ols_bound, ols_lib, ols_dev = ols[4096]
-    k2_err, k2_ms, k2_plain, k2_bound, k2_lib = k2[(9, 9)]
+    k2_err, k2_ms, k2_plain, k2_bound, k2_lib, k2_dev = k2[(9, 9)]
     print(smi)
     print(json.dumps({"kernels": [chain_record, {
         "name": "pfb_flat", "route": "cuda",
@@ -1749,7 +1772,8 @@ def main() -> int:
         "source": "simpledsp_tpu_torch/csrc/conv2d.cu",
         "replaces": "simpledsp_tpu/kernels/conv2d.py:52",
         "launches": conv2d_launches, "max_abs_err": k2_err,
-        "ms": k2_ms, "plain_ms": k2_plain, **k2_bound, "library_ms": k2_lib,
+        "ms": k2_ms, "device_ms": k2_dev, "plain_ms": k2_plain, **k2_bound,
+        "library_ms": k2_lib,
     }, {
         "name": "fft_frames", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/fft.cu",

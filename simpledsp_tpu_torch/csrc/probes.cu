@@ -14,8 +14,8 @@
 //                 output planes.  Replaces probe_store.py:68 (body_regmix),
 //                 probe_relayout.py:33, probe_transpose.py:82 and
 //                 probe_mosaic.py:129 (k4).
-//   contract      C = A B for small strided float32 operands on the CUDA
-//                 cores, IEEE FMAs only (no TF32, no tensor cores), with an
+//   contract      C = A B for strided float32 operands on the CUDA cores,
+//                 IEEE FMAs only (no TF32, no tensor cores), with an
 //                 optional shift-in epilogue: out row j of each group of J
 //                 rows takes product row j - 1, and row 0 takes sf.
 //                 Replaces probe_mosaic.py:36 (k1) and :62 (k2).
@@ -28,24 +28,66 @@
 // consecutive addresses (the transpose through the shared tile, whose odd
 // pitch keeps both its row and its column accesses free of bank conflicts);
 // the copy runs 8 blocks an SM, each thread with four vector loads in
-// flight before its stores, to keep enough bytes in the air.  The
-// contraction at the probe's sizes (64 x 320 x 320) is a few microseconds
-// of work for a handful of blocks: launch latency bounds it.  It stages
-// 32 x 32 tiles of A and B in shared memory and sums each 32-deep step as a
-// fresh partial that is then added to the total, which keeps float32
-// rounding close to a pairwise sum's.  The row sum reads (rows, 320) once.
+// flight before its stores, to keep enough bytes in the air.  The row sum
+// reads (rows, 320) once.
+//
+// The contraction keeps one rule in both its forms: each 32-deep K step's
+// products sum into a fresh partial (IEEE FMAs, k in order) that is then
+// added to a total, which keeps float32 rounding close to a pairwise sum's.
+// The order in which the partials are added is fixed by the form alone (so
+// by N alone): in K order in the tiled form, in four interleaved groups in
+// the skinny form.  So a row's bits depend neither on block timing, nor on
+// the row count M, nor on the card: contract(a[:r]) is contract(a)[:r]
+// bit for bit.  What bounds it depends on the shape, and the form follows
+// the shape:
+//
+// - tiled (N > 16): FMAs, 67 TFLOP/s, at the chain's (16384, 320) x (320, 320);
+//   launch latency at the probe's (64, 320) x (320, 320), a few microseconds of
+//   work.  A thread owns 8 rows x 4 columns of C, so a 16-byte shared-memory
+//   load feeds 8 or 16 FMAs; a block owns 128 x 64 of C (256 threads, two
+//   blocks an SM) where those tiles still give every SM two blocks, else 64 x
+//   64 (128 threads, three).  A and B are staged by cp.async in a ring of three
+//   K steps; where both operands' rows are contiguous and aligned, an instance
+//   of 16-byte copies whose addresses are set up once a block (each step then
+//   adds its offset: the K loop is 83 % FMAs), else 4-byte copies of any
+//   strides.  A warp's A reads are two rows on different bank groups (pitch
+//   36), its B reads consecutive 16-byte slots.  Where the tiles cannot fill
+//   the card (the probe: 5 tiles for 132 SMs) each K step of a tile goes to
+//   a block of its own (10 a tile at the probe, at most 16), and a tile's
+//   blocks form a thread-block cluster: each leaves its partial in its own
+//   shared memory, and after the cluster's barrier block r adds rows r,
+//   r + S, ... of the S partials, read from its peers' shared memory, in K
+//   order from +0, which gives the bits of the unsplit sum.  One launch, no
+//   workspace and no state beyond it: calls on any streams share nothing.
+// - skinny (N <= 16; the probe's and the prepass's x KT, N = 10): device
+//   memory, A read once (289 MB at the chain's (524288, 128) x (128, 10), 0.086
+//   ms at 3.35 TB/s).  A block owns 32 rows of C, one a lane, and its KG warps
+//   split the K steps (warp g takes g, g + KG, ...), each streaming A's 32 rows
+//   of a step in 16-byte copies (whole 128-byte rows) through a ring of two,
+//   with B's 32 x N slice of the step read as a broadcast; the instance is
+//   templated on N, so a lane's N partials sit in registers.  Step s adds to
+//   group s % 4 (a warp keeps 4 / KG groups' totals); the four groups' totals
+//   meet in shared memory, are added in group order and go out as
+//   consecutive floats, whatever KG.  KG = 4 where the blocks are few (the
+//   probe's 64: a step a warp, latency), 2 where they are many (the chain's
+//   16384: two steps of each warp in flight).  A row's 16-byte reads (pitch
+//   36) put a quarter-warp's 8 rows on 8 bank groups.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 when the
 // launch was accepted); shapes and strides are in elements, all tensors are
 // float32 in device memory, and a kernel allocates nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <utility>
 
 namespace {
 
 constexpr int kCopyThreads = 256;
 constexpr int kUnroll = 4;       // vectors a copy thread has in flight
-constexpr int kTile = 32;        // the transpose's and the product's tile
+constexpr int kTile = 32;        // the transpose's tile
 constexpr int kTileRows = 8;     // 32 x 8 threads cover a tile in 4 steps
 constexpr int kSumThreads = 256; // row sum: 8 warps, a row each
 
@@ -157,59 +199,455 @@ permute_kernel(const float* __restrict__ x, float* __restrict__ y0,
   }
 }
 
-// C (m, n) = A (m, k) B (k, n); a block computes a 32 x 32 tile, a thread 4
-// rows of one column.  Each 32-deep step sums into a fresh partial with
-// IEEE FMAs, added to the total after the step.  With sf: out row m + 1
-// takes product row m unless m + 1 starts a group of `group` rows, and the
-// first row of each group takes sf's row (group index).
-__global__ void __launch_bounds__(kTile * kTileRows)
-contract_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ c, int m, int n, int k, long long sam,
-                long long sak, long long sbk, long long sbn,
-                const float* __restrict__ sf, long long ssr, long long ssn,
-                int group) {
-  __shared__ float as[kTile][kTile + 1];   // [row][k]
-  __shared__ float bs[kTile][kTile + 1];   // [k][col]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  float acc[kTile / kTileRows];
-#pragma unroll
-  for (int i = 0; i < kTile / kTileRows; ++i) acc[i] = 0.0f;
-  for (int k0 = 0; k0 < k; k0 += kTile) {
-    for (int j = ty; j < kTile; j += kTileRows) {
-      const int r = row0 + j, kk = k0 + tx;
-      as[j][tx] = (r < m && kk < k) ? a[r * sam + kk * sak] : 0.0f;
-      const int kb = k0 + j, col = col0 + tx;
-      bs[j][tx] = (kb < k && col < n) ? b[kb * sbk + col * sbn] : 0.0f;
+// -- contract ----------------------------------------------------------------
+
+constexpr int kKStep = 32;                // a fresh partial every 32 k
+constexpr int kApitch = kKStep + 4;       // floats a staged row of A
+// Tiled form: a block owns a BM x kBN tile of C, BM = 64 (128 threads,
+// three blocks an SM) or 128 (256 threads, two); thread (ty, tx) =
+// (t / kColThreads, t % kColThreads) owns the kTM rows ty + (BM / kTM) i
+// and the kTN columns 4 tx + 4 kColThreads h + j (j < 4), in a ring of
+// kStages K steps.
+constexpr int kSplitBM = 64, kBigBM = 128, kBN = 64;
+constexpr int kTM = 8, kTN = 4;
+constexpr int kColThreads = kBN / kTN;
+constexpr int kStages = 3;
+constexpr int kBpitch = kBN + 4;          // floats a staged row of B
+constexpr int kMaxSplit = 16;             // the largest cluster on the card
+__host__ __device__ constexpr int tiled_threads(int bm) {
+  return bm / kTM * kColThreads;
+}
+__host__ __device__ constexpr int tiled_blocks(int bm) {
+  return bm == kSplitBM ? 3 : 2;
+}
+__host__ __device__ constexpr int tiled_stage(int bm) {
+  return bm * kApitch + kKStep * kBpitch;
+}
+// Skinny form: a block of KG warps owns 32 rows of C; warp g takes K steps
+// g, g + KG, ... in a ring of two, and step s adds to group s % kGroups.
+constexpr int kSkinnyRows = 32;
+constexpr int kSkinnyMaxN = 16;
+constexpr int kGroups = 4;
+
+struct Operands {
+  const float* a;
+  const float* b;
+  float* c;
+  int m, n, k;
+  long long sam, sak, sbk, sbn;
+  const float* sf;  // null: no shift-in epilogue
+  long long ssr, ssn;
+  int group;
+  int a_vec, b_vec;  // 16-byte copies of A's rows / B's rows
+  int c_vec;         // 16-byte stores of C's rows
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A's rows m0 .. m0 + rows - 1 at k0 .. k0 + 31 into as (pitch kApitch),
+// zeros past A; thread `t` of kThreadsPer copies.
+template <int kThreadsPer>
+__device__ __forceinline__ void stage_a(const Operands& o, float* as, int m0,
+                                        int rows, int k0, int t) {
+  if (o.a_vec) {
+    for (int e = t; e < rows * (kKStep / 4); e += kThreadsPer) {
+      const int r = e / (kKStep / 4), q = e % (kKStep / 4);
+      const int gr = m0 + r, gk = k0 + 4 * q;
+      const bool ok = gr < o.m && gk < o.k;
+      cp_async16(as + r * kApitch + 4 * q, ok ? o.a + gr * o.sam + gk : o.a,
+                 ok);
     }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kTile / kTileRows; ++i) {
-      float part = 0.0f;
-#pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) {
-        part = __fmaf_rn(as[ty + i * kTileRows][kk], bs[kk][tx], part);
-      }
-      acc[i] = __fadd_rn(acc[i], part);
+  } else {
+    const bool by_rows = o.sam == 1 && o.sak != 1;  // A's columns contiguous
+    for (int e = t; e < rows * kKStep; e += kThreadsPer) {
+      const int r = by_rows ? e % rows : e / kKStep;
+      const int kk = by_rows ? e / rows : e % kKStep;
+      const int gr = m0 + r, gk = k0 + kk;
+      const bool ok = gr < o.m && gk < o.k;
+      cp_async4(as + r * kApitch + kk,
+                ok ? o.a + gr * o.sam + gk * o.sak : o.a, ok);
     }
-    __syncthreads();
   }
-  const int col = col0 + tx;
-  if (col >= n) return;
+}
+
+// B's rows k0 .. k0 + 31 at columns n0 .. n0 + width - 1 into bs (pitch
+// `pitch`), zeros past B; thread `t` of kThreadsPer copies.
+template <int kThreadsPer>
+__device__ __forceinline__ void stage_b(const Operands& o, float* bs,
+                                        int pitch, int n0, int width, int k0,
+                                        int t) {
+  if (o.b_vec) {
+    const int chunks = width / 4;
+    for (int e = t; e < kKStep * chunks; e += kThreadsPer) {
+      const int kk = e / chunks, q = e % chunks;
+      const int gk = k0 + kk, gn = n0 + 4 * q;
+      const bool ok = gk < o.k && gn < o.n;
+      cp_async16(bs + kk * pitch + 4 * q, ok ? o.b + gk * o.sbk + gn : o.b,
+                 ok);
+    }
+  } else {
+    const bool by_k = o.sbk == 1 && o.sbn != 1;  // B's columns contiguous
+    for (int e = t; e < kKStep * width; e += kThreadsPer) {
+      const int kk = by_k ? e % kKStep : e / width;
+      const int nn = by_k ? e / kKStep : e % width;
+      const int gk = k0 + kk, gn = n0 + nn;
+      const bool ok = gk < o.k && gn < o.n;
+      cp_async4(bs + kk * pitch + nn,
+                ok ? o.b + gk * o.sbk + gn * o.sbn : o.b, ok);
+    }
+  }
+}
+
+// Output (r, col) = v, or with the shift-in: row r + 1 takes v unless it
+// starts a group, and row r takes sf's row when r starts one.
+__device__ __forceinline__ void put(const Operands& o, int r, int col,
+                                    float v) {
+  const long long n = o.n;
+  if (o.sf == nullptr) {
+    o.c[r * n + col] = v;
+    return;
+  }
+  if (r % o.group == 0) {
+    o.c[r * n + col] = o.sf[(r / o.group) * o.ssr + col * o.ssn];
+  }
+  if ((r + 1) % o.group != 0) o.c[(r + 1) * n + col] = v;
+}
+
+// C's tile `blockIdx.x` (tiles_n tiles a row of tiles): every K step, or
+// with gridDim.y = S > 1 the K step blockIdx.y alone, in a cluster of the
+// tile's S blocks.  Each step's products sum into a fresh partial (IEEE
+// FMAs, k in order) that is then added to the total, from +0.  With S > 1
+// the cluster adds the S blocks' totals in K order, from +0, and stores: 0 +
+// p is p but for p = -0, and a total that starts at +0 is never -0, so
+// these are the bits of the unsplit sum.
+template <bool kVec, int kBM>
+__global__ void __launch_bounds__(tiled_threads(kBM), tiled_blocks(kBM))
+contract_tiled_kernel(const Operands o, int tiles_n) {
+  constexpr int kRowThreads = kBM / kTM;
+  constexpr int kTiledThreads = tiled_threads(kBM);
+  constexpr int kTiledStage = tiled_stage(kBM);
+  static_assert(kBM * kBN <= kStages * kTiledStage, "a partial fits the ring");
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int ty = tid / kColThreads, tx = tid % kColThreads;
+  auto col_of = [&](int j) {
+    return 4 * tx + 4 * kColThreads * (j >> 2) + (j & 3);
+  };
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
+  const int first = split;
+  const int count = splits > 1 ? 1 : (o.k + kKStep - 1) / kKStep;
+
+  float acc[kTM][kTN];
 #pragma unroll
-  for (int i = 0; i < kTile / kTileRows; ++i) {
-    const int r = row0 + ty + i * kTileRows;
-    if (r >= m) continue;
-    if (sf == nullptr) {
-      c[static_cast<long long>(r) * n + col] = acc[i];
-      continue;
+  for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+  }
+  // kVec (A's and B's rows contiguous and aligned): the thread's 16-byte
+  // copies are the same rows and columns every K step but for the step's
+  // offset, so their addresses are set up once (rows past A clamped to
+  // row 0, read as nothing).  Else 4-byte copies of any strides.
+  constexpr int kAC = kBM * (kKStep / 4) / kTiledThreads;
+  constexpr int kBC = kKStep * (kBN / 4) / kTiledThreads;
+  constexpr int kARows = kTiledThreads / (kKStep / 4);
+  constexpr int kBRows = kTiledThreads / (kBN / 4);
+  const int qa = tid % (kKStep / 4), qb = tid % (kBN / 4);
+  const float* a_src[kAC];
+  bool a_live[kAC];
+#pragma unroll
+  for (int u = 0; u < kAC; ++u) {
+    const int r = m0 + tid / (kKStep / 4) + u * kARows;
+    a_live[u] = r < o.m;
+    a_src[u] = o.a + static_cast<long long>(a_live[u] ? r : 0) * o.sam + 4 * qa;
+  }
+  const bool b_col = n0 + 4 * qb < o.n;
+  const float* b_src = o.b + static_cast<long long>(tid / (kBN / 4)) * o.sbk +
+                       (b_col ? n0 + 4 * qb : 0);
+  const long long b_rows = kBRows * o.sbk;
+  auto stage = [&](int st) {
+    float* as = smem + (st % kStages) * kTiledStage;
+    float* bs = as + kBM * kApitch;
+    const int k0 = (first + st) * kKStep;
+    if constexpr (kVec) {
+      const bool a_in = k0 + 4 * qa < o.k;
+#pragma unroll
+      for (int u = 0; u < kAC; ++u) {
+        cp_async16(as + (tid / (kKStep / 4) + u * kARows) * kApitch + 4 * qa,
+                   a_src[u] + (a_in ? k0 : 0), a_live[u] && a_in);
+      }
+      const float* b_at = b_src + static_cast<long long>(k0) * o.sbk;
+#pragma unroll
+      for (int u = 0; u < kBC; ++u) {
+        const int kk = tid / (kBN / 4) + u * kBRows;
+        const bool ok = b_col && k0 + kk < o.k;
+        cp_async16(bs + kk * kBpitch + 4 * qb, ok ? b_at + u * b_rows : o.b,
+                   ok);
+      }
+    } else {
+      stage_a<kTiledThreads>(o, as, m0, kBM, k0, tid);
+      stage_b<kTiledThreads>(o, bs, kBpitch, n0, kBN, k0, tid);
     }
-    if (r % group == 0) {
-      c[static_cast<long long>(r) * n + col] = sf[(r / group) * ssr + col * ssn];
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < count) stage(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < count; ++st) {
+    if (st + kStages - 1 < count) stage(st + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* as = smem + (st % kStages) * kTiledStage;
+    const float* bs = as + kBM * kApitch;
+    float part[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) part[i][j] = 0.0f;
     }
-    if ((r + 1) % group != 0) {
-      c[static_cast<long long>(r + 1) * n + col] = acc[i];
+#pragma unroll
+    for (int kk = 0; kk < kKStep; kk += 4) {
+      float bk[4][kTN];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int j4 = 0; j4 < kTN / 4; ++j4) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              bs + (kk + q) * kBpitch + col_of(4 * j4));
+          bk[q][4 * j4] = v.x;
+          bk[q][4 * j4 + 1] = v.y;
+          bk[q][4 * j4 + 2] = v.z;
+          bk[q][4 * j4 + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(
+            as + (ty + kRowThreads * i) * kApitch + kk);
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) {
+            part[i][j] = __fmaf_rn(a4[q], bk[q][j], part[i][j]);
+          }
+        }
+      }
     }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+      }
+    }
+    __syncthreads();  // this stage is refilled kStages - 1 steps on
+  }
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    // The ring is free (its last reads are behind the loop's barrier): this
+    // block's total goes there, rows of kBN floats.  The cluster's ranks
+    // run along y, so rank s holds K step s.
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        smem[(ty + kRowThreads * i) * kBN + col_of(j)] = acc[i][j];
+      }
+    }
+    cluster.sync();
+    const float* theirs[kMaxSplit];
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s) {
+      theirs[s] = s < splits ? cluster.map_shared_rank(smem, s) : smem;
+    }
+    for (int rr = split * (kTiledThreads / kBN) + tid / kBN; rr < kBM;
+         rr += splits * (kTiledThreads / kBN)) {
+      const int r = m0 + rr, col = n0 + tid % kBN;
+      float v = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplit; ++s) {
+        if (s < splits) v = __fadd_rn(v, theirs[s][rr * kBN + tid % kBN]);
+      }
+      if (r < o.m && col < o.n) put(o, r, col, v);
+    }
+    cluster.sync();  // no block leaves while its peers read its partial
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = m0 + ty + kRowThreads * i;
+    if (r >= o.m) break;
+#pragma unroll
+    for (int j4 = 0; j4 < kTN / 4; ++j4) {
+      const int c4 = n0 + col_of(4 * j4);
+      if (o.c_vec && c4 < o.n) {
+        float* row = o.c + static_cast<long long>(r) * o.n;
+        reinterpret_cast<float4*>(row)[c4 / 4] =
+            make_float4(acc[i][4 * j4], acc[i][4 * j4 + 1], acc[i][4 * j4 + 2],
+                        acc[i][4 * j4 + 3]);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c4 + j < o.n) put(o, r, c4 + j, acc[i][4 * j4 + j]);
+      }
+    }
+  }
+}
+
+// The skinny form, n == NN <= 16: block b owns rows 32 b .. 32 b + 31 of C,
+// lane l of each of its KG warps row 32 b + l.  Warp g streams A's 32 rows
+// at its K steps g, g + KG, ... through a ring of two stages (16-byte
+// copies: a warp's copies are whole 128-byte rows of a step) with B's
+// 32 x NN slice of the step, which every lane reads as a broadcast.  Step s
+// adds to the total of group s % kGroups: warp g holds groups g, g + KG,
+// ...  The groups' totals meet in shared memory, are added in group order
+// and go out as consecutive floats: the same sum for KG = 2 and 4.
+template <int NN, int KG>
+__global__ void __launch_bounds__(32 * KG)
+contract_skinny_kernel(const Operands o) {
+  static_assert(kGroups % KG == 0, "a warp holds whole groups");
+  constexpr int kNP = (NN + 3) & ~3;
+  constexpr int kStage = kSkinnyRows * kApitch + kKStep * kNP;
+  constexpr int kTotPitch = kNP + 1;
+  constexpr int kTot = kSkinnyRows * kTotPitch;  // floats a group's totals
+  constexpr int kHeld = kGroups / KG;            // groups a warp holds
+  static_assert(kHeld * kTot <= 2 * kStage, "a warp's ring holds its totals");
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* mine = smem + warp * 2 * kStage;
+  const int m0 = blockIdx.x * kSkinnyRows;
+  const int steps = (o.k + kKStep - 1) / kKStep;
+  const int count =
+      steps > warp ? (steps - warp + KG - 1) / KG : 0;
+  float acc[kHeld][NN];
+#pragma unroll
+  for (int h = 0; h < kHeld; ++h) {
+#pragma unroll
+    for (int j = 0; j < NN; ++j) acc[h][j] = 0.0f;
+  }
+  // The lane's 16-byte copies of A: rows lane / 8 + 4 u, chunk lane % 8,
+  // the same every K step but for the step's offset.
+  constexpr int kAC = kSkinnyRows * (kKStep / 4) / 32;
+  const int qa = lane % (kKStep / 4);
+  const float* a_src[kAC];
+  bool a_live[kAC];
+#pragma unroll
+  for (int u = 0; u < kAC; ++u) {
+    const int r = m0 + lane / (kKStep / 4) + u * (32 / (kKStep / 4));
+    a_live[u] = r < o.m;
+    a_src[u] = o.a + static_cast<long long>(a_live[u] ? r : 0) * o.sam + 4 * qa;
+  }
+  auto stage = [&](int n) {
+    float* as = mine + (n & 1) * kStage;
+    const int k0 = (warp + KG * n) * kKStep;
+    if (o.a_vec) {
+      const bool kin = k0 + 4 * qa < o.k;
+#pragma unroll
+      for (int u = 0; u < kAC; ++u) {
+        const int r = lane / (kKStep / 4) + u * (32 / (kKStep / 4));
+        const bool ok = a_live[u] && kin;
+        cp_async16(as + r * kApitch + 4 * qa, ok ? a_src[u] + k0 : o.a, ok);
+      }
+    } else {
+      stage_a<32>(o, as, m0, kSkinnyRows, k0, lane);
+    }
+    stage_b<32>(o, as + kSkinnyRows * kApitch, kNP, 0, NN, k0, lane);
+  };
+  if (count > 0) stage(0);
+  cp_async_commit();
+  // Step warp + KG n is in group (warp + KG n) % kGroups, the warp's group
+  // n % kHeld: the loop takes kHeld steps a trip, one of each held group.
+  for (int n0 = 0; n0 < count; n0 += kHeld) {
+#pragma unroll
+    for (int h = 0; h < kHeld; ++h) {
+      const int n = n0 + h;
+      if (n >= count) break;
+      if (n + 1 < count) stage(n + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncwarp();
+      const float* as = mine + (n & 1) * kStage + lane * kApitch;
+      const float* bs = mine + (n & 1) * kStage + kSkinnyRows * kApitch;
+      float part[NN];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) part[j] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kKStep; kk += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(as + kk);
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float bk[kNP];
+#pragma unroll
+          for (int j4 = 0; j4 < kNP / 4; ++j4) {
+            const float4 bv =
+                reinterpret_cast<const float4*>(bs + (kk + q) * kNP)[j4];
+            bk[4 * j4] = bv.x;
+            bk[4 * j4 + 1] = bv.y;
+            bk[4 * j4 + 2] = bv.z;
+            bk[4 * j4 + 3] = bv.w;
+          }
+#pragma unroll
+          for (int j = 0; j < NN; ++j) {
+            part[j] = __fmaf_rn(a4[q], bk[j], part[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NN; ++j) acc[h][j] = __fadd_rn(acc[h][j], part[j]);
+      __syncwarp();  // this stage is refilled next step
+    }
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < kHeld; ++h) {
+#pragma unroll
+    for (int j = 0; j < NN; ++j) {
+      mine[h * kTot + lane * kTotPitch + j] = acc[h][j];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kSkinnyRows * NN; e += 32 * KG) {
+    const int r = e / NN, j = e % NN;
+    if (m0 + r >= o.m) break;
+    float v = smem[r * kTotPitch + j];
+#pragma unroll
+    for (int g = 1; g < kGroups; ++g) {
+      v = __fadd_rn(v, smem[(g % KG) * 2 * kStage + (g / KG) * kTot +
+                            r * kTotPitch + j]);
+    }
+    put(o, m0 + r, j, v);
   }
 }
 
@@ -239,6 +677,84 @@ int sm_count(int device) {
     return 0;
   }
   return sms;
+}
+
+// One block a tile, or with `split` one a K step of each tile, the steps
+// of a tile a cluster (2 to kMaxSplit steps).  Where the card cannot hold
+// such a cluster, one block a tile: the same bits.
+template <bool kVec, int kBM>
+cudaError_t launch_tiled(const Operands& o, bool split, cudaStream_t st) {
+  constexpr size_t smem = sizeof(float) * kStages * tiled_stage(kBM);
+  const auto fn = contract_tiled_kernel<kVec, kBM>;
+  const int steps = (o.k + kKStep - 1) / kKStep;
+  const long long tiles_n = (o.n + kBN - 1) / kBN;
+  const long long tiles = (o.m + kBM - 1) / kBM * tiles_n;
+  if (tiles > 0x7fffffffLL || (split && (steps < 2 || steps > kMaxSplit))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster[1] = {};
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = split ? steps : 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), split ? steps : 1);
+  cfg.blockDim = dim3(tiled_threads(kBM));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = cluster;
+  cfg.numAttrs = split ? 1 : 0;
+  if (split) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    int fits = 0;
+    err = cudaOccupancyMaxActiveClusters(&fits, fn, &cfg);
+    if (err != cudaSuccess) return err;
+    if (fits < 1) {
+      cfg.gridDim.y = 1;
+      cfg.numAttrs = 0;
+    }
+  }
+  err = cudaLaunchKernelEx(&cfg, fn, o, static_cast<int>(tiles_n));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int NN, int KG>
+cudaError_t launch_skinny(const Operands& o, cudaStream_t st) {
+  constexpr int kNP = (NN + 3) & ~3;
+  constexpr size_t smem =
+      sizeof(float) * KG * 2 * (kSkinnyRows * kApitch + kKStep * kNP);
+  cudaError_t err = cudaFuncSetAttribute(
+      contract_skinny_kernel<NN, KG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = (o.m + kSkinnyRows - 1) / kSkinnyRows;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  contract_skinny_kernel<NN, KG>
+      <<<static_cast<unsigned>(blocks), 32 * KG, smem, st>>>(o);
+  return cudaGetLastError();
+}
+
+// The skinny instance for o.n: four warps a block split a block's K steps
+// where the blocks leave the card's SMs thin (the probe's 64 blocks), two
+// where there are blocks to spare (the chain's 16384), which keeps two K
+// steps of each warp in flight.
+template <int... Ns>
+cudaError_t launch_skinny_n(const Operands& o, cudaStream_t st, int sms,
+                            std::integer_sequence<int, Ns...>) {
+  const bool many = (o.m + kSkinnyRows - 1) / kSkinnyRows >= 8LL * sms;
+  cudaError_t err = cudaErrorInvalidValue;
+  ((o.n == Ns + 1 ? (err = many ? launch_skinny<Ns + 1, 2>(o, st)
+                                : launch_skinny<Ns + 1, 4>(o, st),
+                     0)
+                  : 0),
+   ...);
+  return err;
 }
 
 }  // namespace
@@ -315,12 +831,16 @@ extern "C" int sdsp_permute_f32(const float* x, float* y0, float* y1,
 // c (m, n) contiguous = a (m, k) b (k, n), read at r sam + kk sak and
 // kk sbk + col sbn.  sf null: the product.  Else m is a multiple of `group`
 // and c takes the shift-in epilogue, sf (m / group, n) read at
-// g ssr + col ssn.
+// g ssr + col ssn.  n <= 16 takes the skinny form (split must be 0); a
+// wider n the tiled form, with `split` each of its S = ceil(k / 32) K steps
+// in a block of its own (2 <= S <= 16), a tile's S blocks a cluster.  The
+// bits are the same with and without `split`.
 extern "C" int sdsp_contract_f32(const float* a, const float* b, float* c,
                                  int m, int n, int k, long long sam,
                                  long long sak, long long sbk, long long sbn,
                                  const float* sf, long long ssr, long long ssn,
-                                 int group, int device, void* stream) {
+                                 int group, int split, int device,
+                                 void* stream) {
   if (m < 0 || n < 0 || k < 0 ||
       (sf != nullptr && (group < 1 || m % group != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -328,12 +848,35 @@ extern "C" int sdsp_contract_f32(const float* a, const float* b, float* c,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  contract_kernel<<<grid, dim3(kTile, kTileRows), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, m, n, k, sam, sak, sbk, sbn, sf, ssr, ssn, group);
-  return static_cast<int>(cudaGetLastError());
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const Operands o{a, b, c, m, n, k, sam, sak, sbk, sbn, sf, ssr, ssn,
+                   group < 1 ? 1 : group,
+                   sak == 1 && sam % 4 == 0 && k % 4 == 0 && aligned(a),
+                   sbn == 1 && sbk % 4 == 0 && n % 4 == 0 && aligned(b),
+                   sf == nullptr && n % 4 == 0 && aligned(c)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= kSkinnyMaxN) {
+    if (split) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        launch_skinny_n(o, st, sm_count(device),
+                        std::make_integer_sequence<int, kSkinnyMaxN>{}));
+  }
+  // A launch of one block a tile takes 128-row tiles where they still give
+  // every SM two blocks (the chain's (16384, 320) x (320, 320)); a split
+  // launch, or one of fewer tiles, takes 64-row tiles.
+  const long long big_tiles =
+      (m + kBigBM - 1) / kBigBM * ((n + kBN - 1) / kBN);
+  cudaError_t e;
+  if (o.a_vec && o.b_vec && !split && big_tiles >= 2LL * sm_count(device)) {
+    e = launch_tiled<true, kBigBM>(o, false, st);
+  } else if (o.a_vec && o.b_vec) {
+    e = launch_tiled<true, kSplitBM>(o, split, st);
+  } else {
+    e = launch_tiled<false, kSplitBM>(o, split, st);
+  }
+  return static_cast<int>(e);
 }
 
 // y[i] = sum over j < cols of x[i row_stride + j], i < rows.

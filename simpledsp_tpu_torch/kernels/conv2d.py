@@ -30,7 +30,6 @@ __all__ = ["conv2d_fused_supported", "conv2d_valid_fused",
 
 _MAX_TAPS = 169
 
-
 def conv2d_fused_supported(kh: int, kw: int) -> bool:
     """Whether the fused kernel takes a (kh, kw) kernel: at most 169 taps,
     whatever the image size (see the module docstring)."""

@@ -13,7 +13,11 @@ plain version.  Each kernel has a wrapper with a ``launches`` count and a
 - :func:`permute`: y[b, c, r] = scale x[b, r, c] of a strided (B, R, C)
   view, optionally split at C/2 into two planes (``permute_reference``);
 - :func:`contract`: a @ b in IEEE float32, optionally with the shift-in
-  epilogue of the frame prefix (``contract_reference``);
+  epilogue of the frame prefix (``contract_reference``); the kernel's form
+  (skinny for N <= 16, else tiled, each K step in a block of its own where
+  the tiles cannot fill the card) is :func:`contract_plan`'s.  A row's bits
+  depend on N alone, not on M or the card: ``contract(a[:r], b)`` is
+  ``contract(a, b)[:r]`` bit for bit;
 - :func:`row_sum`: the sum of each row of a (rows, cols) view
   (``row_sum_reference``).
 """
@@ -32,7 +36,7 @@ from simpledsp_tpu_torch.precision import ieee_fp32
 __all__ = ["scale_reference", "permute_reference", "contract_reference",
            "row_sum_reference", "scale_copy", "permute", "contract", "row_sum",
            "scale_copy_kernel", "permute_kernel", "contract_kernel",
-           "row_sum_kernel"]
+           "row_sum_kernel", "contract_plan"]
 
 
 # -- plain versions ----------------------------------------------------------
@@ -92,7 +96,7 @@ def _library() -> ctypes.CDLL:
         "sdsp_scale_copy_f32": [ptr, ptr, i64, f32, i32, i32, i32, ptr],
         "sdsp_permute_f32": [ptr] * 3 + [i64] * 6 + [f32, i32, i32, i32, ptr],
         "sdsp_contract_f32": [ptr] * 3 + [i32] * 3 + [i64] * 4
-                             + [ptr, i64, i64, i32, i32, ptr],
+                             + [ptr, i64, i64, i32, i32, i32, ptr],
         "sdsp_row_sum_f32": [ptr, ptr, i64, i32, i64, i32, ptr],
     }
     for name, argtypes in sigs.items():
@@ -166,6 +170,40 @@ class _PermuteKernel(_ProbeKernel):
         return (y0, y1) if split else y0
 
 
+# The contraction's forms (csrc/probes.cu): N <= SKINNY_MAX_N takes the
+# skinny form, a wider N the tiled form's TILE_M x TILE_N tiles of C, whose
+# K_STEP-deep steps each take a block of their own, a tile's blocks a
+# cluster of at most MAX_SPLIT_STEPS, where the tiles cannot fill the card.
+# A staged row of A takes A_PITCH floats in shared memory, of B (tiled
+# form) B_PITCH.
+SKINNY_MAX_N = 16
+TILE_M, TILE_N = 64, 64
+K_STEP = 32
+MAX_SPLIT_STEPS = 16
+A_PITCH, B_PITCH = K_STEP + 4, TILE_N + 4
+
+
+def contract_plan(m: int, n: int, k: int, sms: int) -> Tuple[str, int]:
+    """The contraction kernel's form for an (m, k) x (k, n) product on a
+    card of ``sms`` SMs, and the blocks a tile of C's K steps take:
+    ("skinny", 1) for n <= 16; else ("tiled", s): s = the K steps, one a
+    block, a tile's s blocks a cluster, where fewer tiles than SMs leave the
+    card idle and there are 2 to MAX_SPLIT_STEPS steps, else 1.  The form
+    and s change the time, never the bits, which depend on n alone."""
+    if n <= SKINNY_MAX_N:
+        return "skinny", 1
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    steps = -(-k // K_STEP)
+    if tiles >= sms or not 2 <= steps <= MAX_SPLIT_STEPS:
+        return "tiled", 1
+    return "tiled", steps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 class _ContractKernel(_ProbeKernel):
     def __call__(self, a: torch.Tensor, b: torch.Tensor,
                  sf: Optional[torch.Tensor], group: int) -> torch.Tensor:
@@ -174,10 +212,11 @@ class _ContractKernel(_ProbeKernel):
         n = b.shape[1]
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         ss = (0, 0) if sf is None else sf.stride()
+        _, splits = contract_plan(m, n, k, _sm_count(a.device.index))
         rc = self.library().sdsp_contract_f32(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *a.stride(),
             *b.stride(), None if sf is None else sf.data_ptr(), *ss, group,
-            a.device.index, _stream(a))
+            int(splits > 1), a.device.index, _stream(a))
         self._launched(rc)
         return c
 

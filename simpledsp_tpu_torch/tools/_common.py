@@ -1,5 +1,8 @@
 """What the probes share: the card they measure, CUDA-event and host timing,
-checks that raise, and the command-line entry.
+checks that raise, and the command-line entry; and what the tools that
+time edited sources share (``conv2d_variants``, ``contract_variants``,
+``ols_variants``, ``chain_stages``): sources edited into a directory of
+their own, builds run all at once, and arms timed in turns, a process each.
 
 A probe measures the card, so it runs on a CUDA device or raises: there is
 no CPU version of a probe (the CPU tests hold the kernels' plain versions
@@ -9,9 +12,12 @@ instead).
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
+import sys
 import time
-from typing import Callable
+from pathlib import Path
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +26,7 @@ from simpledsp_tpu_torch.device import resolve_device
 
 __all__ = ["HBM_BPS", "cuda_device", "median_ms", "capture_graph",
            "graph_ms", "host_us", "require", "same_bits", "randn", "record",
-           "main"]
+           "main", "edited_csrc", "build_all", "time_in_turns"]
 
 HBM_BPS = 3.35e12           # H100 SXM: HBM3 bytes/s (NVIDIA's data sheet)
 REPS = 5
@@ -132,3 +138,61 @@ def main(run: Callable) -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({"card": torch.cuda.get_device_name(dev),
                       "nvidia_smi": smi, **run(dev)}, indent=1))
+
+
+def edited_csrc(checkout: Path,
+                edits: Optional[Dict[str, Sequence[Tuple[str, str]]]],
+                tag: str) -> Path:
+    """The csrc directory of ``checkout`` with ``edits`` ({source: [(text,
+    replacement), ...]}, each text replaced once; an empty text prepends
+    its replacement), written to ``build/<tag>``; the directory as it is
+    when ``edits`` is None."""
+    csrc = checkout / "simpledsp_tpu_torch" / "csrc"
+    if edits is None:
+        return csrc
+    d = checkout / "build" / tag
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(csrc, d)
+    for source, pairs in edits.items():
+        text = (csrc / source).read_text()
+        for old, new in pairs:
+            if old not in text:
+                raise RuntimeError(f"{tag}: its edit of {source} does not "
+                                   f"apply")
+            text = text.replace(old, new, 1)
+        (d / source).write_text(text)
+    return d
+
+
+def build_all(commands: Sequence[Sequence[str]], what: str) -> None:
+    """Run every command at once (each builds a library at first use) and
+    raise unless all exit 0."""
+    builds = [subprocess.Popen(list(c), stdout=subprocess.DEVNULL)
+              for c in commands]
+    if any([b.wait() for b in builds]):
+        raise RuntimeError(f"{what}: a build failed")
+
+
+def time_in_turns(script: str, arms: Sequence[Tuple[str, str, str]],
+                  turns: int, extra: Sequence[str] = ()) -> dict:
+    """Run ``python3 script --child ROOT CSRC *extra`` for each arm (name,
+    root, csrc): once with ``--build-only``, all at once, then once a turn,
+    the arms forward in even turns and backward in odd ones.  Each child
+    prints a JSON object as its last line; returns {"nvidia_smi", "runs"}."""
+    build_all([[sys.executable, script, "--child", root, csrc, "--build-only"]
+               for _, root, csrc in arms], script)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    runs = []
+    for turn in range(turns):
+        for name, root, csrc in (arms if turn % 2 == 0 else arms[::-1]):
+            proc = subprocess.run([sys.executable, script, "--child", root,
+                                   csrc, *extra], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name} failed:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            runs.append({"arm": name, "turn": turn,
+                         **json.loads(proc.stdout.strip().splitlines()[-1])})
+    return {"nvidia_smi": smi, "runs": runs}

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -45,7 +43,8 @@ def run(sizes=SIZES, per: int = 20) -> dict:
     from simpledsp_tpu_torch.kernels import chain as kc
     from simpledsp_tpu_torch.kernels import chain_variants as kcv
     from simpledsp_tpu_torch.models.northstar import default_design
-    from simpledsp_tpu_torch.tools._common import graph_ms
+    from simpledsp_tpu_torch.tools._common import (build_all, edited_csrc,
+                                                   graph_ms)
     if not torch.cuda.is_available():
         raise RuntimeError("the stage split times the card: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -53,14 +52,10 @@ def run(sizes=SIZES, per: int = 20) -> dict:
     x = torch.as_tensor(np.random.default_rng(17).standard_normal(
         (c, t), dtype=np.float32), device=dev)
     csrc = _build.CSRC_DIR
-    cuts = {}
-    for stage, at in (("load", 1), ("iir", 2)):
-        cut_dir = cuts[stage] = _build.BUILD_DIR / f"chain_cut_{stage}"
-        shutil.rmtree(cut_dir, ignore_errors=True)
-        shutil.copytree(csrc, cut_dir)
-        for name in ("chain.cu", "chain_tc.cu"):
-            (cut_dir / name).write_text(f"#define SDSP_CHAIN_CUT_AT {at}\n"
-                                        + (csrc / name).read_text())
+    cuts = {stage: edited_csrc(Path(root), {
+        name: [("", f"#define SDSP_CHAIN_CUT_AT {at}\n")]
+        for name in ("chain.cu", "chain_tc.cu")}, f"chain_cut_{stage}")
+        for stage, at in (("load", 1), ("iir", 2))}
 
     def use(src_dir):
         _build.CSRC_DIR = src_dir
@@ -70,12 +65,11 @@ def run(sizes=SIZES, per: int = 20) -> dict:
 
     out = {"device": torch.cuda.get_device_name(0)}
     try:
-        builds = [subprocess.Popen([sys.executable, "-c", PREBUILD.format(
-            root=root, csrc=str(src_dir), lib=lib)])
+        build_all([[sys.executable, "-c", PREBUILD.format(
+            root=root, csrc=str(src_dir), lib=lib)]
             for src_dir in (*cuts.values(), csrc)
-            for lib in ("kc._library", "kcv._tc_library")]
-        if any(b.wait() for b in builds):   # every cut build at once
-            raise RuntimeError("a build of the chain kernel failed")
+            for lib in ("kc._library", "kcv._tc_library")],
+            "a build of the chain kernel")
         for n in sizes:
             ops = kc.FusedNorthStarOperators(default_design(), n, device=dev)
             s0 = torch.zeros(c, ops.state_dim, device=dev)

@@ -27,8 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -65,28 +63,16 @@ def run(root=None, variants=tuple(VARIANTS), per: int = 10) -> dict:
     from simpledsp_tpu_torch.kernels import _build
     from simpledsp_tpu_torch.kernels import ols as kols
     from simpledsp_tpu_torch.kernels.fft import _best_split
-    from simpledsp_tpu_torch.tools._common import graph_ms
+    from simpledsp_tpu_torch.tools._common import (build_all, edited_csrc,
+                                                   graph_ms)
     if not torch.cuda.is_available():
         raise RuntimeError("the variants are timed on the card: no CUDA device")
     dev = torch.device("cuda", 0)
     csrc = _build.CSRC_DIR
-    dirs = {}
-    for name in variants:
-        edit = VARIANTS[name]
-        if edit is None:
-            dirs[name] = csrc
-            continue
-        text = (csrc / "ols.cu").read_text()
-        if edit[0] not in text:
-            raise RuntimeError(f"variant {name}: its edit does not apply")
-        d = dirs[name] = _build.BUILD_DIR / f"ols_{name}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(csrc, d)
-        (d / "ols.cu").write_text(text.replace(edit[0], edit[1], 1))
-    builds = [subprocess.Popen([sys.executable, "-c", PREBUILD.format(
-        root=root, csrc=str(d))]) for d in dirs.values()]
-    if any(b.wait() for b in builds):
-        raise RuntimeError("a variant of the overlap-save kernel did not build")
+    dirs = {name: edited_csrc(Path(root), VARIANTS[name] and {
+        "ols.cu": [VARIANTS[name]]}, f"ols_{name}") for name in variants}
+    build_all([[sys.executable, "-c", PREBUILD.format(root=root, csrc=str(d))]
+               for d in dirs.values()], "a variant of the overlap-save kernel")
 
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (256, 1 << 16), dtype=np.float32), device=dev)

@@ -29,7 +29,9 @@ To answer the question for the chain: the same pieces are timed at the
 64 x 2^20 chain's own sizes (16384 frames at N = 4096: k1 as a (16384, 320)
 x (320, 320) product, k2 on (16384 x 32, 128) x (128, 10), k3 as above),
 beside ``chain_prepass`` on that chain, which runs them through cuBLAS
-(windows of 10 calls).
+(windows of 10 calls); and the two products alone, ``contract`` against
+``torch.matmul`` of the same operands in IEEE float32 (cuBLAS), as
+CUDA-graph replays of 10 calls: device time.
 
     python -m simpledsp_tpu_torch.tools.probe_mosaic
 """
@@ -151,16 +153,30 @@ def prefix_at_chain_size(dev) -> dict:
            "u4": randn((ops.n1 * d, ops.n1 * d), 2, dev),
            "x": x.view(f, ops.n1, ops.n2), "kt": randn((d, ops.n2), 3, dev),
            "sf": randn((f, d), 4, dev), "big": randn((f, ops.n1, d), 5, dev)}
+    k1_ab = (big["kxx"], big["u4"])
+    k2_ab = (big["x"].reshape(f * ops.n1, ops.n2), big["kt"].T)
+
+    def k1_run():
+        return probes.contract(*k1_ab)
+
+    def k2_run():
+        return probes.contract(*k2_ab, sf=big["sf"], group=ops.n1)
+
+    def matmul(a, b):
+        with ieee_fp32():
+            return torch.matmul(a, b)
+
     pieces = {
-        "k1": median_ms(lambda: probes.contract(big["kxx"], big["u4"]),
-                        per=10),
-        "k2": median_ms(lambda: probes.contract(
-            big["x"].reshape(f * ops.n1, ops.n2), big["kt"].T, sf=big["sf"],
-            group=ops.n1), per=10),
+        "k1": median_ms(k1_run, per=10), "k2": median_ms(k2_run, per=10),
         "k3": median_ms(lambda: probes.row_sum(big["big"].reshape(f, -1)),
                         per=10)}
+    device = {"k1": {"contract": graph_ms(k1_run, per=10),
+                     "matmul": graph_ms(lambda: matmul(*k1_ab), per=10)},
+              "k2": {"contract": graph_ms(k2_run, per=10),
+                     "matmul": graph_ms(lambda: matmul(*k2_ab), per=10)}}
     return {"frames": f, "chain_prepass_ms": prepass_ms, "pieces_ms": pieces,
-            "pieces_sum_ms": sum(pieces.values())}
+            "pieces_sum_ms": sum(pieces.values()),
+            "products_device_ms": device}
 
 
 if __name__ == "__main__":

@@ -2,12 +2,16 @@
 instance's registers, spill stores and loads, stack frame and static shared
 memory, with the flags the package builds with.
 
-    python3 simpledsp_tpu_torch/tools/ptxas_report.py [--root DIR] pfb.cu chain.cu
+    python3 simpledsp_tpu_torch/tools/ptxas_report.py [--root DIR] [--sass NAME] pfb.cu chain.cu
 
 ``--root`` names the checkout whose ``simpledsp_tpu_torch/csrc`` is compiled
-(default: this one).  Needs ``nvcc``; prints one JSON object, and the raw
-ptxas lines under ``chiprun_out/ptxas_<source>.txt`` when that directory
-exists.
+(default: this one).  ``--sass NAME`` adds, for each kernel instance whose
+name holds NAME, the static count of its SASS instructions by opcode
+(``cuobjdump -sass`` of the compiled cubin): what the code issues per trip
+of a fully unrolled loop, not a dynamic count.  Needs ``nvcc``; prints one
+JSON object, and the raw ptxas lines (and SASS) under
+``chiprun_out/ptxas_<source>.txt`` (``sass_<source>.txt``) when that
+directory exists.
 """
 
 from __future__ import annotations
@@ -73,13 +77,59 @@ def report(root: Path, source: str) -> dict:
     return {name: kernels[mangled] for name, mangled in zip(names, kernels)}
 
 
+_FUNC = re.compile(r"Function : (\S+)")
+_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_counts(root: Path, source: str, name: str) -> dict:
+    """{kernel: {opcode: count, "total": n}} of the instances of ``source``
+    whose demangled name holds ``name``."""
+    import tempfile
+
+    from simpledsp_tpu_torch.kernels import _build
+    csrc = root / "simpledsp_tpu_torch" / "csrc"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / "k.cubin"
+        subprocess.run([_build._nvcc(), *flags, "-cubin", str(csrc / source),
+                        "-o", str(cubin)], check=True, capture_output=True)
+        tool = Path(_build._nvcc()).with_name("cuobjdump")
+        text = subprocess.run([str(tool), "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True).stdout
+    out_dir = Path("chiprun_out")
+    if out_dir.is_dir():
+        (out_dir / f"sass_{Path(source).stem}.txt").write_text(text)
+    counts, current = {}, None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            current = m.group(1)
+            counts[current] = {}
+            continue
+        m = _OP.search(line)
+        if m and current is not None:
+            op = m.group(1)
+            counts[current][op] = counts[current].get(op, 0) + 1
+    names = demangled(list(counts))
+    out = {}
+    for nice, mangled in zip(names, counts):
+        if name in nice:
+            c = dict(sorted(counts[mangled].items(), key=lambda kv: -kv[1]))
+            out[nice] = {"total": sum(c.values()), **c}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
+    ap.add_argument("--sass", default=None)
     ap.add_argument("sources", nargs="+")
     a = ap.parse_args()
     root = Path(a.root or Path(__file__).resolve().parents[2]).resolve()
-    print(json.dumps({s: report(root, s) for s in a.sources}))
+    out = {s: report(root, s) for s in a.sources}
+    if a.sass:
+        out["sass"] = {s: sass_counts(root, s, a.sass) for s in a.sources}
+    print(json.dumps(out))
     return 0
 
 

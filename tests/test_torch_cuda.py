@@ -401,6 +401,13 @@ CONV2D_SHAPES = [((2, 70, 90), (9, 9)), ((1, 130, 200), (5, 7)),
                  ((3, 2, 40, 50), (3, 3)), ((1, 128, 128), (13, 13)),
                  ((1, 17, 33), (4, 2)), ((1, 8, 130), (1, 3)),
                  ((2, 200, 40), (169, 1)), ((1, 40, 300), (1, 169))]
+# Every templated kw (1-16) at kh 3, the generic instance's first width, a
+# batch of 300 one-tile images (not a multiple of the persistent grid), and
+# 1 x 1 outputs.
+CONV2D_SHAPES += [((1, 70, 150 + kw), (3, kw)) for kw in range(1, 17)]
+CONV2D_SHAPES += [((1, 30, 200), (3, 17)), ((300, 66, 130), (3, 3)),
+                  ((1, 9, 9), (9, 9)), ((2, 13, 13), (13, 13)),
+                  ((1, 1, 1), (1, 1))]
 
 
 @pytest.mark.parametrize("shape,ks", CONV2D_SHAPES)
@@ -417,6 +424,26 @@ def test_conv2d_kernel_bit_exact(shape, ks, cuda_device):
         x, torch.as_tensor(k, dtype=torch.float32, device=cuda_device))
     assert got.shape == ref.shape
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("ks", [(3, 3), (9, 9), (1, 20)])
+def test_conv2d_kernel_keeps_inf_and_nan(ks, cuda_device):
+    """An image holding inf and NaN, and a zero tap: the same NaN positions
+    as the plain version and equal bits everywhere else."""
+    rng = np.random.default_rng(ks[1])
+    x = torch.as_tensor(rng.standard_normal((2, 150, 300)),
+                        dtype=torch.float32, device=cuda_device)
+    x[0, 5, 7] = float("inf")
+    x[0, 90, 200] = -float("inf")
+    x[1, 66, 3] = float("nan")
+    k = rng.standard_normal(ks)
+    k[0, 1] = 0.0
+    got = tk2d.conv2d_valid_fused(x, k)
+    ref = tk2d.conv2d_valid_reference(
+        x, torch.as_tensor(k, dtype=torch.float32, device=cuda_device))
+    assert bool(ref.isnan().any())
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
 
 
 def test_public_entries_reach_the_kernels(cuda_device):
@@ -877,13 +904,43 @@ def _probe_snr_ok(got, plain32, ref64):
     return snr >= 120.0 and snr >= _snr_db([ref64], [plain32]) - 6.0, snr
 
 
+@pytest.mark.parametrize("m,k,n,group", [
+    (64, 320, 320, None), (2048, 128, 10, 32), (37, 45, 13, None),
+    # the chain's sizes: the prepass's kb @ TO and x @ KT with its shift
+    (16384, 320, 320, None), (524288, 128, 10, 32),
+    # split K steps (4 tiles, 16 steps a cluster), with and without the
+    # shift-in; too many steps for a cluster (one block a tile)
+    (256, 500, 40, None), (256, 500, 40, 32), (256, 1000, 40, None),
+    (256, 1000, 40, 32),
+    # the skinny form's widths and the first tiled one
+    (3000, 64, 1, None), (3000, 64, 16, 8), (3000, 64, 17, None),
+    (3000, 64, 17, 8),
+    # k not a multiple of the step, a tail of rows and columns, k = 0
+    (130, 37, 70, None), (100, 0, 20, None)])
+def test_contract_kernel_matches_plain_version(m, k, n, group, cuda_device):
+    _check_contract(m, k, n, group, False, cuda_device)
+
+
 @pytest.mark.parametrize("m,k,n,group", [(64, 320, 320, None),
                                          (2048, 128, 10, 32),
-                                         (37, 45, 13, None)])
-def test_contract_kernel_matches_plain_version(m, k, n, group, cuda_device):
+                                         (256, 500, 40, 32),
+                                         (256, 1000, 40, 32)])
+def test_contract_kernel_reads_unaligned_operands(m, k, n, group,
+                                                  cuda_device):
+    """A starts one float past a 16-byte boundary: 4-byte copies."""
+    _check_contract(m, k, n, group, True, cuda_device)
+
+
+def _check_contract(m, k, n, group, unaligned, cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(m)
-    a = torch.randn(m, k, generator=gen, device=cuda_device)
+    a = torch.randn(m * k + 1, generator=gen, device=cuda_device)
+    a = (a[1:] if unaligned else a[:-1]).view(m, k)
+    assert (a.data_ptr() % 16 != 0) == unaligned
     b = torch.randn(n, k, generator=gen, device=cuda_device).T   # strided
+    if k == 0:
+        got = tprobes.contract(a, b)
+        assert torch.equal(got, torch.zeros(m, n, device=cuda_device))
+        return
     sf = (None if group is None else
           torch.randn(m // group, n, generator=gen, device=cuda_device))
     before = tprobes.contract_kernel.launches
@@ -895,6 +952,64 @@ def test_contract_kernel_matches_plain_version(m, k, n, group, cuda_device):
     ok, snr = _probe_snr_ok(got, tprobes.contract_reference(a, b, sf,
                                                             group or 1), ref)
     assert ok, snr
+    # The same launch again: its sums do not depend on block timing.
+    assert torch.equal(tprobes.contract(a, b, sf=sf, group=group or 1), got)
+
+
+@pytest.mark.parametrize("m,k,n,group,rows", [
+    # tiled: 128-row tiles unsplit, 64-row tiles unsplit, each K step a block
+    (16384, 320, 320, None, (4096, 300, 64, 1)),
+    (16384, 200, 40, 8, (4096, 256, 8)),
+    # skinny: two warps a block (many blocks), four (few); 7 K steps, so
+    # a warp's groups are uneven
+    (40000, 128, 10, 32, (2048, 32)), (40000, 200, 16, None, (2049, 1))])
+def test_contract_kernel_bits_do_not_depend_on_rows(m, k, n, group, rows,
+                                                    cuda_device):
+    """contract(a[:r]) is contract(a)[:r] bit for bit: the form, the tile,
+    the K split and the warps a block change with the rows, the order of
+    the sums does not."""
+    gen = torch.Generator(cuda_device).manual_seed(k + n)
+    a = torch.randn(m, k, generator=gen, device=cuda_device)
+    b = torch.randn(k, n, generator=gen, device=cuda_device)
+    sf = (None if group is None else
+          torch.randn(m // group, n, generator=gen, device=cuda_device))
+    whole = tprobes.contract(a, b, sf=sf, group=group or 1)
+    for r in rows:
+        part = tprobes.contract(a[:r], b, sf=None if sf is None else
+                                sf[:r // group], group=group or 1)
+        assert torch.equal(part, whole[:r]), r
+
+
+def test_contract_kernel_split_calls_share_nothing(cuda_device):
+    """Split contractions on two streams at once, and replayed from a CUDA
+    graph, give the bits of the same calls made one at a time."""
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    ops = [(torch.randn(64, 320, generator=gen, device=cuda_device),
+            torch.randn(320, 320, generator=gen, device=cuda_device))
+           for _ in range(2)]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert tprobes.contract_plan(64, 320, 320, sms)[1] > 1
+    want = [tprobes.contract(a, b) for a, b in ops]
+    streams = [torch.cuda.Stream(cuda_device) for _ in ops]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    got = [[], []]
+    for _ in range(50):
+        for i, ((a, b), s) in enumerate(zip(ops, streams)):
+            with torch.cuda.stream(s):
+                got[i].append(tprobes.contract(a, b))
+    torch.cuda.synchronize(cuda_device)
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i]), i
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        captured = [tprobes.contract(a, b) for a, b in ops]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize(cuda_device)
+        assert all(torch.equal(c, w) for c, w in zip(captured, want))
 
 
 @pytest.mark.parametrize("rows,cols", [(16384, 320), (1001, 7), (33, 1000)])

@@ -417,6 +417,77 @@ def test_cpu_entries_never_reach_a_kernel(monkeypatch, rng):
     assert torch.equal(probes.row_sum(x[0]), x[0].sum(-1))
 
 
+# -- the contraction kernel's plan and layout (csrc/probes.cu) -----------------
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (64, 320, 320, ("tiled", 10)),        # k1 at the probe's size: split K
+    (16384, 320, 320, ("tiled", 1)),      # k1 at the chain's size
+    (2048, 10, 128, ("skinny", 1)),       # k2 at the probe's size
+    (524288, 10, 128, ("skinny", 1)),     # k2 at the chain's size
+    (3000, 16, 64, ("skinny", 1)), (3000, 17, 64, ("tiled", 2)),
+    (64, 17, 320, ("tiled", 10)), (256, 40, 1000, ("tiled", 1)),
+    (256, 40, 512, ("tiled", 16)),
+    (64, 320, 32, ("tiled", 1)), (100, 20, 0, ("tiled", 1))])
+def test_contract_plan_picks_the_form(m, n, k, want):
+    assert probes.contract_plan(m, n, k, 132) == want
+
+
+@pytest.mark.parametrize("sms", [1, 8, 78, 132])
+def test_contract_plan_splits_are_whole(sms):
+    """A split launch gives every K step a block of its own (so each block's
+    total is one step's partial, and the tile's cluster adds them in K
+    order: the unsplit sum's bits), and splits only where the tiles leave
+    SMs idle and the steps fit one cluster."""
+    for m in (1, 64, 65, 300, 4096):
+        for n in (17, 64, 320, 1000):
+            for k in (0, 1, 32, 33, 320, 512, 513, 5000):
+                form, splits = probes.contract_plan(m, n, k, sms)
+                tiles = (-(-m // probes.TILE_M)) * -(-n // probes.TILE_N)
+                steps = -(-k // probes.K_STEP)
+                assert form == "tiled" and splits >= 1
+                if splits > 1:
+                    assert tiles < sms and splits == steps
+                    assert steps <= probes.MAX_SPLIT_STEPS
+                else:
+                    assert (tiles >= sms or steps < 2
+                            or steps > probes.MAX_SPLIT_STEPS)
+
+
+def _groups_free(addr):
+    """A quarter-warp's eight 16-byte accesses (float addresses) are equal
+    or fall in eight distinct bank groups."""
+    a = np.asarray(addr)
+    assert (a % 4 == 0).all()
+    return len(set(a.tolist())) == 1 or len(set(((a // 4) % 8).tolist())) == 8
+
+
+def test_contract_shared_memory_reads_have_no_bank_conflict():
+    """The tiled form's A and B reads (thread t of 128: row thread
+    ty = t >> 4, rows ty + 8 i; column thread tx = t & 15, columns
+    4 tx ..) and the skinny form's A reads (lane l: row l) at every 4-deep
+    k, a quarter-warp at a time; a warp's tiled A reads (two rows) also fit
+    one wavefront of distinct bank groups."""
+    lanes = np.arange(32)
+    cols = probes.TILE_N // 4
+    for warp in range(4):
+        tid = 32 * warp + lanes
+        ty, tx = tid // cols, tid % cols
+        for kk in range(0, probes.K_STEP, 4):
+            for i in range(8):
+                a = (ty + (probes.TILE_M // 8) * i) * probes.A_PITCH + kk
+                for q in range(4):
+                    assert _groups_free(a[8 * q: 8 * q + 8])
+                assert len(set(((a // 4) % 8).tolist())) == len(set(a.tolist()))
+            for q in range(4):
+                b = (kk + q) * probes.B_PITCH + 4 * tx
+                for g in range(4):
+                    assert _groups_free(b[8 * g: 8 * g + 8])
+        a = lanes * probes.A_PITCH
+        for kk in range(0, probes.K_STEP, 4):
+            for q in range(4):
+                assert _groups_free(a[8 * q: 8 * q + 8] + kk)
+
+
 @pytest.mark.parametrize("probe", ["probe_dma_scale", "probe_store",
                                    "probe_dispatch", "probe_hlo",
                                    "probe_transpose", "probe_relayout",
