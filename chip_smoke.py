@@ -181,9 +181,12 @@ contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
-from phase 6, the OLS record its CUDA-graph time from phase 10 and the
-conv2d record its CUDA-graph time at 9x9 from phase 12.  The line before the last is a JSON object with the
-kernels' records; the last line is ``{"ok": true, "device": {...}}``.
+from phase 6, the OLS record its CUDA-graph time from phase 10, the
+conv2d record its CUDA-graph time at 9x9 from phase 12, and the
+scale_copy and permute records theirs from phase 20 (the PyTorch calls'
+and ``y.copy_(x)``'s device times on the line after the probes').  The
+line before the last is a JSON object with the kernels' records; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -1633,7 +1636,7 @@ def probe_phase(dev, kprobes):
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "probes.json").write_text(json.dumps(results, indent=1))
-    records = []
+    records, device = [], []
     for rec, _, (probe, key), replaces in PROBE_RECORDS:
         r = results[probe][key]
         records.append({
@@ -1641,12 +1644,19 @@ def probe_phase(dev, kprobes):
             "source": "simpledsp_tpu_torch/csrc/probes.cu",
             "replaces": replaces, "launches": launches[rec],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
             "plain_ms": r["plain_ms"], **bound(r["bytes"], r["flops"]),
             "library_ms": r["library_ms"]})
+        if "device_ms" in r:
+            device.append(f"{rec} {r['device_ms']:.4f} (library "
+                          f"{r['library_device_ms']:.4f})")
     print(f"probe kernels: launches on the probe path {launches}; " + "; ".join(
         f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
         f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']})"
         for r in records))
+    print("probe kernels, CUDA-graph (device) ms: " + "; ".join(device)
+          + f"; y.copy_(x) at the scale_copy record's size "
+          f"{results['probe_dma_scale']['record']['copy_device_ms']:.4f}")
     return records
 
 

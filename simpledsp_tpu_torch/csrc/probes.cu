@@ -9,8 +9,8 @@
 //                 probe_dma_scale.py:18, probe_store.py:59 (body_copy) and
 //                 probe_hlo.py:17.
 //   permute       y[b, c, r] = s x[b, r, c]: a batched transpose of the two
-//                 minor axes of a strided (B, R, C) view through a 32 x 33
-//                 shared-memory tile, optionally split at C/2 into two
+//                 minor axes of a strided (B, R, C) view through 32 KB
+//                 shared-memory tiles, optionally split at C/2 into two
 //                 output planes.  Replaces probe_store.py:68 (body_regmix),
 //                 probe_relayout.py:33, probe_transpose.py:82 and
 //                 probe_mosaic.py:129 (k4).
@@ -24,12 +24,31 @@
 //
 // What bounds them: the copies and transposes move every byte once each way
 // and do at most one multiply a value, so device memory bounds them
-// (3.35 TB/s); their designs keep every warp's loads and stores on
-// consecutive addresses (the transpose through the shared tile, whose odd
-// pitch keeps both its row and its column accesses free of bank conflicts);
-// the copy runs 8 blocks an SM, each thread with four vector loads in
-// flight before its stores, to keep enough bytes in the air.  The row sum
-// reads (rows, 320) once.
+// (3.35 TB/s).  The row sum reads (rows, 320) once.
+//
+// - The copy: a one-shot grid, each thread moving kCopyBytes = 16 bytes
+//   (one 16-byte vector, two 8-byte or four 4-byte ones, each width's
+//   fastest), all loaded before any is stored, from one 64-bit base
+//   address, with no loop and no bound check but in the last block; loads
+//   skip L1 and are the first out of L2 (an evict-first policy), stores
+//   stream.  It runs level with the card's own device-to-device copy (a
+//   ring of TMA bulk copies in persistent blocks measured 5 % slower).
+// - The transpose: a tile is TB batch entries x TR rows x TC columns of the
+//   input, 8192 floats (32 KB), the sides powers of two picked from the
+//   shape by kernels/probes.py permute_plan (TC = C rounded up, 16 to 128;
+//   TR up to 8192 / TC; a narrow R or C folds batch entries into the tile,
+//   so at C = 16 a tile is 512 rows, one 32 KB run of the input, and at
+//   R = 16 four whole batch entries).  It is read in 16-byte copies along
+//   C (cp.async) into shared memory in input order, each 16-byte slot
+//   XOR-swizzled by its row (perm_swizzle), and a lane then owns a 4 x 4
+//   block: four 16-byte reads (a row each, a quarter-warp on 8 distinct
+//   bank groups) and four 16-byte stores along R (a column each, a
+//   quarter-warp 128 contiguous bytes, 64 at TR = 16).  Persistent blocks
+//   take the tiles in turn with the next tile's copies in flight (a double
+//   buffer), in the order of the JAX probe's blocks (rows_per_block x
+//   batch_per_block, a "unit"), a tile's place worked out once in 32-bit
+//   arithmetic.  A view whose strides, sizes or base pointers do not allow
+//   16-byte accesses takes the same tiles in 4-byte copies and stores.
 //
 // The contraction keeps one rule in both its forms: each 32-deep K step's
 // products sum into a fresh partial (IEEE FMAs, k in order) that is then
@@ -80,16 +99,61 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <utility>
 
 namespace {
 
-constexpr int kCopyThreads = 256;
-constexpr int kUnroll = 4;       // vectors a copy thread has in flight
-constexpr int kTile = 32;        // the transpose's tile
-constexpr int kTileRows = 8;     // 32 x 8 threads cover a tile in 4 steps
 constexpr int kSumThreads = 256; // row sum: 8 warps, a row each
+
+int sm_count(int device) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess) {
+    return 0;
+  }
+  return sms;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- scale_copy ----------------------------------------------------------------
+
+constexpr int kCopyThreads = 256;
+constexpr int kCopyBytes = 16;        // bytes a thread: 1, 2 or 4 vectors
+constexpr bool kStreamHints = true;   // evict-first loads, streaming stores
 
 template <int kVec>
 struct VecOf;
@@ -117,85 +181,293 @@ __device__ __forceinline__ float4 scaled(float s, float4 v) {
                      __fmul_rn(s, v.w));
 }
 
-// y = s x over n floats as kVec-float vectors, grid-stride, each thread
-// issuing kUnroll loads before its kUnroll stores; the n % kVec tail is
-// scalar.  same_tile: every block walks the whole range itself (the
-// dispatch probe's grid, each step the same block).
-template <int kVec>
-__global__ void __launch_bounds__(kCopyThreads)
-scale_copy_kernel(const float* __restrict__ x, float* __restrict__ y,
-                  long long n, float s, int same_tile) {
-  using V = typename VecOf<kVec>::T;
-  const long long start =
-      same_tile ? threadIdx.x
-                : static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride =
-      same_tile ? blockDim.x : static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long nvec = n / kVec;
-  const V* xv = reinterpret_cast<const V*>(x);
-  V* yv = reinterpret_cast<V*>(y);
-  for (long long base = start; base < nvec; base += kUnroll * stride) {
-    V v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = base + u * stride;
-      if (i < nvec) v[u] = xv[i];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = base + u * stride;
-      if (i < nvec) yv[i] = scaled(s, v[u]);
-    }
-  }
-  for (long long i = nvec * kVec + start; i < n; i += stride) {
-    y[i] = scaled(s, x[i]);
+// An L2 policy under which the lines a load brings in are the first to go.
+__device__ __forceinline__ unsigned long long evict_first() {
+  unsigned long long p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// Loads of data read once: not kept in L1, first out of L2.
+__device__ __forceinline__ float load_once(const float* p,
+                                           unsigned long long pol) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ float2 load_once(const float2* p,
+                                            unsigned long long pol) {
+  float2 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v2.f32 {%0, %1}, [%2], "
+      "%3;"
+      : "=f"(v.x), "=f"(v.y)
+      : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ float4 load_once(const float4* p,
+                                            unsigned long long pol) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, "
+      "[%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+template <typename V>
+__device__ __forceinline__ V load_x(const V* p, unsigned long long pol) {
+  if constexpr (kStreamHints) {
+    return load_once(p, pol);
+  } else {
+    return *p;
   }
 }
 
-// One block: a 32-column strip of one batch entry's (R, C) matrix, over
-// rows_per_block rows (32 at a time) and batch_per_block batch entries.
-// Loads read 32 consecutive columns of a row (stride sc apart), stores write
-// 32 consecutive r of an output row; the tile's pitch of 33 keeps the
-// column-wise reads of the tile on 32 distinct banks.
-__global__ void __launch_bounds__(kTile * kTileRows)
-permute_kernel(const float* __restrict__ x, float* __restrict__ y0,
-               float* __restrict__ y1, long long nb, long long nr,
-               long long nc, long long sb, long long sr, long long sc, float s,
-               int rows_per_block, int batch_per_block, long long ctiles,
-               long long rtiles) {
-  __shared__ float tile[kTile][kTile + 1];
-  const long long id = blockIdx.x;
-  const long long ct = id % ctiles;
-  const long long rt = (id / ctiles) % rtiles;
-  const long long bt = id / (ctiles * rtiles);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long long c0 = ct * kTile;
-  const long long half = nc / 2;
-  for (long long b = bt * batch_per_block;
-       b < nb && b < (bt + 1) * batch_per_block; ++b) {
-    const float* xb = x + b * sb;
-    for (long long r0 = rt * rows_per_block;
-         r0 < nr && r0 < (rt + 1) * rows_per_block; r0 += kTile) {
-      for (int j = ty; j < kTile; j += kTileRows) {
-        const long long r = r0 + j, c = c0 + tx;
-        if (r < nr && c < nc) tile[j][tx] = xb[r * sr + c * sc];
+template <typename V>
+__device__ __forceinline__ void store_y(V* p, V v) {
+  if constexpr (kStreamHints) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// y = s x over n floats as kVec-float vectors: thread t of block k owns
+// vectors k kCopyThreads kCopyVecs + t + u kCopyThreads, u < kCopyVecs
+// (kCopyBytes a thread), all loaded before any is stored; only the last
+// block checks bounds.  Block 0 also writes the n % kVec tail.
+template <int kVec>
+__global__ void __launch_bounds__(kCopyThreads)
+scale_copy_kernel(const float* __restrict__ x, float* __restrict__ y,
+                  long long n, float s) {
+  using V = typename VecOf<kVec>::T;
+  constexpr int kCopyVecs = kCopyBytes / sizeof(V);
+  const long long nvec = n / kVec;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * (kCopyThreads * kCopyVecs) +
+      threadIdx.x;
+  const V* xv = reinterpret_cast<const V*>(x) + first;
+  V* yv = reinterpret_cast<V*>(y) + first;
+  const unsigned long long pol = kStreamHints ? evict_first() : 0ull;
+  V v[kCopyVecs];
+  if (first + (kCopyVecs - 1) * kCopyThreads < nvec) {
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u) v[u] = load_x(xv + u * kCopyThreads, pol);
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u) {
+      store_y(yv + u * kCopyThreads, scaled(s, v[u]));
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u) {
+      if (first + u * kCopyThreads < nvec) {
+        v[u] = load_x(xv + u * kCopyThreads, pol);
       }
-      __syncthreads();
-      for (int j = ty; j < kTile; j += kTileRows) {
-        const long long c = c0 + j, r = r0 + tx;
-        if (r < nr && c < nc) {
-          const float v = __fmul_rn(s, tile[tx][j]);
-          if (y1 == nullptr) {
-            y0[(b * nc + c) * nr + r] = v;
-          } else if (c < half) {
-            y0[(b * half + c) * nr + r] = v;
-          } else {
-            y1[(b * half + c - half) * nr + r] = v;
-          }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u) {
+      if (first + u * kCopyThreads < nvec) {
+        store_y(yv + u * kCopyThreads, scaled(s, v[u]));
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - nvec * kVec) {
+    const long long i = nvec * kVec + threadIdx.x;
+    y[i] = __fmul_rn(s, x[i]);
+  }
+}
+
+// Same-tile mode: every block rewrites all n floats (a tile of a few
+// thousand), as each step of the TPU probe's grid rewrote one block.
+template <int kVec>
+__global__ void __launch_bounds__(kCopyThreads)
+scale_tile_kernel(const float* __restrict__ x, float* __restrict__ y,
+                  long long n, float s) {
+  using V = typename VecOf<kVec>::T;
+  const long long nvec = n / kVec;
+  for (long long i = threadIdx.x; i < nvec; i += kCopyThreads) {
+    reinterpret_cast<V*>(y)[i] = scaled(s, reinterpret_cast<const V*>(x)[i]);
+  }
+  for (long long i = nvec * kVec + threadIdx.x; i < n; i += kCopyThreads) {
+    y[i] = __fmul_rn(s, x[i]);
+  }
+}
+
+// -- permute -------------------------------------------------------------------
+
+constexpr int kPermThreads = 256;
+constexpr int kPermTile = 8192;       // floats a tile (kernels/probes.py)
+constexpr size_t kPermSmem = 2 * sizeof(float) * kPermTile;  // two tiles
+
+struct PermArgs {
+  const float* x;
+  float* y0;
+  float* y1;  // null: one output
+  long long nb, nr, nc, sb, sr, sc;
+  float s;
+  int ltr, ltc, tb;  // a tile: tb batch entries x 2^ltr rows x 2^ltc columns
+  int tile;          // its floats, kPermTile
+  unsigned nbt, nrt, nct, tiles;  // tiles along b, r, c, and in all
+  unsigned ub, ur;   // a unit: ub batch tiles x ur row tiles, within those
+};
+
+struct Tile {
+  long long b0, r0, c0;  // its first batch entry, row and column
+  bool whole;            // all of it inside the view: no bound checks
+};
+
+// Where 16-byte slot q of a tile (input order, (b, r, c)) sits: q ^
+// perm_swizzle(r).  The XOR stays within 8 slots, one row of TC >= 32 or
+// two rows of one r / 4 (TC = 16).  A quarter-warp's 16-byte reads of the
+// stores are one slot of 8 consecutive r / 4 (TR >= 32), or two
+// neighbouring slots of 4 consecutive r / 4 (TR = 16): on 8 distinct
+// 16-byte bank groups either way.
+__device__ __forceinline__ int perm_swizzle(int r, int ltr) {
+  return ltr >= 5 ? (r >> 2) & 7 : (r >> 1) & 6;
+}
+
+// Tile t of the order: units of ub batch tiles x ur row tiles (those at
+// the ends may be short) in (batch, row) order, and within a unit the tiles
+// in (b, r, c) order.
+__device__ __forceinline__ Tile tile_at(const PermArgs& a, unsigned t) {
+  const unsigned band = a.ub * a.nrt * a.nct;  // a row of whole units
+  const unsigned ubi = t / band;
+  t -= ubi * band;
+  const unsigned ubn = min(a.ub, a.nbt - ubi * a.ub);
+  const unsigned unit = ubn * a.ur * a.nct;
+  const unsigned uri = t / unit;
+  t -= uri * unit;
+  const unsigned urn = min(a.ur, a.nrt - uri * a.ur);
+  const unsigned per_b = urn * a.nct;
+  const unsigned bi = t / per_b;
+  t -= bi * per_b;
+  const unsigned ri = t / a.nct;
+  Tile out;
+  out.b0 = static_cast<long long>(ubi * a.ub + bi) * a.tb;
+  out.r0 = static_cast<long long>(uri * a.ur + ri) << a.ltr;
+  out.c0 = static_cast<long long>(t - ri * a.nct) << a.ltc;
+  out.whole = out.b0 + a.tb <= a.nb && out.r0 + (1 << a.ltr) <= a.nr &&
+              out.c0 + (1 << a.ltc) <= a.nc;
+  return out;
+}
+
+// Tile `at` into `st`: kVec, 16-byte copies of 4 columns (thread `tid`
+// takes slots tid, tid + 256, ...), else 4-byte copies of any strides;
+// then one commit.
+template <bool kVec>
+__device__ __forceinline__ void perm_load(const PermArgs& a, float* st,
+                                          const Tile& at, int tid) {
+  const float* xt = a.x + at.b0 * a.sb + at.r0 * a.sr + at.c0 * a.sc;
+  const int mc = (1 << a.ltc) - 1, mr = (1 << a.ltr) - 1;
+  const int per = kVec ? 4 : 1;
+  for (int e = per * tid; e < a.tile; e += per * kPermThreads) {
+    const int c = e & mc, r = (e >> a.ltc) & mr, bi = e >> (a.ltc + a.ltr);
+    if (!at.whole && (at.b0 + bi >= a.nb || at.r0 + r >= a.nr ||
+                      at.c0 + c >= a.nc)) {
+      continue;
+    }
+    const float* src = xt + bi * a.sb + r * a.sr + c * (kVec ? 1 : a.sc);
+    float* dst = st + 4 * ((e >> 2) ^ perm_swizzle(r, a.ltr)) + (e & 3);
+    if constexpr (kVec) {
+      cp_async16(dst, src, true);
+    } else {
+      cp_async4(dst, src, true);
+    }
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float part(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Tile `at` from `st` to the output, scaled.  A lane owns a 4 x 4 block,
+// rows 4 r4 .. 4 r4 + 3 of 4-column slot s: four 16-byte reads (a row
+// each), then each column's four rows in one 16-byte store (kVec) or four
+// 4-byte ones.  A warp takes units of 32 blocks (warp w units w, w + 8,
+// ...): TR >= 32, 4 slots x 8 r4, lane l slot l / 8 and r4 l % 8, so a
+// quarter-warp stores 128 contiguous bytes of a column; TR = 16, 8 slots x
+// 4 r4 (a quarter-warp two columns of 64 bytes).
+template <bool kVec>
+__device__ __forceinline__ void perm_store(const PermArgs& a, const float* st,
+                                           const Tile& at, int tid) {
+  const int lane = tid & 31;
+  const int lcs = a.ltc - 2;  // log2 of the 4-column slots of a row
+  const long long half = a.nc / 2;
+  for (int u = tid >> 5; u < a.tile / 512; u += kPermThreads / 32) {
+    int s, r4;
+    if (a.ltr >= 5) {
+      r4 = 8 * (u & ((1 << (a.ltr - 5)) - 1)) + (lane & 7);
+      s = 4 * (u >> (a.ltr - 5)) + (lane >> 3);
+    } else {
+      r4 = lane & 3;
+      s = 8 * u + (lane >> 2);
+    }
+    const int bi = s >> lcs, cg = s & ((1 << lcs) - 1);
+    const long long gb = at.b0 + bi, gc = at.c0 + 4 * cg, gr = at.r0 + 4 * r4;
+    if (!at.whole && (gb >= a.nb || gc >= a.nc || gr >= a.nr)) continue;
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * r4 + i;
+      const int q = (((bi << a.ltr) + r) << lcs) + cg;
+      v[i] = *reinterpret_cast<const float4*>(
+          st + 4 * (q ^ perm_swizzle(r, a.ltr)));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long c = gc + k;
+      if (!kVec && c >= a.nc) break;
+      float* row;
+      if (a.y1 == nullptr) {
+        row = a.y0 + (gb * a.nc + c) * a.nr;
+      } else if (c < half) {
+        row = a.y0 + (gb * half + c) * a.nr;
+      } else {
+        row = a.y1 + (gb * half + c - half) * a.nr;
+      }
+      const float4 w = make_float4(
+          __fmul_rn(a.s, part(v[0], k)), __fmul_rn(a.s, part(v[1], k)),
+          __fmul_rn(a.s, part(v[2], k)), __fmul_rn(a.s, part(v[3], k)));
+      if constexpr (kVec) {
+        *reinterpret_cast<float4*>(row + gr) = w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (gr + j < a.nr) row[gr + j] = part(w, j);
         }
       }
-      __syncthreads();
     }
+  }
+}
+
+// Persistent blocks: block k moves tiles k, k + G, ..., tile t + G's copies
+// in flight while tile t is stored.
+template <bool kVec>
+__global__ void __launch_bounds__(kPermThreads)
+permute_kernel(const PermArgs a) {
+  extern __shared__ __align__(16) float stage[];
+  const int tid = threadIdx.x;
+  unsigned t = blockIdx.x;
+  if (t >= a.tiles) return;
+  Tile cur = tile_at(a, t);
+  perm_load<kVec>(a, stage, cur, tid);
+  for (int k = 0; t < a.tiles; ++k, t += gridDim.x) {
+    const unsigned tn = t + gridDim.x;
+    const Tile next = tn < a.tiles ? tile_at(a, tn) : cur;
+    const float* here = stage + (k & 1) * a.tile;
+    if (tn < a.tiles) {
+      perm_load<kVec>(a, stage + ((k + 1) & 1) * a.tile, next, tid);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    perm_store<kVec>(a, here, cur, tid);
+    __syncthreads();  // this stage is refilled next
+    cur = next;
   }
 }
 
@@ -241,31 +513,6 @@ struct Operands {
   int a_vec, b_vec;  // 16-byte copies of A's rows / B's rows
   int c_vec;         // 16-byte stores of C's rows
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // A's rows m0 .. m0 + rows - 1 at k0 .. k0 + 31 into as (pitch kApitch),
 // zeros past A; thread `t` of kThreadsPer copies.
@@ -670,15 +917,6 @@ row_sum_kernel(const float* __restrict__ x, float* __restrict__ y,
   if (lane == 0) y[row] = part;
 }
 
-int sm_count(int device) {
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-      cudaSuccess) {
-    return 0;
-  }
-  return sms;
-}
-
 // One block a tile, or with `split` one a K step of each tile, the steps
 // of a tile a cluster (2 to kMaxSplit steps).  Where the card cannot hold
 // such a cluster, one block a tile: the same bits.
@@ -757,12 +995,41 @@ cudaError_t launch_skinny_n(const Operands& o, cudaStream_t st, int sms,
   return err;
 }
 
+// The blocks of a permute instance (kVec) that fill a device, found, and
+// the instance's shared memory raised to two tiles, at its first launch
+// there; later launches read them back.
+constexpr int kMaxDevices = 64;
+std::atomic<int> perm_fill[kMaxDevices][2];  // 0: not found yet
+
+cudaError_t perm_blocks(bool vec, int device, long long* out) {
+  std::atomic<int>* slot =
+      device >= 0 && device < kMaxDevices ? &perm_fill[device][vec] : nullptr;
+  const int known = slot ? slot->load(std::memory_order_relaxed) : 0;
+  if (known > 0) {
+    *out = known;
+    return cudaSuccess;
+  }
+  const auto fn = vec ? permute_kernel<true> : permute_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPermSmem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                      kPermThreads, kPermSmem);
+  if (err != cudaSuccess) return err;
+  const int fill = (per_sm < 1 ? 1 : per_sm) * sm_count(device);
+  if (slot && fill > 0) slot->store(fill, std::memory_order_relaxed);
+  *out = fill < 1 ? 1 : fill;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // y = scale x over n floats with vec_bytes (4, 8 or 16) loads and stores;
 // x and y aligned to vec_bytes.  same_tile_blocks = 0: one pass over the
-// range by a grid that fills the card; G > 0: G blocks that each rewrite
-// the whole range (a tile of at most a few thousand floats).
+// range (a one-shot grid); G > 0: G blocks that each rewrite the whole range
+// (a tile of at most a few thousand floats).
 extern "C" int sdsp_scale_copy_f32(const float* x, float* y, long long n,
                                    float scale, int vec_bytes,
                                    int same_tile_blocks, int device,
@@ -775,56 +1042,100 @@ extern "C" int sdsp_scale_copy_f32(const float* x, float* y, long long n,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int vec = vec_bytes / 4;
-  long long blocks = same_tile_blocks;
-  if (blocks == 0) {
-    const long long per_block = static_cast<long long>(kCopyThreads) * kUnroll;
-    const long long need = (n / vec + per_block - 1) / per_block;
-    const long long fill = 8LL * sm_count(device);
-    blocks = need < fill ? need : fill;
-    if (blocks < 1) blocks = 1;
-  }
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int same = same_tile_blocks > 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (same_tile_blocks > 0) {
+    const unsigned g = static_cast<unsigned>(same_tile_blocks);
+    if (vec == 4) {
+      scale_tile_kernel<4><<<g, kCopyThreads, 0, st>>>(x, y, n, scale);
+    } else if (vec == 2) {
+      scale_tile_kernel<2><<<g, kCopyThreads, 0, st>>>(x, y, n, scale);
+    } else {
+      scale_tile_kernel<1><<<g, kCopyThreads, 0, st>>>(x, y, n, scale);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long per_block =
+      static_cast<long long>(kCopyThreads) * (kCopyBytes / vec_bytes);
+  long long blocks = (n / vec + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;  // the tail alone
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned g = static_cast<unsigned>(blocks);
   if (vec == 4) {
-    scale_copy_kernel<4><<<static_cast<unsigned>(blocks), kCopyThreads, 0, st>>>(
-        x, y, n, scale, same);
+    scale_copy_kernel<4><<<g, kCopyThreads, 0, st>>>(x, y, n, scale);
   } else if (vec == 2) {
-    scale_copy_kernel<2><<<static_cast<unsigned>(blocks), kCopyThreads, 0, st>>>(
-        x, y, n, scale, same);
+    scale_copy_kernel<2><<<g, kCopyThreads, 0, st>>>(x, y, n, scale);
   } else {
-    scale_copy_kernel<1><<<static_cast<unsigned>(blocks), kCopyThreads, 0, st>>>(
-        x, y, n, scale, same);
+    scale_copy_kernel<1><<<g, kCopyThreads, 0, st>>>(x, y, n, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // y[b, c, r] = scale x[b, r, c] for x read at b sb + r sr + c sc.  y1 null:
 // y0 is (nb, nc, nr); else nc is even and y0 / y1 are the (nb, nc / 2, nr)
-// planes of c < nc / 2 and c >= nc / 2.  A block covers rows_per_block rows
-// (a multiple of 32) of batch_per_block batch entries.
+// planes of c < nc / 2 and c >= nc / 2.  A tile is tile_batch x tile_rows x
+// tile_cols (powers of two, each side >= 16, kPermTile floats in all;
+// kernels/probes.py permute_plan picks them); vec = 1 takes 16-byte copies
+// and stores, which need sc = 1, nc, nr, sr and (nb > 1) sb multiples of 4
+// and 16-byte aligned x, y0 and y1.  The tiles go in units of
+// rows_per_block rows (a multiple of 32) of batch_per_block batch entries.
 extern "C" int sdsp_permute_f32(const float* x, float* y0, float* y1,
                                 long long nb, long long nr, long long nc,
                                 long long sb, long long sr, long long sc,
                                 float scale, int rows_per_block,
-                                int batch_per_block, int device, void* stream) {
-  if (nb < 0 || nr < 0 || nc < 0 || rows_per_block < kTile ||
-      rows_per_block % kTile != 0 || batch_per_block < 1 ||
-      (y1 != nullptr && nc % 2 != 0)) {
+                                int batch_per_block, int tile_rows,
+                                int tile_cols, int tile_batch, int vec,
+                                int device, void* stream) {
+  auto pow2 = [](int v) { return v >= 16 && (v & (v - 1)) == 0; };
+  const long long tile = static_cast<long long>(tile_rows) * tile_cols *
+                         (tile_batch < 1 ? 0 : tile_batch);
+  if (nb < 0 || nr < 0 || nc < 0 || rows_per_block < 32 ||
+      rows_per_block % 32 != 0 || batch_per_block < 1 ||
+      (y1 != nullptr && nc % 2 != 0) || !pow2(tile_rows) ||
+      !pow2(tile_cols) || tile_batch < 1 || tile != kPermTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec && !(sc == 1 && nc % 4 == 0 && nr % 4 == 0 && sr % 4 == 0 &&
+               (nb <= 1 || sb % 4 == 0) && aligned16(x) && aligned16(y0) &&
+               (y1 == nullptr || aligned16(y1)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nb == 0 || nr == 0 || nc == 0) return static_cast<int>(cudaSuccess);
-  const long long ctiles = (nc + kTile - 1) / kTile;
-  const long long rtiles = (nr + rows_per_block - 1) / rows_per_block;
-  const long long btiles = (nb + batch_per_block - 1) / batch_per_block;
-  const long long blocks = ctiles * rtiles * btiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  permute_kernel<<<static_cast<unsigned>(blocks), dim3(kTile, kTileRows), 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, y0, y1, nb, nr, nc, sb, sr, sc, scale, rows_per_block,
-      batch_per_block, ctiles, rtiles);
+  PermArgs a{};
+  a.x = x;
+  a.y0 = y0;
+  a.y1 = y1;
+  a.nb = nb, a.nr = nr, a.nc = nc, a.sb = sb, a.sr = sr, a.sc = sc;
+  a.s = scale;
+  a.ltr = __builtin_ctz(tile_rows);
+  a.ltc = __builtin_ctz(tile_cols);
+  a.tb = tile_batch;
+  a.tile = static_cast<int>(tile);
+  const long long nbt = (nb + tile_batch - 1) / tile_batch;
+  const long long nrt = (nr + tile_rows - 1) / tile_rows;
+  const long long nct = (nc + tile_cols - 1) / tile_cols;
+  const long long tiles = nbt * nrt * nct;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ub = (batch_per_block + tile_batch - 1) / tile_batch;
+  const long long ur = (rows_per_block + tile_rows - 1) / tile_rows;
+  a.nbt = static_cast<unsigned>(nbt);
+  a.nrt = static_cast<unsigned>(nrt);
+  a.nct = static_cast<unsigned>(nct);
+  a.tiles = static_cast<unsigned>(tiles);
+  // a unit wider than the view is the view: the same order
+  a.ub = static_cast<unsigned>(ub < nbt ? ub : nbt);
+  a.ur = static_cast<unsigned>(ur < nrt ? ur : nrt);
+  // As many blocks as fit the card, then fewer where that evens the
+  // rounds: every block takes ceil(tiles / most) tiles or one fewer.
+  long long most = 0;
+  err = perm_blocks(vec != 0, device, &most);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rounds = (a.tiles + most - 1) / most;
+  const long long blocks = (a.tiles + rounds - 1) / rounds;
+  const auto fn = vec ? permute_kernel<true> : permute_kernel<false>;
+  fn<<<static_cast<unsigned>(blocks), kPermThreads, kPermSmem,
+       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

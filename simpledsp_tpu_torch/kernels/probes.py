@@ -12,6 +12,8 @@ plain version.  Each kernel has a wrapper with a ``launches`` count and a
   16-byte vectors, or G blocks that each rewrite one small tile;
 - :func:`permute`: y[b, c, r] = scale x[b, r, c] of a strided (B, R, C)
   view, optionally split at C/2 into two planes (``permute_reference``);
+  the kernel's tile and instance (16-byte or 4-byte accesses) are
+  :func:`permute_plan`'s;
 - :func:`contract`: a @ b in IEEE float32, optionally with the shift-in
   epilogue of the frame prefix (``contract_reference``); the kernel's form
   (skinny for N <= 16, else tiled, each K step in a block of its own where
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,7 +38,7 @@ from simpledsp_tpu_torch.precision import ieee_fp32
 __all__ = ["scale_reference", "permute_reference", "contract_reference",
            "row_sum_reference", "scale_copy", "permute", "contract", "row_sum",
            "scale_copy_kernel", "permute_kernel", "contract_kernel",
-           "row_sum_kernel", "contract_plan"]
+           "row_sum_kernel", "contract_plan", "permute_plan", "PermutePlan"]
 
 
 # -- plain versions ----------------------------------------------------------
@@ -94,7 +96,8 @@ def _library() -> ctypes.CDLL:
                           ctypes.c_float)
     sigs = {
         "sdsp_scale_copy_f32": [ptr, ptr, i64, f32, i32, i32, i32, ptr],
-        "sdsp_permute_f32": [ptr] * 3 + [i64] * 6 + [f32, i32, i32, i32, ptr],
+        "sdsp_permute_f32": [ptr] * 3 + [i64] * 6 + [f32] + [i32] * 7
+                            + [ptr],
         "sdsp_contract_f32": [ptr] * 3 + [i32] * 3 + [i64] * 4
                              + [ptr, i64, i64, i32, i32, i32, ptr],
         "sdsp_row_sum_f32": [ptr, ptr, i64, i32, i64, i32, ptr],
@@ -155,6 +158,10 @@ class _ScaleCopyKernel(_ProbeKernel):
 
 
 class _PermuteKernel(_ProbeKernel):
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.last_plan: Optional[PermutePlan] = None
+
     def __call__(self, x3: torch.Tensor, scale: float, split: bool,
                  rows_per_block: int, batch_per_block: int):
         _check(self.name, x3)
@@ -162,12 +169,64 @@ class _PermuteKernel(_ProbeKernel):
         shape = (nb, nc // 2, nr) if split else (nb, nc, nr)
         y0 = torch.empty(shape, dtype=x3.dtype, device=x3.device)
         y1 = torch.empty_like(y0) if split else None
+        # y0 and y1 are fresh allocations, which start 16-byte aligned
+        plan = permute_plan(x3.shape, x3.stride(),
+                            x3.data_ptr() % 16 == 0)
         rc = self.library().sdsp_permute_f32(
             x3.data_ptr(), y0.data_ptr(), None if y1 is None else y1.data_ptr(),
             nb, nr, nc, *x3.stride(), float(scale), rows_per_block,
-            batch_per_block, x3.device.index, _stream(x3))
+            batch_per_block, plan.tr, plan.tc, plan.tb, int(plan.vec),
+            x3.device.index, _stream(x3))
         self._launched(rc)
+        self.last_plan = plan
         return (y0, y1) if split else y0
+
+
+# The transpose's tiles (csrc/probes.cu): a block of PERMUTE_THREADS threads
+# moves a tile of TB batch entries x TR rows x TC columns, PERMUTE_TILE
+# floats (the kernel's kPermTile), each side a power of two: TC is C
+# rounded up, from PERMUTE_MIN_SIDE to PERMUTE_MAX_TC; TR is R rounded up,
+# from PERMUTE_MIN_SIDE to what TC leaves; TB what both leave.  Two tiles a
+# block (the next in flight) in shared memory.
+PERMUTE_THREADS = 256
+PERMUTE_TILE = 8192
+PERMUTE_MIN_SIDE, PERMUTE_MAX_TC = 16, 128
+
+
+class PermutePlan(NamedTuple):
+    """The transpose kernel's instance and tile: ``vec`` 16-byte copies and
+    stores (else 4-byte), a tile of ``tb`` x ``tr`` x ``tc``."""
+    vec: bool
+    tr: int
+    tc: int
+    tb: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def permute_plan(shape: Sequence[int], strides: Sequence[int],
+                 aligned: bool) -> PermutePlan:
+    """The transpose kernel's plan for a (B, R, C) view of ``strides``
+    (elements) whose input and outputs are 16-byte ``aligned``, with tiles
+    of PERMUTE_TILE floats.  The 16-byte instance needs contiguous columns,
+    C and R multiples of 4 and the row and batch strides too, so that every
+    16-byte slot of a tile starts 16-byte aligned in the input and in the
+    output; any other view takes 4-byte accesses, the same tiles."""
+    return _plan(tuple(shape), tuple(strides), bool(aligned), PERMUTE_TILE)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shape: Tuple[int, int, int], strides: Tuple[int, int, int],
+          aligned: bool, tile: int) -> PermutePlan:
+    nb, nr, nc = shape
+    sb, sr, sc = strides
+    tc = min(max(_pow2_at_least(nc), PERMUTE_MIN_SIDE), PERMUTE_MAX_TC)
+    tr = min(max(_pow2_at_least(nr), PERMUTE_MIN_SIDE), tile // tc)
+    vec = (aligned and sc == 1 and nc % 4 == 0 and nr % 4 == 0
+           and sr % 4 == 0 and (nb <= 1 or sb % 4 == 0))
+    return PermutePlan(bool(vec), tr, tc, tile // (tr * tc))
 
 
 # The contraction's forms (csrc/probes.cu): N <= SKINNY_MAX_N takes the
@@ -273,8 +332,10 @@ def permute(x3: torch.Tensor, scale: float = 1.0, *, split: bool = False,
             rows_per_block: int = 32, batch_per_block: int = 1):
     """y[b, c, r] = scale x3[b, r, c] for a (B, R, C) view of any strides:
     a contiguous (B, C, R) tensor, or with ``split`` the (B, C/2, R) planes
-    of c < C/2 and c >= C/2.  On the card a block covers ``rows_per_block``
-    rows (a multiple of 32) of ``batch_per_block`` batch entries."""
+    of c < C/2 and c >= C/2.  On the card ``rows_per_block`` rows (a
+    multiple of 32) of ``batch_per_block`` batch entries are a unit of
+    work, the JAX probe's block: the kernel's blocks take its tiles in
+    turn, a unit after the other (``permute_plan`` gives the tiles)."""
     if x3.dim() != 3:
         raise ValueError(f"permute takes a (B, R, C) view, got "
                          f"{tuple(x3.shape)}")

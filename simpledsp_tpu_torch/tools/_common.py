@@ -120,13 +120,19 @@ def randn(shape, seed: int, device: torch.device) -> torch.Tensor:
 
 
 def record(ms: float, plain_ms: float, library_ms: float, max_abs_err: float,
-           moved: int, flops: float) -> dict:
+           moved: int, flops: float, device_ms: Optional[float] = None,
+           library_device_ms: Optional[float] = None) -> dict:
     """The numbers a kernel's line in ``chip_smoke.py`` takes from a probe:
     its time, its plain version's and one PyTorch call's, its error, and the
-    bytes it must move and the operations it must do (for the bound)."""
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "max_abs_err": max_abs_err, "bytes": int(moved),
-            "flops": float(flops)}
+    bytes it must move and the operations it must do (for the bound); with
+    ``device_ms`` also the kernel's and the PyTorch call's CUDA-graph
+    (device) times."""
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "max_abs_err": max_abs_err, "bytes": int(moved),
+           "flops": float(flops)}
+    if device_ms is not None:
+        out.update(device_ms=device_ms, library_device_ms=library_device_ms)
+    return out
 
 
 def main(run: Callable) -> None:
@@ -173,22 +179,28 @@ def build_all(commands: Sequence[Sequence[str]], what: str) -> None:
         raise RuntimeError(f"{what}: a build failed")
 
 
-def time_in_turns(script: str, arms: Sequence[Tuple[str, str, str]],
+def time_in_turns(script: str, arms: Sequence[Tuple[str, ...]],
                   turns: int, extra: Sequence[str] = ()) -> dict:
-    """Run ``python3 script --child ROOT CSRC *extra`` for each arm (name,
-    root, csrc): once with ``--build-only``, all at once, then once a turn,
-    the arms forward in even turns and backward in odd ones.  Each child
-    prints a JSON object as its last line; returns {"nvidia_smi", "runs"}."""
+    """Run ``python3 script --child ROOT CSRC *extra *own`` for each arm
+    (name, root, csrc[, own]: that arm's own arguments): once with
+    ``--build-only``, all at once, then once a turn, the arms forward in
+    even turns and backward in odd ones.  Each child prints a JSON object
+    as its last line; returns {"nvidia_smi", "runs"}."""
+    arms = [(a[0], a[1], a[2], tuple(a[3]) if len(a) > 3 else ())
+            for a in arms]
+    extra = tuple(extra)
     build_all([[sys.executable, script, "--child", root, csrc, "--build-only"]
-               for _, root, csrc in arms], script)
+               for _, root, csrc, _ in {a[2]: a for a in arms}.values()],
+              script)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     runs = []
     for turn in range(turns):
-        for name, root, csrc in (arms if turn % 2 == 0 else arms[::-1]):
+        for name, root, csrc, own in (arms if turn % 2 == 0
+                                      else arms[::-1]):
             proc = subprocess.run([sys.executable, script, "--child", root,
-                                   csrc, *extra], capture_output=True,
+                                   csrc, *extra, *own], capture_output=True,
                                   text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"{name} failed:\n{proc.stdout}"

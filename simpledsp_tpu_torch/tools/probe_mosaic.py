@@ -23,7 +23,8 @@ timed against its float32 plain version and one PyTorch call
 (``torch.einsum`` in IEEE float32, ``torch.sum``,
 ``.permute(1, 2, 0).contiguous()``): ms, the median of 5 CUDA-event
 timings, of 20 calls replayed from a CUDA graph for k1-k3 (a few
-microseconds of work each, which the host's launch cost would hide).
+microseconds of work each, which the host's launch cost would hide); k4
+of one call, and of 20 in a CUDA graph as its device time.
 
 To answer the question for the chain: the same pieces are timed at the
 64 x 2^20 chain's own sizes (16384 frames at N = 4096: k1 as a (16384, 320)
@@ -136,7 +137,9 @@ def run(device=None) -> dict:
                        median_ms(lambda: probes.permute_reference(
                            big4.permute(1, 0, 2))),
                        median_ms(lambda: big4.permute(1, 2, 0).contiguous()),
-                       err, 2 * big4.numel() * 4, 0)
+                       err, 2 * big4.numel() * 4, 0,
+                       graph_ms(lambda: k4(big4)),
+                       graph_ms(lambda: big4.permute(1, 2, 0).contiguous()))
     return {**out, "prefix": prefix_at_chain_size(dev)}
 
 

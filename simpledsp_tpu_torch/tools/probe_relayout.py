@@ -24,7 +24,8 @@ for 5 rounds (ms a call: median of the rounds, CUDA events):
 
 The relayout kernel alone is also timed in the JAX form, (32, 16384, 128)
 -> two (16384, 64, 32) planes, held bit for bit to its plain version,
-beside ``x.permute(1, 2, 0).contiguous()``.
+beside ``x.permute(1, 2, 0).contiguous()``: one call in CUDA events, and
+device time in a CUDA graph of 20 calls.
 
     python -m simpledsp_tpu_torch.tools.probe_relayout
 """
@@ -38,8 +39,9 @@ from simpledsp_tpu_torch.kernels import chain as kchain
 from simpledsp_tpu_torch.kernels import chain_variants as kcv
 from simpledsp_tpu_torch.kernels import probes
 from simpledsp_tpu_torch.models.northstar import default_design
-from simpledsp_tpu_torch.tools._common import (cuda_device, main, median_ms,
-                                               randn, record, same_bits)
+from simpledsp_tpu_torch.tools._common import (cuda_device, graph_ms, main,
+                                               median_ms, randn, record,
+                                               same_bits)
 
 N = 4096
 C, T = 64, 1 << 20
@@ -105,11 +107,17 @@ def run(device=None) -> dict:
     want = probes.permute_reference(view, split=True)
     err = max(same_bits(g, w, f"relayout plane {i}")
               for i, (g, w) in enumerate(zip(got, want)))
-    rec = record(median_ms(lambda: probes.permute(view, split=True)),
+    def kernel():
+        return probes.permute(view, split=True)
+
+    def library():
+        return xj.permute(1, 2, 0).contiguous()
+
+    rec = record(median_ms(kernel),
                  median_ms(lambda: probes.permute_reference(view, split=True),
                            reps=3),
-                 median_ms(lambda: xj.permute(1, 2, 0).contiguous()), err,
-                 2 * xj.numel() * xj.element_size(), 0)
+                 median_ms(library), err, 2 * xj.numel() * xj.element_size(),
+                 0, graph_ms(kernel), graph_ms(library))
     return {"chain_ms": chain_ms,
             "msamples_per_s": {k: C * T / v / 1e3 for k, v in chain_ms.items()},
             "record": rec}

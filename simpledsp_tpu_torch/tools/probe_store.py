@@ -15,17 +15,24 @@ of each thread's load and store.  So this probe times:
   through a shared-memory tile);
 
 each held to its plain version bit for bit, each beside the plain version's
-time, as ms (median of 5 CUDA-event timings), GB/s read + write and the
-share of 3.35 TB/s.
+time, as ms (median of 5 CUDA-event timings of one call) and device ms (a
+CUDA graph of 20 calls), and GB/s read + write and its share of
+3.35 TB/s, of the window (``gbps``) and of the device time
+(``device_gbps``); beside the wide copy the device times of ``torch.mul``
+and ``y.copy_(x)`` (the card's own copy), beside regmix that of
+``.transpose(-1, -2).contiguous()`` (a transpose without the scale).
 
     python -m simpledsp_tpu_torch.tools.probe_store
 """
 
 from __future__ import annotations
 
+import torch
+
 from simpledsp_tpu_torch.kernels import probes
-from simpledsp_tpu_torch.tools._common import (HBM_BPS, cuda_device, main,
-                                               median_ms, randn, same_bits)
+from simpledsp_tpu_torch.tools._common import (HBM_BPS, cuda_device,
+                                               graph_ms, main, median_ms,
+                                               randn, same_bits)
 
 F = 16384
 WIDE, NARROW = (F, 16, 128), (F, 64, 32)
@@ -46,12 +53,21 @@ def run(device=None) -> dict:
     out = []
     for name, x, kernel, plain in forms:
         same_bits(kernel(), plain(), name)
-        ms = median_ms(kernel)
+        ms, dev_ms = median_ms(kernel), graph_ms(kernel)
         moved = 2 * x.numel() * x.element_size()
-        out.append({"form": name, "ms": ms, "gbps": moved / ms / 1e6,
+        out.append({"form": name, "ms": ms, "device_ms": dev_ms,
+                    "gbps": moved / ms / 1e6,
                     "share_of_hbm": moved / (ms * 1e-3) / HBM_BPS,
-                    "plain_ms": median_ms(plain, reps=3)})
-    return {"forms": out}
+                    "device_gbps": moved / dev_ms / 1e6,
+                    "device_share_of_hbm": moved / (dev_ms * 1e-3) / HBM_BPS,
+                    "plain_ms": median_ms(plain, reps=3),
+                    "plain_device_ms": graph_ms(plain)})
+    y = torch.empty_like(wide)
+    library = {"wide: torch.mul": graph_ms(lambda: torch.mul(wide, 2.0)),
+               "wide: y.copy_(x)": graph_ms(lambda: y.copy_(wide)),
+               "regmix: .transpose(-1, -2).contiguous()": graph_ms(
+                   lambda: wide.transpose(-1, -2).contiguous())}
+    return {"forms": out, "library_device_ms": library}
 
 
 if __name__ == "__main__":

@@ -899,6 +899,150 @@ def test_permute_kernel_bit_exact(shape, rows, batch, cuda_device):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097, 1000003])
+@pytest.mark.parametrize("vec_bytes", [4, 8, 16])
+def test_scale_copy_kernel_tails(n, vec_bytes, cuda_device):
+    """n % 4 != 0 (the scalar tail), one pass and same-tile mode."""
+    x = torch.randn(n, generator=torch.Generator(cuda_device).manual_seed(n),
+                    device=cuda_device)
+    assert torch.equal(tprobes.scale_copy(x, 3.0, vec_bytes=vec_bytes), x * 3.0)
+    tile = x[:min(n, 1003)]
+    for g in (1, 7):
+        assert torch.equal(tprobes.scale_copy(tile, -0.5, vec_bytes=vec_bytes,
+                                              same_tile_blocks=g),
+                           tile * -0.5)
+
+
+@pytest.mark.parametrize("vec_bytes", [4, 8, 16])
+def test_scale_copy_kernel_beyond_2_gib(vec_bytes, cuda_device):
+    """More than 2^31 bytes in: 64-bit offsets; the last floats checked."""
+    n = (1 << 29) + 3
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    if free < 3 * 4 * n:
+        pytest.skip("needs 6.5 GB of free device memory")
+    x = torch.empty(n, device=cuda_device)
+    x[:] = 1.0
+    x[-1000:] = torch.arange(1000, device=cuda_device, dtype=torch.float32)
+    y = tprobes.scale_copy(x, 2.0, vec_bytes=vec_bytes)
+    assert torch.equal(y[-1000:], x[-1000:] * 2.0)
+    assert bool((y[:-1000] == 2.0).all())
+    del x, y
+
+
+def test_scale_copy_kernel_on_two_streams_and_in_a_graph(cuda_device):
+    """Copies on two streams at once, and replayed from a CUDA graph, give
+    the bits of the same calls made one at a time."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    xs = [torch.randn(1 << 22, generator=gen, device=cuda_device) + i
+          for i in range(2)]
+    want = [x * 2.0 for x in xs]
+    streams = [torch.cuda.Stream(cuda_device) for _ in xs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda_device))
+    got = [[], []]
+    for _ in range(20):
+        for i, (x, st) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(st):
+                got[i].append(tprobes.scale_copy(x))
+    torch.cuda.synchronize(cuda_device)
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i]), i
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        captured = [tprobes.scale_copy(x, vec_bytes=v)
+                    for x, v in zip(xs, (16, 4))]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize(cuda_device)
+        assert all(torch.equal(c, w) for c, w in zip(captured, want))
+
+
+@pytest.mark.parametrize("shape,vec", [
+    ((4, 1000, 16), True), ((300, 16, 128), True), ((9, 16, 16), True),
+    ((64, 32, 128), True), ((70, 32, 64), True), ((3, 68, 20), True),
+    ((2, 4, 4), True),
+    # not multiples of 4: the 4-byte instance
+    ((3, 101, 45), False), ((5, 67, 30), False), ((2, 16, 13), False),
+    ((1, 1, 1), False)])
+def test_permute_kernel_shapes(shape, vec, cuda_device):
+    """C = 16, R = 16, both, shapes that are not multiples of 4 or of a
+    tile, with a scale: the plain version's bits, one launch, and the
+    instance permute_plan picks."""
+    x = torch.randn(shape, generator=torch.Generator(cuda_device).manual_seed(
+        sum(shape)), device=cuda_device)
+    before = tprobes.permute_kernel.launches
+    got = tprobes.permute(x, -1.25)
+    assert tprobes.permute_kernel.launches == before + 1
+    assert tprobes.permute_kernel.last_plan.vec == vec
+    assert torch.equal(got, tprobes.permute_reference(x, -1.25))
+
+
+def test_permute_kernel_takes_the_scalar_instance(cuda_device):
+    """A view with columns strided (sc != 1), and one whose base pointer
+    is one float past a 16-byte boundary: the 4-byte instance, the same
+    bits."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    x = torch.randn(6, 64, 96, generator=gen, device=cuda_device)
+    views = {"sc != 1": x.transpose(1, 2),
+             "misaligned": x.view(-1)[1:1 + 6 * 64 * 92].view(6, 64, 92),
+             "row stride odd": x.view(-1)[:6 * 64 * 33].view(6, 64, 33)[
+                 :, :, :32]}
+    for name, v in views.items():
+        got = tprobes.permute(v, 0.5)
+        assert not tprobes.permute_kernel.last_plan.vec, name
+        assert torch.equal(got, tprobes.permute_reference(v, 0.5)), name
+        if v.shape[2] % 2 == 0:
+            for g, w in zip(tprobes.permute(v, split=True),
+                            tprobes.permute_reference(v, split=True)):
+                assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 66), (5, 33, 2), (2, 64, 130)])
+def test_permute_kernel_split_with_odd_half(shape, cuda_device):
+    """C / 2 odd: a tile straddles the split column."""
+    x = torch.randn(shape, generator=torch.Generator(cuda_device).manual_seed(
+        shape[2]), device=cuda_device)
+    for g, w in zip(tprobes.permute(x, 2.0, split=True),
+                    tprobes.permute_reference(x, 2.0, split=True)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(0, 8, 16), (4, 0, 16), (4, 8, 0)])
+def test_permute_kernel_empty(shape, cuda_device):
+    x = torch.zeros(shape, device=cuda_device)
+    got = tprobes.permute(x)
+    assert got.shape == (shape[0], shape[2], shape[1])
+    g0, g1 = tprobes.permute(x, split=True)
+    assert g0.shape == g1.shape == (shape[0], shape[2] // 2, shape[1])
+
+
+@pytest.mark.parametrize("p,lt", [(8, 2048), (8, 8192), (1, 8192), (1, 32),
+                                  (16, 32), (3, 96)])
+def test_permute_kernel_transpose_forms(p, lt, cuda_device):
+    """probe_transpose's (P, L) forms at a reduced nfr: P and L order the
+    tiles, never the bits."""
+    nfr = 4096 + 128
+    x3 = torch.randn(16, nfr, 16, generator=torch.Generator(
+        cuda_device).manual_seed(lt), device=cuda_device)
+    got = tprobes.permute(x3, rows_per_block=lt, batch_per_block=p)
+    assert torch.equal(got, x3.transpose(-1, -2).contiguous())
+
+
+@pytest.mark.parametrize("tile", [2048, 4096, 16384])
+def test_permute_kernel_other_tile_sizes(tile, cuda_device, monkeypatch):
+    """The kernel's tile is its kPermTile: a plan of another size (the
+    variant tool's tile arms edit both) is refused, and counts no
+    launch."""
+    monkeypatch.setattr(tprobes, "PERMUTE_TILE", tile)
+    x = torch.randn(5, 1000, 16, device=cuda_device)
+    before = tprobes.permute_kernel.launches
+    with pytest.raises(RuntimeError, match="permute kernel launch failed"):
+        tprobes.permute(x)
+    assert tprobes.permute_kernel.launches == before
+
+
 def _probe_snr_ok(got, plain32, ref64):
     snr = _snr_db([ref64], [got])
     return snr >= 120.0 and snr >= _snr_db([ref64], [plain32]) - 6.0, snr
