@@ -2,8 +2,9 @@
 checks each against its plain version, drives the north-star chain, both
 SDR receiver banks, the 1-D and 2-D convolution paths, the spectral
 transforms, the pulse-Doppler radar and the chain's full spectrum and
-layouts end to end, and times them; then runs the probes of the card
-(``simpledsp_tpu_torch/tools``) on their own kernels.
+layouts end to end, and times them; runs the probes of the card
+(``simpledsp_tpu_torch/tools``) on their own kernels; then drives the
+general filtering surface, the audio features and the modems.
 
     python3 chip_smoke.py
 
@@ -162,6 +163,36 @@ Phases (any failure exits nonzero before the result line):
     dB SNR against the float64 plain version and no more than 6 dB below
     the float32 plain version.  A line of numbers a probe; the whole result
     goes to ``chiprun_out/probes.json``.
+21. Filtering path on 64 x 2^20 float32 noise (seed 21), the chain's width:
+    ``lfilter`` and ``filtfilt`` with ``butter(4, 0.2, output="ba")``,
+    ``sosfiltfilt`` with ``design_lowpass(4, 2000, 39000)``,
+    ``decimate(x, 8)`` IIR and FIR, ``resample_poly(x, 3, 2)``,
+    ``upfirdn(firwin(61, 0.3), x, 3, 2)`` and ``resample(x, 2**19)``, each
+    once with the launch counts set to 0 before: decimate FIR (161 taps)
+    launches the overlap-save kernel once and resample the frames FFT
+    kernel.  Rows 0-1 against scipy in float64: the FIR paths >= 100 dB;
+    the IIR paths no more than 6 dB below the same call in float32 on the
+    CPU, and the same call in float64 on the card within 1e-9 of the peak.
+    ms/call over windows of back-to-back calls (3 for the IIR paths, whose
+    block state loop is serial in Python).
+22. Audio path on 64 x 262144 float32 at 16 kHz (seed 22), the stft cell's
+    shape: ``MelSpectrogram(512, 256, 64)`` and ``mfcc(x, n_mfcc=13)``.
+    The mel energies and MFCCs in float32 >= 100 dB against the port in
+    float64 on the card; the float64 MFCCs of rows 0-1 within 1e-9 of the
+    peak of a numpy oracle (scipy.signal.stft's frames, the filterbank,
+    scipy.fft.dct).  nfft 512 takes the stft's direct route, so the path
+    launches no hand kernel (checked).  ``griffin_lim`` on 4 rows: the
+    spectral convergence after 0-8 iterations, finite, below its start
+    after 8 and not rising from the first iterate on.  ms/call.
+23. Comms path: QPSK ``LinearModem`` (sps 8, beta 0.35) on 64 x 65536
+    symbols at span 8 (65 taps, convolve's direct route) and span 16
+    (129 taps on 524288-sample rows: each demodulate launches the
+    overlap-save kernel twice, once a plane), and QPSK ``OFDMModem``
+    (n_fft 64, cp 16) on 64 x 4096 OFDM symbols: noiseless round trips and
+    the OFDM round trip through a 3-tap channel with its equalizer give
+    BER 0; through ``awgn`` at Eb/N0 4 dB the BER lies within 0.6-1.6 x
+    the analytic value.  ms/call of each modulate and demodulate.
+    Phases 21-23 print their seconds, and the script its total.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -179,6 +210,9 @@ from probe_dma_scale at f = 16384 (``torch.mul``), permute from
 probe_relayout's relayout kernel alone (``.permute(1, 2, 0).contiguous()``),
 contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
+
+The ols and fft_frames records count the launches of phases 21 and 23
+beside those of phases 11 and 15-16.
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
 from phase 6, the OLS record its CUDA-graph time from phase 10, the
@@ -1660,6 +1694,279 @@ def probe_phase(dev, kprobes):
     return records
 
 
+# -- the filtering surface, audio and comms -----------------------------------
+
+FC, FT = 64, 1 << 20        # filtering: rows, samples per row (the chain's)
+AC, AT, AFS = 64, 262144, 16000.0   # audio: rows, samples, Hz (the stft cell)
+MIN_FILTER_DB = 100.0
+IIR_REL = 1e-9              # float64 on the card against scipy, of the peak
+SLOW = dict(reps=3, per=3)  # windows for the block-loop-bound calls
+
+
+def rel_err(ref: np.ndarray, got: np.ndarray) -> float:
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def filtering_path(dev):
+    """Phase 21; returns the launches of the overlap-save and frames FFT
+    kernels on the path."""
+    import scipy.signal as ss
+
+    from simpledsp_tpu_torch.design.biquad import design_lowpass, sos_matrix
+    from simpledsp_tpu_torch.design.iir import butter
+    from simpledsp_tpu_torch.kernels import fft as kfft
+    from simpledsp_tpu_torch.kernels import ols as kols
+    from simpledsp_tpu_torch.ops import fir, iir, lfilter as lf
+
+    host = np.random.default_rng(21).standard_normal((FC, FT),
+                                                     dtype=np.float32)
+    x = torch.as_tensor(host, device=dev)
+    rows = host[:2].astype(np.float64)
+    b, a = butter(4, 0.2, output="ba")
+    design = design_lowpass(4, 2000.0, 39000.0)
+    sos = sos_matrix(design)
+    h = ss.firwin(61, 0.3)
+    # (name, call on a signal, scipy float64 oracle on rows, IIR?)
+    cases = [
+        ("lfilter(butter(4, 0.2))", lambda s: lf.lfilter(b, a, s)[0],
+         lambda r: ss.lfilter(b, a, r, axis=-1), True),
+        ("filtfilt(butter(4, 0.2))", lambda s: lf.filtfilt(b, a, s),
+         lambda r: ss.filtfilt(b, a, r, axis=-1), True),
+        ("sosfiltfilt(design_lowpass(4, 2000, 39000))",
+         lambda s: iir.sosfiltfilt(design, s),
+         lambda r: ss.sosfiltfilt(sos, r, axis=-1), True),
+        ("decimate(x, 8) iir", lambda s: fir.decimate(s, 8),
+         lambda r: ss.decimate(r, 8, axis=-1), True),
+        ("decimate(x, 8) fir", lambda s: fir.decimate(s, 8, ftype="fir"),
+         lambda r: ss.decimate(r, 8, ftype="fir", axis=-1), False),
+        ("resample_poly(x, 3, 2)", lambda s: fir.resample_poly(s, 3, 2),
+         lambda r: ss.resample_poly(r, 3, 2, axis=-1), False),
+        ("upfirdn(firwin(61, 0.3), x, 3, 2)",
+         lambda s: fir.upfirdn(h, s, 3, 2),
+         lambda r: ss.upfirdn(h, r, 3, 2, axis=-1), False),
+        ("resample(x, 2**19)", lambda s: fir.resample(s, FT // 2),
+         lambda r: ss.resample(r, FT // 2, axis=-1), False),
+    ]
+    torch.cuda.synchronize()
+    zero_counts()
+    outs, per_call = [], []
+    for name, run, _, _ in cases:
+        before = (kols.ols_kernel.launches, kfft.fft_frames_kernel.launches)
+        outs.append(run(x))
+        per_call.append((kols.ols_kernel.launches - before[0],
+                         kfft.fft_frames_kernel.launches - before[1]))
+    torch.cuda.synchronize()
+    launches = (kols.ols_kernel.launches, kfft.fft_frames_kernel.launches)
+    names = [c[0] for c in cases]
+    check(per_call[names.index("decimate(x, 8) fir")][0] == 1,
+          f"decimate fir launched the overlap-save kernel "
+          f"{per_call[names.index('decimate(x, 8) fir')][0]} times, not 1")
+    check(per_call[names.index("resample(x, 2**19)")][1] >= 1,
+          "resample launched no frames FFT kernel")
+    for (name, run, oracle, is_iir), out, (n_ols, n_fft) in zip(
+            cases, outs, per_call):
+        ref = oracle(rows)
+        got = out[:2].double().cpu().numpy()
+        check(got.shape == ref.shape and np.isfinite(got).all(),
+              f"{name}: shape {got.shape} != {ref.shape} or not finite")
+        snr = snr_db(ref, got)
+        ms = median_ms(lambda: run(x), **(SLOW if is_iir else
+                                          dict(reps=3, per=STEADY)))
+        head = (f"filtering path {name}: {FC} x {FT} float32, "
+                f"{n_ols} overlap-save and {n_fft} frames FFT launch(es); "
+                f"rows 0-1 {snr:.2f} dB vs scipy float64")
+        if is_iir:
+            cpu = run(torch.as_tensor(host[:2]))
+            cpu_snr = snr_db(ref, cpu.double().numpy())
+            f64 = rel_err(ref, run(torch.as_tensor(rows, device=dev))
+                          .cpu().numpy())
+            print(f"{head} (the same call on the CPU in float32 {cpu_snr:.2f} "
+                  f"dB); float64 on the card {f64:.3e} of the peak; "
+                  f"{ms:.3f} ms/call ({FC * FT / ms / 1e3:.1f} Msamples/s)")
+            check(snr >= cpu_snr - 6.0 and f64 <= IIR_REL,
+                  f"{name}: {snr:.2f} dB (CPU float32 {cpu_snr:.2f} dB), "
+                  f"float64 {f64:.3e} of the peak")
+        else:
+            # Every row against the same call on the float64 signal, which
+            # takes the plain routes (no hand kernel runs float64).
+            snr_all = snr_db_dev(run(x.double()), out)
+            print(f"{head}, all {FC} rows {snr_all:.2f} dB vs the float64 "
+                  f"plain route; {ms:.3f} ms/call "
+                  f"({FC * FT / ms / 1e3:.1f} Msamples/s)")
+            check(snr >= MIN_FILTER_DB and snr_all >= MIN_FILTER_DB,
+                  f"{name}: {snr:.2f} dB vs scipy, {snr_all:.2f} dB vs the "
+                  f"float64 plain route")
+    return launches
+
+
+def audio_path(dev):
+    """Phase 22: the mel spectrogram, MFCCs and Griffin-Lim at the stft
+    cell's shape.  nfft 512 takes the stft's direct route (one matmul), so
+    the path launches no hand kernel; checked."""
+    import scipy.fft as sfft
+
+    from simpledsp_tpu_torch.models import audio
+    from simpledsp_tpu_torch.ops.spectral import stft_ri, window_taps
+
+    host = np.random.default_rng(22).standard_normal((AC, AT),
+                                                     dtype=np.float32)
+    x = torch.as_tensor(host, device=dev)
+    mel = audio.MelSpectrogram(512, 256, 64, AFS)
+    energies = audio.MelSpectrogram(512, 256, 64, AFS, log=False)
+    energies64 = audio.MelSpectrogram(512, 256, 64, AFS, log=False,
+                                      dtype=torch.float64)
+    torch.cuda.synchronize()
+    zero_counts()
+    e32 = energies(x)
+    c32 = audio.mfcc(x, n_mfcc=13)
+    torch.cuda.synchronize()
+    check(all(k.launches == 0 for k in KERNELS),
+          "the audio path launched a hand kernel")
+    x64 = x.double()
+    e_snr = snr_db_dev(energies64(x64), e32)
+    c64 = audio.mfcc(x64, n_mfcc=13, dtype=torch.float64)
+    c_snr = snr_db_dev(c64, c32)
+    # numpy oracle on rows 0-1: scipy.signal.stft's frames (periodic hann,
+    # no scaling), |rfft|^2, the filterbank, log, orthonormal DCT-II.
+    rows = host[:2].astype(np.float64)
+    frames = np.lib.stride_tricks.sliding_window_view(rows, 512, -1)[:, ::256]
+    power = np.abs(np.fft.rfft(frames * window_taps("hann", 512))) ** 2
+    logmel = np.log(np.maximum(power @ audio.mel_filterbank(64, 512, AFS).T,
+                               1e-10))
+    ref = sfft.dct(logmel, type=2, norm="ortho", axis=-1)[..., :13]
+    got = c64[:2].cpu().numpy()
+    check(got.shape == ref.shape, f"mfcc shape {got.shape} != {ref.shape}")
+    oracle_err = float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+    mel_ms = median_ms(lambda: mel(x), reps=3, per=STEADY)
+    mfcc_ms = median_ms(lambda: audio.mfcc(x, n_mfcc=13), reps=3, per=STEADY)
+    # Griffin-Lim on 4 rows: the spectral convergence after n iterations.
+    sr, si = stft_ri(x[:4], 512, hop=128)
+    mag = torch.hypot(sr, si)
+
+    def convergence(n):
+        y = audio.griffin_lim(mag, nfft=512, hop=128, n_iter=n)
+        yr, yi = stft_ri(y, 512, hop=128)
+        return float(torch.linalg.norm(torch.hypot(yr, yi) - mag)
+                     / torch.linalg.norm(mag))
+
+    conv = [convergence(n) for n in range(9)]
+    gl_ms = median_ms(lambda: audio.griffin_lim(mag, nfft=512, hop=128,
+                                                n_iter=8), reps=3, per=1)
+    print(f"audio path: {AC} x {AT} float32 at {AFS:g} Hz, nfft 512 hop 256, "
+          f"64 mels: no hand kernel (the stft's direct route); mel energies "
+          f"{e_snr:.2f} dB and MFCCs {c_snr:.2f} dB vs the port in float64 on "
+          f"the card; float64 MFCCs rows 0-1 {oracle_err:.3e} of the peak vs "
+          f"a numpy oracle; MelSpectrogram {mel_ms:.3f} ms/call, mfcc "
+          f"{mfcc_ms:.3f} ms/call ({AC * AT / mfcc_ms / 1e3:.1f} Msamples/s)")
+    print(f"audio path griffin_lim 4 x {AT}, nfft 512 hop 128: spectral "
+          f"convergence after 0-8 iterations "
+          f"{', '.join(f'{c:.5f}' for c in conv)}; 8 iterations "
+          f"{gl_ms:.3f} ms/call")
+    check(e_snr >= MIN_FILTER_DB and c_snr >= MIN_FILTER_DB,
+          f"audio float32: energies {e_snr:.2f} dB, MFCCs {c_snr:.2f} dB")
+    check(oracle_err <= IIR_REL, f"audio float64 vs numpy {oracle_err:.3e}")
+    # The first fast-GL step extrapolates from the zero-phase start and may
+    # rise; from the first iterate on the error must not.
+    check(all(np.isfinite(conv)) and conv[8] < conv[0]
+          and all(b <= a for a, b in zip(conv[1:], conv[2:])),
+          f"griffin_lim spectral convergence {conv}")
+
+
+def comms_path(dev):
+    """Phase 23; returns the overlap-save kernel's launches on the path."""
+    from scipy.special import erfc
+
+    from simpledsp_tpu_torch.kernels import ols as kols
+    from simpledsp_tpu_torch.models import comms
+    from simpledsp_tpu_torch.ops.conv import convolve
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    qpsk = comms.Constellation.qpsk()
+    ebn0 = 4.0
+    theory = 0.5 * erfc(np.sqrt(10.0 ** (ebn0 / 10.0)))
+    # span 8 as the JAX package's tests run it (65 taps: convolve's direct
+    # route) and span 16 (129 taps: the overlap-save kernel).
+    modems = {span: comms.LinearModem(qpsk, sps=8, span=span, beta=0.35)
+              for span in (8, 16)}
+    bits = torch.randint(0, 2, (64, 2 * 65536), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    zero_counts()
+    results = {}
+    for span, modem in modems.items():
+        before = kols.ols_kernel.launches
+        planes = modem.modulate(bits)
+        rx, _ = modem.demodulate(*planes)
+        n_ols = kols.ols_kernel.launches - before
+        results[span] = (planes, rx, n_ols)
+    ofdm = comms.OFDMModem(qpsk, n_fft=64, cp=16)
+    obits = torch.randint(0, 2, (64, 4096 * ofdm.bits_per_symbol),
+                          device=dev, generator=gen)
+    otx = ofdm.modulate(obits)
+    orx, _ = ofdm.demodulate(*otx)
+    h = np.array([1.0, 0.4 - 0.2j, -0.15 + 0.1j])
+    faded = convolve(torch.complex(*otx), h)[..., : otx[0].shape[-1]]
+    frx, _ = ofdm.demodulate(faded.real, faded.imag,
+                             channel=(h.real, h.imag))
+    torch.cuda.synchronize()
+    launches = kols.ols_kernel.launches
+    check(results[16][2] == 2 and results[8][2] == 0,
+          f"LinearModem demodulate launched the overlap-save kernel "
+          f"{results[16][2]} (span 16, 129 taps) / {results[8][2]} (span 8, "
+          f"65 taps) times, not 2 / 0")
+    for span, modem in modems.items():
+        planes, rx, n_ols = results[span]
+        n = rx.shape[-1]
+        clean = float(comms.ber(bits[:, :n], rx))
+        # The symbol planes of all 64 rows against demodulate on the float64
+        # planes, which takes the plain routes (no hand kernel runs float64).
+        sym = modem.demodulate(*planes)[1]
+        sym_snr = snr_planes(modem.demodulate(*(p.double() for p in planes))[1],
+                             sym)
+        snr_db_ = ebn0 + 10.0 * np.log10(2) - 10.0 * np.log10(modem.sps)
+        noisy, _ = modem.demodulate(*comms.awgn(gen, planes, snr_db_,
+                                                signal_power=1.0))
+        measured = float(comms.ber(bits[:, :n], noisy))
+        tx_ms = median_ms(lambda: modem.modulate(bits), reps=3, per=STEADY)
+        rx_ms = median_ms(lambda: modem.demodulate(*planes), reps=3,
+                          per=STEADY)
+        print(f"comms path LinearModem QPSK sps 8 span {span} beta 0.35 "
+              f"({modem._h_rx.size} taps), 64 x 65536 symbols: {n_ols} "
+              f"overlap-save launches a demodulate; symbol planes, all 64 rows, "
+              f"{sym_snr:.2f} dB vs the float64 plain route; noiseless BER "
+              f"{clean:g}; "
+              f"Eb/N0 {ebn0:g} dB BER {measured:.5f} (theory {theory:.5f}); "
+              f"modulate {tx_ms:.3f} ms/call, demodulate {rx_ms:.3f} ms/call")
+        check(sym_snr >= MIN_FILTER_DB,
+              f"LinearModem span {span}: symbol planes {sym_snr:.2f} dB vs "
+              f"the float64 plain route")
+        check(clean == 0.0, f"LinearModem span {span}: noiseless BER {clean}")
+        check(0.6 * theory < measured < 1.6 * theory,
+              f"LinearModem span {span}: BER {measured} vs theory {theory}")
+    clean = float(comms.ber(obits, orx))
+    osym = snr_planes(ofdm.demodulate(*(p.double() for p in otx))[1],
+                      ofdm.demodulate(*otx)[1])
+    faded_ber = float(comms.ber(obits, frx))
+    noisy, _ = ofdm.demodulate(*comms.awgn(gen, otx,
+                                           ebn0 + 10.0 * np.log10(2),
+                                           signal_power=1.0))
+    measured = float(comms.ber(obits, noisy))
+    tx_ms = median_ms(lambda: ofdm.modulate(obits), reps=3, per=STEADY)
+    rx_ms = median_ms(lambda: ofdm.demodulate(*otx), reps=3, per=STEADY)
+    print(f"comms path OFDMModem QPSK n_fft 64 cp 16, 64 x 4096 OFDM symbols: "
+          f"subcarrier planes, all 64 rows, {osym:.2f} dB vs the float64 "
+          f"route; noiseless BER {clean:g}, 3-tap channel with its equalizer BER "
+          f"{faded_ber:g}; Eb/N0 {ebn0:g} dB BER {measured:.5f} (theory "
+          f"{theory:.5f}); modulate {tx_ms:.3f} ms/call, demodulate "
+          f"{rx_ms:.3f} ms/call")
+    check(osym >= MIN_FILTER_DB, f"OFDMModem subcarrier planes {osym:.2f} dB "
+                                 f"vs the float64 route")
+    check(clean == 0.0 and faded_ber == 0.0,
+          f"OFDMModem BER {clean} noiseless, {faded_ber} through the channel")
+    check(0.6 * theory < measured < 1.6 * theory,
+          f"OFDMModem BER {measured} vs theory {theory}")
+    return launches
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -1682,6 +1989,7 @@ def build_all(libs):
 
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
+    began = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1750,10 +2058,23 @@ def main() -> int:
     fft_launches = transform_path(dev, kfft, tfft, ttr, tsp)
     fft_launches += radar_path(dev, kfft, tfft, radar)
     probe_records = probe_phase(dev, kprobes)
+    start = time.perf_counter()
+    ols_more, fft_more = filtering_path(dev)
+    print(f"phase 21 took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    audio_path(dev)
+    print(f"phase 22 took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    ols_more += comms_path(dev)
+    print(f"phase 23 took {time.perf_counter() - start:.1f} s")
+    ols_launches += ols_more
+    fft_launches += fft_more
     flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain, fr_bound, fr_dev = pfb[("frames", "chan")]
     ols_err, ols_ms, ols_plain, ols_bound, ols_lib, ols_dev = ols[4096]
     k2_err, k2_ms, k2_plain, k2_bound, k2_lib, k2_dev = k2[(9, 9)]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - began:.1f} "
+          f"s, the build included")
     print(smi)
     print(json.dumps({"kernels": [chain_record, {
         "name": "pfb_flat", "route": "cuda",

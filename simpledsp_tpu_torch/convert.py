@@ -21,6 +21,17 @@ on both sides)::
 
     state = fir_state_from_numpy(np.asarray(jax_fir_state.hist), device="cuda")
 
+An ``lfilter`` state (scipy's ``zi`` vector, a plain array on both sides),
+a constellation's points and a mel spectrogram's table cross the same way
+(back, they are ``zf.cpu().numpy()``, ``const.points`` and
+``mel.fbT.cpu().numpy()``)::
+
+    zi = zi_from_numpy(np.asarray(jax_zf), state_dim=len(a) - 1,
+                       device="cuda")
+    const = constellation_from_numpy(jc.name, jc.points)
+    mel = mel_from_numpy(jm._fbT, jm.nfft, jm.hop, jm.fs, window=jm.window,
+                         log=jm.log, eps=jm.eps, device="cuda")
+
 The transforms, spectral functions and the radar carry no state: ``CZT`` and
 ``ZoomFFT`` are built from the same arguments on both sides, and nothing
 else crosses.
@@ -32,6 +43,8 @@ import numpy as np
 import torch
 
 from simpledsp_tpu_torch.design.biquad import BiquadCascadeDesign, FilterType
+from simpledsp_tpu_torch.models.audio import MelSpectrogram
+from simpledsp_tpu_torch.models.comms import Constellation
 from simpledsp_tpu_torch.models.sdr import SDRState
 from simpledsp_tpu_torch.ops.channelizer import ChanStateRI
 from simpledsp_tpu_torch.ops.demod import DemodStateRI
@@ -40,7 +53,8 @@ from simpledsp_tpu_torch.ops.iir import IIRState
 
 __all__ = ["design_from_numpy", "state_from_numpy", "state_to_numpy",
            "prototype_from_branch", "sdr_state_from_numpy",
-           "sdr_state_to_numpy", "fir_state_from_numpy", "fir_state_to_numpy"]
+           "sdr_state_to_numpy", "fir_state_from_numpy", "fir_state_to_numpy",
+           "zi_from_numpy", "constellation_from_numpy", "mel_from_numpy"]
 
 
 def design_from_numpy(b, a, gain, ftype, f0, fs,
@@ -108,3 +122,48 @@ def sdr_state_to_numpy(state: SDRState) -> dict:
     return dict(hist_r=n(state.chan.hist_r), hist_i=n(state.chan.hist_i),
                 prev_r=n(state.demod.prev_r), prev_i=n(state.demod.prev_i),
                 audio_hist=n(state.audio.hist), dc=n(state.dc))
+
+
+def zi_from_numpy(zi, state_dim=None, device=None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """A copy of an ``lfilter`` state (..., D), e.g. the JAX package's
+    ``zf``; ``state_dim`` (D = max(len(b), len(a)) - 1), when given, is
+    checked against the last axis."""
+    zi = np.asarray(zi)
+    if zi.ndim < 1 or (state_dim is not None and zi.shape[-1] != state_dim):
+        raise ValueError(f"zi must be (..., {state_dim or 'D'}), got "
+                         f"{zi.shape}")
+    return torch.tensor(zi, dtype=dtype, device=device)
+
+
+def constellation_from_numpy(name: str, points) -> Constellation:
+    """A :class:`Constellation` holding exactly the (n, 2) RI ``points`` of
+    another, n a power of two.  They are already normalized and are not
+    scaled again.  A constellation keeps a host float64 table and casts it to
+    its input's device and dtype at each call, so this takes neither."""
+    points = np.array(points, dtype=np.float64)
+    n = points.shape[0] if points.ndim == 2 else 0
+    if points.ndim != 2 or points.shape[1] != 2 or n < 2 or n & (n - 1):
+        raise ValueError(f"points must be (2**k, 2) RI, got {points.shape}")
+    const = object.__new__(Constellation)
+    const.name, const.points = name, points
+    const.bits_per_symbol = n.bit_length() - 1
+    return const
+
+
+def mel_from_numpy(table, nfft: int, hop=None, fs: float = 16000.0, *,
+                   window: str = "hann", log: bool = True,
+                   eps: float = 1e-10, device=None,
+                   dtype=torch.float32) -> MelSpectrogram:
+    """A :class:`MelSpectrogram` whose projection is the (nfft//2 + 1,
+    n_mels) ``table`` (the JAX package's ``MelSpectrogram._fbT``), held in
+    ``dtype`` on ``device`` (``None`` means CUDA)."""
+    table = np.asarray(table, dtype=np.float64)
+    if table.ndim != 2 or table.shape[0] != nfft // 2 + 1:
+        raise ValueError(f"table must be ({nfft // 2 + 1}, n_mels), got "
+                         f"{table.shape}")
+    mel = MelSpectrogram(nfft, hop, table.shape[1], fs, window=window,
+                         log=log, eps=eps, dtype=dtype, device=device)
+    mel.fbT.copy_(torch.as_tensor(table, dtype=dtype))
+    return mel
+

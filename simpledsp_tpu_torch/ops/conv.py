@@ -18,8 +18,8 @@ and thresholds:
 tensor, as a non-traced ``jax.Array`` is there.  Complex inputs are carried
 as (re, im) planes and recombined at the boundary.
 
-``deconvolve`` is not ported yet: it runs on ``ops/lfilter``, which is still
-to port (ROADMAP queue 1 item 9).
+``deconvolve`` is polynomial long division run as the IIR recurrence of
+``ops/lfilter``.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from simpledsp_tpu_torch.ops.fft import (_as_ri, _pick_real_dtype, fft_ri,
 from simpledsp_tpu_torch.precision import ieee_fp32
 
 __all__ = ["choose_conv_method", "convolve", "correlate", "correlation_lags",
-           "fftconvolve", "oaconvolve"]
+           "deconvolve", "fftconvolve", "oaconvolve"]
 
 
 def _next_pow2(n: int) -> int:
@@ -248,3 +248,24 @@ def correlation_lags(in1_len: int, in2_len: int,
         lo, hi = sorted((in1_len, in2_len))
         return np.arange(hi - lo + 1) + min(0, in1_len - in2_len)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def deconvolve(signal: torch.Tensor, divisor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Polynomial deconvolution (scipy.signal.deconvolve semantics):
+    quotient q and remainder r with ``signal = convolve(divisor, q) + r``.
+    Long division is the IIR recurrence
+    ``q[k] = (s[k] - sum_{j>=1} div[j] q[k-j]) / div[0]``, i.e.
+    ``lfilter([1], divisor, signal[:n])``, batched over leading axes.
+    ``divisor`` is a concrete 1-D tap vector."""
+    from simpledsp_tpu_torch.ops.lfilter import lfilter
+
+    div = np.asarray(divisor, dtype=np.float64)
+    if div.ndim != 1 or div.size == 0 or div[0] == 0.0:
+        raise ValueError("divisor must be 1-D with a nonzero leading tap")
+    n = signal.shape[-1] - div.size + 1
+    if n < 1:
+        return signal.new_zeros(signal.shape[:-1] + (0,)), signal
+    quot, _ = lfilter(np.ones(1), div, signal[..., :n])
+    rem = signal - convolve(quot, div, mode="full")[..., : signal.shape[-1]]
+    return quot, rem

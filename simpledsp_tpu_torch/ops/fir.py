@@ -22,8 +22,11 @@ from ``ops/conv.py``).  :func:`fir_filter` picks between the two.
 The filter objects hold their taps on ``device``; ``device=None`` means CUDA
 and raises where there is none (``device="cpu"`` for the CPU).
 
-``upfirdn``, ``resample``, ``decimate`` and ``resample_poly`` are not
-ported yet.
+The one-shot whole-signal functions follow their input's device:
+:func:`upfirdn` and :func:`resample_poly` run the polyphase engine,
+:func:`resample` one ``rfft_ri`` / ``irfft_ri`` pair, and :func:`decimate`
+the Chebyshev-I cascade (``ops/iir.sosfiltfilt`` / ``sosfilt``) or a
+windowed-sinc FIR through ``ops/conv.convolve``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,61 @@ from simpledsp_tpu_torch.precision import ieee_fp32
 
 __all__ = ["FIRState", "fir_init", "PolyphaseResampler", "FIRFilter",
            "PolyphaseDecimator", "PolyphaseInterpolator", "OverlapSaveFIR",
-           "fir_filter"]
+           "fir_filter", "resample", "decimate", "upfirdn", "resample_poly"]
+
+
+def upfirdn(h, x: torch.Tensor, up: int = 1, down: int = 1) -> torch.Tensor:
+    """Upsample -> FIR -> downsample (scipy.signal.upfirdn semantics over
+    the last axis, including the full tail-flushed output length
+    ceil(((T-1) up + len(h)) / down)): the streaming
+    :class:`PolyphaseResampler` fed a zero-extended input, sliced to
+    scipy's length."""
+    h = np.asarray(h, dtype=np.float64)
+    up, down = int(up), int(down)
+    if up < 1 or down < 1:
+        raise ValueError("up and down must be >= 1")
+    t = x.shape[-1]
+    out_len = -(-((t - 1) * up + h.size) // down)
+    need_in = -(-out_len * down // up)
+    pad = max(0, need_in - t)
+    pad += (-(t + pad)) % down
+    if pad:
+        x = F.pad(x, (0, pad))
+    y, _ = PolyphaseResampler(h, up=up, down=down, dtype=x.dtype,
+                              device=x.device)(x)
+    return y[..., :out_len]
+
+
+def resample(x: torch.Tensor, num: int) -> torch.Tensor:
+    """Fourier-method resampling of a real signal over the last axis to
+    exactly ``num`` samples (scipy.signal.resample semantics, including
+    the even-length Nyquist-bin fold/halve rules): one ``rfft_ri``, a bin
+    copy and one ``irfft_ri``, batched over leading axes.  Assumes the
+    signal is periodic over the window."""
+    if x.is_complex():
+        raise ValueError("resample expects a real tensor (the streaming "
+                         "PolyphaseResampler handles IQ via RI planes)")
+    n = x.shape[-1]
+    if num < 1:
+        raise ValueError(f"num must be positive, got {num}")
+    xr, xi = _fft.rfft_ri(x)
+    nb_new = num // 2 + 1
+    nb = min(xr.shape[-1], nb_new)
+    yr = xr.new_zeros(xr.shape[:-1] + (nb_new,))
+    yi = xi.new_zeros(xi.shape[:-1] + (nb_new,))
+    yr[..., :nb] = xr[..., :nb]
+    yi[..., :nb] = xi[..., :nb]
+    if num < n and num % 2 == 0:
+        # Downsampling onto an even grid folds the +/- old bins at the new
+        # Nyquist: Y[num/2] = 2 Re X[num/2].
+        yr[..., num // 2] = 2.0 * xr[..., num // 2]
+        yi[..., num // 2] = 0.0
+    if num > n and n % 2 == 0:
+        # Upsampling splits the old Nyquist bin symmetrically.
+        yr[..., n // 2] *= 0.5
+        yi[..., n // 2] *= 0.5
+    y = _fft.irfft_ri(yr, yi, num)
+    return y * (num / n)
 
 
 class FIRState(NamedTuple):
@@ -252,3 +309,137 @@ def fir_filter(taps, x: torch.Tensor, state: Optional[FIRState] = None, *,
         return OverlapSaveFIR(taps, block_size=block_size, dtype=dtype,
                               device=x.device)(x, state)
     return FIRFilter(taps, dtype=dtype, device=x.device)(x, state)
+
+
+def decimate(x: torch.Tensor, q: int, *, n: Optional[int] = None,
+             ftype: str = "iir", zero_phase: bool = True) -> torch.Tensor:
+    """Anti-alias filter then downsample by the integer factor ``q``
+    (scipy.signal.decimate semantics).
+
+    ftype='iir': order-``n`` (default 8, even) Chebyshev-I low-pass with
+    0.05 dB ripple at 0.8 (fs/2) / q (``design_cheby1_lowpass``), run as
+    the biquad cascade: zero-phase (``sosfiltfilt``) or causal
+    (``sosfilt``).
+    ftype='fir': ``n`` + 1-tap (default 20 q) Hamming-windowed sinc at
+    (fs/2) / q through ``convolve``; zero_phase samples at the
+    group-delay-compensated centers.
+
+    One-shot whole-signal op; for streaming decimation use
+    :class:`PolyphaseDecimator`.
+    """
+    if q < 1:
+        raise ValueError(f"q must be a positive integer, got {q}")
+    t = x.shape[-1]
+    nout = -(-t // q)
+    if ftype == "iir":
+        from simpledsp_tpu_torch.design.biquad import design_cheby1_lowpass
+        from simpledsp_tpu_torch.ops.iir import sosfilt, sosfiltfilt
+
+        n = 8 if n is None else n
+        if n < 2 or n % 2:
+            raise ValueError("iir decimate needs an even order n >= 2 "
+                             f"(biquad cascade), got {n}")
+        design = design_cheby1_lowpass(n // 2, 0.05, 0.8 / q, 2.0)
+        if zero_phase:
+            y = sosfiltfilt(design, x)
+        else:
+            y, _ = sosfilt(design, x)
+        return y[..., ::q]
+    if ftype == "fir":
+        from simpledsp_tpu_torch.design.fir import lowpass_taps
+        from simpledsp_tpu_torch.ops.conv import convolve
+
+        n = 20 * q if n is None else n
+        taps = lowpass_taps(n + 1, 1.0 / q, fs=2.0, window="hamming")
+        full = convolve(x, taps.astype(np.float64), "full")
+        start = n // 2 if zero_phase else 0
+        return full[..., start::q][..., :nout]
+    raise ValueError(f"unknown ftype {ftype!r} (use 'iir' or 'fir')")
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """numpy's median over the last axis, kept: the mean of the two middle
+    values for an even length (``torch.median`` returns the lower one)."""
+    s = x.sort(dim=-1).values
+    n = x.shape[-1]
+    if n % 2:
+        return s[..., n // 2: n // 2 + 1]
+    return 0.5 * (s[..., n // 2 - 1: n // 2] + s[..., n // 2: n // 2 + 1])
+
+
+_BACKGROUND = {
+    "mean": lambda x: x.mean(dim=-1, keepdim=True),
+    "median": _median,
+    "minimum": lambda x: x.amin(dim=-1, keepdim=True),
+    "maximum": lambda x: x.amax(dim=-1, keepdim=True),
+}
+
+
+def resample_poly(x: torch.Tensor, up: int, down: int, *,
+                  window="kaiser_5.0", padtype: str = "constant"
+                  ) -> torch.Tensor:
+    """Polyphase rational-rate resampling (scipy.signal.resample_poly
+    semantics): anti-alias taps designed on the host (default:
+    20 max(up, down) + 1-tap Kaiser beta = 5.0 windowed sinc at
+    1 / max(up, down) of Nyquist), group delay compensated so y[0] aligns
+    with x[0], output length ceil(T up / down).
+
+    window: the default marker, a scipy get_window spec (e.g. 'hamming',
+    ('kaiser', 8.0)), or an explicit 1-D tap array.  padtype: 'constant'
+    (zero extension) or 'mean' / 'median' / 'minimum' / 'maximum'
+    (subtract the statistic, filter, add back).
+    """
+    import math as _math
+
+    g = _math.gcd(int(up), int(down))
+    up, down = int(up) // g, int(down) // g
+    if up < 1 or down < 1:
+        raise ValueError("up and down must be >= 1")
+    if up == down == 1:
+        return x
+    t = x.shape[-1]
+    n_out = (t * up) // down + bool((t * up) % down)
+
+    if isinstance(window, (np.ndarray, list, tuple)) and not (
+            isinstance(window, tuple) and isinstance(window[0], str)):
+        h = np.asarray(window, dtype=np.float64)
+        if h.ndim != 1:
+            raise ValueError("window taps must be 1-D")
+        half_len = (h.size - 1) // 2
+    else:
+        max_rate = max(up, down)
+        half_len = 10 * max_rate
+        n = 2 * half_len + 1
+        m = np.arange(n, dtype=np.float64) - half_len
+        fc = 1.0 / max_rate                      # relative to Nyquist
+        h = fc * np.sinc(fc * m)
+        if window == "kaiser_5.0":
+            w = np.kaiser(n, 5.0)
+        else:
+            import scipy.signal as _sig
+            w = _sig.get_window(window, n, fftbins=False)
+        h = h * w
+        h = h / h.sum()
+    h = h * up
+
+    background = None
+    if padtype in _BACKGROUND:
+        background = _BACKGROUND[padtype](x)
+        x = x - background
+    elif padtype != "constant":
+        raise ValueError(f"unsupported padtype {padtype!r} (use 'constant',"
+                         " 'mean', 'median', 'minimum', or 'maximum')")
+
+    # Center the output grid on the filter's group delay: pre-pad the taps
+    # so the first kept output lands exactly on x[0] (scipy's rule).
+    n_pre_pad = down - half_len % down
+    n_pre_remove = (half_len + n_pre_pad) // down
+    hp = np.concatenate([np.zeros(n_pre_pad), h])
+    need = n_pre_remove + n_out
+    t_dev = down * (-(-need // up))              # covers `need` outputs
+    y, _ = PolyphaseResampler(hp, up, down, dtype=x.dtype, device=x.device)(
+        F.pad(x, (0, max(0, t_dev - t))))
+    y = y[..., n_pre_remove: n_pre_remove + n_out]
+    if background is not None:
+        y = y + background
+    return y

@@ -15,6 +15,10 @@ Port of ``simpledsp_tpu/ops/iir.py``.  Two interchangeable formulations:
    with H the B-by-B lower-triangular Toeplitz of the impulse response and
    F = A^B.  The operators are built once on the host in float64 (NumPy,
    carried over verbatim) and held as module buffers.
+
+:func:`sosfiltfilt` runs either one forward and backward over the
+odd-reflected signal, each pass started in its first sample's steady
+state; :func:`sosfilt_zi` gives scipy's form of that state.
 """
 
 from __future__ import annotations
@@ -36,10 +40,13 @@ __all__ = [
     "iir_init",
     "iir_preload",
     "sosfilt_scan",
+    "sosfilt_zi",
     "BlockIIR",
     "block_operators_f64",
     "block_operators_from_ss_f64",
+    "run_state_blocks",
     "sosfilt",
+    "sosfiltfilt",
 ]
 
 
@@ -95,6 +102,26 @@ def _preload_levels_f64(design: BiquadCascadeDesign) -> np.ndarray:
     return np.asarray(levels, dtype=np.float64)
 
 
+def sosfilt_zi(sos) -> np.ndarray:
+    """Steady-state DF2T initial conditions for a unit-step input through
+    an (n, 6) SOS cascade (scipy.signal.sosfilt_zi semantics): section
+    k's lfilter_zi scaled by the DC gain of the sections before it.
+    Host float64, the scipy counterpart of :func:`iir_preload`."""
+    from simpledsp_tpu_torch.ops.lfilter import lfilter_zi
+
+    sos = np.asarray(sos, dtype=np.float64)
+    if sos.ndim != 2 or sos.shape[1] != 6:
+        raise ValueError(f"sos must be (n, 6), got {sos.shape}")
+    n = sos.shape[0]
+    zi = np.empty((n, 2))
+    scale = 1.0
+    for k in range(n):
+        b, a = sos[k, :3], sos[k, 3:]
+        zi[k] = scale * lfilter_zi(b, a)
+        scale *= b.sum() / a.sum()
+    return zi
+
+
 def iir_preload(design: BiquadCascadeDesign, value: float,
                 batch_shape: Tuple[int, ...] = (), dtype=torch.float32,
                 device=None) -> IIRState:
@@ -108,6 +135,28 @@ def iir_preload(design: BiquadCascadeDesign, value: float,
     full = np.broadcast_to(hist, tuple(batch_shape) + hist.shape)
     return IIRState(torch.as_tensor(np.ascontiguousarray(full), dtype=dtype,
                                     device=device))
+
+
+def _odd_extend(x: torch.Tensor, padlen: int) -> torch.Tensor:
+    """Odd reflection of ``padlen`` samples about both ends (scipy's
+    filtfilt padding):
+    2 x[0] - x[padlen:0:-1]  |  x  |  2 x[-1] - x[-2:-padlen-2:-1]."""
+    if padlen == 0:
+        return x
+    T = x.shape[-1]
+    head = 2.0 * x[..., :1] - x[..., 1: padlen + 1].flip(-1)
+    tail = 2.0 * x[..., -1:] - x[..., T - padlen - 1: T - 1].flip(-1)
+    return torch.cat([head, x, tail], dim=-1)
+
+
+def _preload_from_values(design: BiquadCascadeDesign,
+                         values: torch.Tensor) -> IIRState:
+    """Batched preload: steady state for per-signal constant inputs
+    ``values`` (...,), scipy's ``zi * x[0]`` edge initialization."""
+    lev = torch.as_tensor(_preload_levels_f64(design), dtype=values.dtype,
+                          device=values.device)
+    hist = values[..., None, None] * lev[:, None]       # (..., M+1, 1)
+    return IIRState(hist.expand(values.shape + (design.nsections + 1, 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +280,27 @@ def block_operators_f64(design: BiquadCascadeDesign, block_size: int):
     return H, Phi, K, F, A, p, c, d
 
 
+def run_state_blocks(xb: torch.Tensor, s0: torch.Tensor, H: torch.Tensor,
+                     Phi: torch.Tensor, K: torch.Tensor, F: torch.Tensor):
+    """Apply the block operators of :func:`block_operators_from_ss_f64` to
+    xb (..., nblocks, B) full blocks from the state s0 (..., D), in IEEE
+    float32 for float32 operands.  Returns (y (..., nblocks, B),
+    s_final (..., D))."""
+    with ieee_fp32():
+        conv = torch.matmul(xb, H.T)                    # (..., nb, B)
+        kx = torch.matmul(xb, K.T)                      # (..., nb, D)
+        # The D-dim state chain, one block at a time (the block count is the
+        # only serial dimension left).
+        s = s0
+        starts = []
+        for kxk in kx.unbind(-2):
+            starts.append(s)
+            s = torch.matmul(s, F.T) + kxk
+        s_starts = torch.stack(starts, dim=-2)          # (..., nb, D)
+        y = conv + torch.matmul(s_starts, Phi.T)
+    return y, s
+
+
 class BlockIIR(nn.Module):
     """Block-parallel IIR for one design, operators held as buffers.
 
@@ -259,19 +329,7 @@ class BlockIIR(nn.Module):
     def run_blocks(self, xb: torch.Tensor, s0: torch.Tensor):
         """xb: (..., nblocks, B) full blocks; s0: (..., D) flat state.
         Returns (y (..., nblocks, B), s_final (..., D))."""
-        with ieee_fp32():
-            conv = torch.matmul(xb, self.H.T)           # (..., nb, B)
-            kx = torch.matmul(xb, self.K.T)             # (..., nb, D)
-            # The D-dim state chain, one block at a time (the block count is
-            # the only serial dimension left).
-            s = s0
-            starts = []
-            for kxk in kx.unbind(-2):
-                starts.append(s)
-                s = torch.matmul(s, self.F.T) + kxk
-            s_starts = torch.stack(starts, dim=-2)      # (..., nb, D)
-            y = conv + torch.matmul(s_starts, self.Phi.T)
-        return y, s
+        return run_state_blocks(xb, s0, self.H, self.Phi, self.K, self.F)
 
     def forward(self, x: torch.Tensor, state: Optional[IIRState] = None
                 ) -> Tuple[torch.Tensor, IIRState]:
@@ -299,6 +357,33 @@ class BlockIIR(nn.Module):
             y_tail, state = sosfilt_scan(coeffs, x[..., nfull * B:], state)
             return torch.cat([y_main, y_tail], dim=-1), state
         return y_main, state
+
+
+def sosfiltfilt(design: BiquadCascadeDesign, x: torch.Tensor, *,
+                padlen: Optional[int] = None, method: str = "auto",
+                block_size: int = 256, dtype=None) -> torch.Tensor:
+    """Zero-phase forward-backward cascade filtering
+    (scipy.signal.sosfiltfilt semantics: odd-reflection padding, each
+    pass started in the steady state of its first sample through the
+    preload levels).  x: (..., T) -> (..., T)."""
+    m = design.nsections
+    nzero = min(int(np.sum(design.b[:, 2] == 0.0)),
+                int(np.sum(design.a[:, 2] == 0.0)))
+    if padlen is None:
+        padlen = 3 * (2 * m + 1 - nzero)
+    T = x.shape[-1]
+    if padlen >= T:
+        raise ValueError(f"padlen={padlen} must be less than the signal "
+                         f"length {T}")
+    dtype = dtype or x.dtype
+    x = x.to(dtype)
+    def one_pass(sig):
+        s0 = _preload_from_values(design, sig[..., 0])
+        y, _ = sosfilt(design, sig, s0, method=method,
+                       block_size=block_size, dtype=dtype)
+        return y.flip(-1)
+
+    return one_pass(one_pass(_odd_extend(x, padlen)))[..., padlen: padlen + T]
 
 
 def sosfilt(design: BiquadCascadeDesign, x: torch.Tensor,

@@ -148,3 +148,35 @@ def test_rejects_bad_arguments(rng):
         tconv.convolve(x, np.ones(0))
     with pytest.raises(ValueError, match="unknown mode"):
         tconv.correlation_lags(4, 3, "ful")
+
+
+# -- deconvolve -------------------------------------------------------------------
+
+def test_deconvolve_matches_jax_and_scipy(rng):
+    s = rng.standard_normal(100)
+    div = np.array([1.5, 0.7, -0.3])
+    q, r = tconv.deconvolve(torch.as_tensor(s), div)
+    jq, jr = jconv.deconvolve(jnp.asarray(s), div)
+    qs, rs = sig.deconvolve(s, div)
+    for got, want in ((q, qs), (r, rs), (q, jq), (r, jr)):
+        _close(got.numpy(), want)
+    # signal == convolve(divisor, q) + r, batched
+    sb = rng.standard_normal((3, 60))
+    qb, rb = tconv.deconvolve(torch.as_tensor(sb), div)
+    jqb, jrb = jconv.deconvolve(jnp.asarray(sb), div)
+    _close(qb.numpy(), jqb)
+    _close(rb.numpy(), jrb)
+    recon = np.stack([np.convolve(div, qb[i].numpy())[:60] + rb[i].numpy()
+                      for i in range(3)])
+    _close(recon, sb)
+
+
+def test_deconvolve_short_signal_and_bad_divisor(rng):
+    s = torch.as_tensor(rng.standard_normal(2))
+    q, r = tconv.deconvolve(s, [1.0, 0.5, 0.25])
+    jq, jr = jconv.deconvolve(jnp.asarray(s.numpy()), [1.0, 0.5, 0.25])
+    assert tuple(q.shape) == jq.shape == (0,)
+    assert torch.equal(r, s)
+    for bad in ([0.0, 1.0], np.ones((2, 2)), []):
+        with pytest.raises(ValueError):
+            tconv.deconvolve(s, bad)

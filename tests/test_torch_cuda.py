@@ -29,7 +29,12 @@ the copy and the transpose equal their plain versions bit for bit; the
 product and the row sum >= 120 dB against the float64 plain version and no
 more than 6 dB below the float32 plain version (the frames FFT kernel's
 bar).  The FFT engine
-gives a row the same bits in any batch, as on the CPU.
+gives a row the same bits in any batch, as on the CPU.  The filtering
+surface on the card: in float64 within 1e-9 of the largest output of the
+same call on the CPU; the FIR paths in float32 >= 100 dB against it, and
+the IIR paths in float32 no more than 6 dB below the same call in float32
+on the CPU.  The mel energies >= 100 dB against the CPU in float64; the
+modems' noiseless round trips give every bit back.
 """
 
 import numpy as np
@@ -1180,3 +1185,117 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
         tprobes.contract(x[0], x[0].T.double())
     with pytest.raises(ValueError, match="float32"):
         tprobes.row_sum(x[0].double())
+
+
+# -- the filtering surface, audio and comms on the card ----------------------------
+
+def _rel_err(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _snr(got, ref):
+    return _snr_db([ref.double().cpu()], [got.double().cpu()])
+
+
+def _noise(shape, seed, device):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                           device=device)
+
+
+@pytest.mark.parametrize("method", ["block", "scan"])
+def test_lfilter_on_the_card_matches_cpu(method, cuda_device):
+    from simpledsp_tpu_torch.design.iir import butter
+    from simpledsp_tpu_torch.ops.lfilter import filtfilt, lfilter
+    b, a = butter(4, 0.2, output="ba")
+    t = 4096 if method == "block" else 300
+    x = _noise((4, t), 0, "cpu")
+    ref, zref = lfilter(b, a, x, method="scan")
+    got, zf = lfilter(b, a, x.to(cuda_device), method=method)
+    assert got.device.type == "cuda"
+    assert _rel_err(got, ref) < 1e-9 and _rel_err(zf, zref) < 1e-9
+    got32, _ = lfilter(b, a, x.float().to(cuda_device), method=method)
+    cpu32, _ = lfilter(b, a, x.float(), method=method)
+    assert _snr(got32, ref) >= _snr(cpu32, ref) - 6.0
+    ff = filtfilt(b, a, x.to(cuda_device))
+    assert _rel_err(ff, filtfilt(b, a, x)) < 1e-9
+
+
+def test_block_lfilter_defaults_to_the_card(cuda_device):
+    from simpledsp_tpu_torch.ops.lfilter import BlockLFilter
+    f = BlockLFilter([0.2, 0.3], [1.0, -0.5])
+    assert f.H.device.type == "cuda"
+
+
+def test_sosfiltfilt_on_the_card_matches_cpu(cuda_device):
+    from simpledsp_tpu_torch.design.biquad import design_lowpass
+    from simpledsp_tpu_torch.ops.iir import sosfiltfilt
+    d = design_lowpass(4, 2000.0, 39000.0)
+    x = _noise((4, 8192), 1, "cpu")
+    ref = sosfiltfilt(d, x)
+    assert _rel_err(sosfiltfilt(d, x.to(cuda_device)), ref) < 1e-9
+    got32 = sosfiltfilt(d, x.float().to(cuda_device))
+    assert _snr(got32, ref) >= _snr(sosfiltfilt(d, x.float()), ref) - 6.0
+
+
+@pytest.mark.parametrize("ftype", ["iir", "fir"])
+def test_decimate_on_the_card_matches_cpu(ftype, cuda_device):
+    from simpledsp_tpu_torch.ops.fir import decimate
+    x = _noise((4, 1 << 15), 2, "cpu")
+    ref = decimate(x, 8, ftype=ftype)
+    assert _rel_err(decimate(x.to(cuda_device), 8, ftype=ftype), ref) < 1e-9
+    before = tols.ols_kernel.launches
+    got32 = decimate(x.float().to(cuda_device), 8, ftype=ftype)
+    if ftype == "fir":
+        # 161 taps on 32768-sample rows: the overlap-save kernel, once.
+        assert tols.ols_kernel.launches == before + 1
+        assert _snr(got32, ref) >= 100.0
+    else:
+        cpu32 = decimate(x.float(), 8, ftype=ftype)
+        assert _snr(got32, ref) >= _snr(cpu32, ref) - 6.0
+
+
+@pytest.mark.parametrize("padtype", ["constant", "median"])
+def test_resample_poly_and_upfirdn_on_the_card(padtype, cuda_device):
+    from simpledsp_tpu_torch.ops.fir import resample, resample_poly, upfirdn
+    x = _noise((4, 8192), 3, "cpu") + 1.0
+    ref = resample_poly(x, 3, 2, padtype=padtype)
+    assert _snr(resample_poly(x.float().to(cuda_device), 3, 2,
+                              padtype=padtype), ref) >= 100.0
+    h = lowpass_taps(31, 0.3)
+    assert _snr(upfirdn(h, x.float().to(cuda_device), 3, 2),
+                upfirdn(h, x, 3, 2)) >= 100.0
+    assert _snr(resample(x.float().to(cuda_device), 4096),
+                resample(x, 4096)) >= 100.0
+
+
+def test_mel_spectrogram_on_the_card(cuda_device):
+    from simpledsp_tpu_torch.models.audio import MelSpectrogram, mfcc
+    x = _noise((4, 16384), 4, "cpu")
+    ref = MelSpectrogram(512, 256, 64, log=False, dtype=torch.float64,
+                         device="cpu")(x)
+    mel = MelSpectrogram(512, 256, 64, log=False)
+    assert mel.fbT.device.type == "cuda"
+    assert _snr(mel(x.float().to(cuda_device)), ref) >= 100.0
+    got = mfcc(x.to(cuda_device), dtype=torch.float64)
+    assert _rel_err(got, mfcc(x, dtype=torch.float64)) < 1e-9
+
+
+def test_modems_round_trip_on_the_card(cuda_device):
+    from simpledsp_tpu_torch.models.comms import (Constellation, LinearModem,
+                                                  OFDMModem, ber)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    for span in (8, 16):
+        modem = LinearModem(Constellation.qpsk(), sps=8, span=span, beta=0.35)
+        bits = torch.randint(0, 2, (4, 2 * 4096), device=cuda_device,
+                             generator=g)
+        before = tols.ols_kernel.launches
+        rx, _ = modem.demodulate(*modem.modulate(bits))
+        # 129 taps (span 16) on 32768-sample rows: one launch a plane.
+        assert tols.ols_kernel.launches == before + (2 if span == 16 else 0)
+        assert float(ber(bits[:, : rx.shape[-1]], rx)) == 0.0
+    ofdm = OFDMModem(Constellation.qpsk(), n_fft=64, cp=16)
+    bits = torch.randint(0, 2, (4, 64 * ofdm.bits_per_symbol),
+                         device=cuda_device, generator=g)
+    rx, _ = ofdm.demodulate(*ofdm.modulate(bits))
+    assert torch.equal(rx, bits)

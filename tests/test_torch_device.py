@@ -18,6 +18,9 @@ from simpledsp_tpu_torch.ops import transforms as ttr
 from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
 from simpledsp_tpu_torch.ops.iir import BlockIIR
 from simpledsp_tpu_torch.design.biquad import design_lowpass
+from simpledsp_tpu_torch.models.audio import MelSpectrogram
+from simpledsp_tpu_torch.models.comms import Constellation, LinearModem
+from simpledsp_tpu_torch.ops.lfilter import BlockLFilter
 
 _TAPS = np.hanning(33) / np.hanning(33).sum()
 
@@ -36,6 +39,9 @@ BUILDERS = {
         design_lowpass(4, 2000.0, 39000.0), 1024, **kw),
     "CZT": lambda **kw: ttr.CZT(64, **kw),
     "ZoomFFT": lambda **kw: ttr.ZoomFFT(64, [0.1, 0.4], **kw),
+    "BlockLFilter": lambda **kw: BlockLFilter([0.2, 0.3], [1.0, -0.5], **kw),
+    "MelSpectrogram": lambda **kw: MelSpectrogram(512, 256, 64, **kw),
+    "LinearModem": lambda **kw: LinearModem(Constellation.qpsk(), **kw),
 }
 
 

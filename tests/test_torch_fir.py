@@ -128,3 +128,140 @@ def test_rejects_bad_arguments():
     with pytest.raises(ValueError, match="multiple of down"):
         tops.PolyphaseDecimator(np.ones(8), 4, device="cpu")(
             torch.zeros(1, 10))
+
+
+# -- the one-shot whole-signal functions ------------------------------------------
+# Each against the JAX package (1e-12 absolute on outputs of order 1) and
+# scipy (the JAX tests' tolerances).
+
+def _t(x):
+    return torch.as_tensor(x, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("up,down,n,m", [(1, 1, 50, 7), (3, 1, 40, 12),
+                                         (1, 4, 101, 17), (3, 2, 64, 31),
+                                         (5, 7, 33, 40)])
+def test_upfirdn_matches_jax_and_scipy(rng, up, down, n, m):
+    h = rng.standard_normal(m)
+    x = rng.standard_normal((2, n))
+    got = tops.upfirdn(h, _t(x), up, down).numpy()
+    want = np.asarray(jops.upfirdn(h, jnp.asarray(x), up, down))
+    ref = np.stack([sig.upfirdn(h, r, up=up, down=down) for r in x])
+    assert got.shape == ref.shape == want.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    with pytest.raises(ValueError):
+        tops.upfirdn(h, _t(x), 0, 1)
+
+
+@pytest.mark.parametrize("n,num", [(100, 50), (100, 51), (100, 200),
+                                   (100, 201), (99, 50), (99, 200),
+                                   (100, 64), (128, 100), (100, 100)])
+def test_resample_matches_jax_and_scipy(rng, n, num):
+    x = rng.standard_normal((3, n))
+    got = tops.resample(_t(x), num).numpy()
+    want = np.asarray(jops.resample(jnp.asarray(x), num))
+    ref = sig.resample(x, num, axis=-1)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_resample_rejects_complex_and_bad_num():
+    with pytest.raises(ValueError):
+        tops.resample(torch.ones(8, dtype=torch.complex128), 4)
+    with pytest.raises(ValueError):
+        tops.resample(torch.ones(8, dtype=torch.float64), 0)
+
+
+@pytest.mark.parametrize("zero_phase", [True, False])
+@pytest.mark.parametrize("ftype", ["iir", "fir"])
+@pytest.mark.parametrize("q", [2, 4, 13])
+def test_decimate_matches_jax_and_scipy(rng, q, ftype, zero_phase):
+    x = rng.standard_normal((2, 1000))
+    got = tops.decimate(_t(x), q, ftype=ftype, zero_phase=zero_phase).numpy()
+    want = np.asarray(jops.decimate(jnp.asarray(x), q, ftype=ftype,
+                                    zero_phase=zero_phase))
+    ref = sig.decimate(x, q, ftype=ftype, zero_phase=zero_phase, axis=-1)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_decimate_long_signal_takes_the_block_and_overlap_save_routes(rng):
+    """T = 8192: the cascade runs on BlockIIR, and the 161-tap FIR of q = 8
+    takes convolve's overlap-save route (n >= 4 m, n + m - 1 >= 8192)."""
+    x = rng.standard_normal((2, 8192))
+    for ftype in ("iir", "fir"):
+        got = tops.decimate(_t(x), 8, ftype=ftype).numpy()
+        ref = sig.decimate(x, 8, ftype=ftype, axis=-1)
+        np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-11)
+
+
+def test_decimate_rejects_bad_args(rng):
+    x = _t(rng.standard_normal(100))
+    for kw in ({"q": 0}, {"q": 2, "n": 7, "ftype": "iir"},
+               {"q": 2, "ftype": "cic"}):
+        with pytest.raises(ValueError):
+            tops.decimate(x, **kw)
+
+
+@pytest.mark.parametrize("t", [1000, 997])
+@pytest.mark.parametrize("up,down", [(2, 1), (1, 3), (3, 2), (7, 5),
+                                     (160, 441)])
+def test_resample_poly_matches_jax_and_scipy(rng, up, down, t):
+    x = rng.standard_normal((2, t)) + 2.0
+    got = tops.resample_poly(_t(x), up, down).numpy()
+    want = np.asarray(jops.resample_poly(jnp.asarray(x), up, down))
+    ref = sig.resample_poly(x, up, down, axis=-1)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("t", [800, 801])
+@pytest.mark.parametrize("padtype", ["constant", "mean", "median", "minimum",
+                                     "maximum"])
+def test_resample_poly_padtypes(rng, padtype, t):
+    """Every padtype; t = 800 is the even length whose median is the mean
+    of the two middle values (numpy's), not torch.median's lower one."""
+    x = rng.standard_normal((2, t)) + 3.0
+    got = tops.resample_poly(_t(x), 3, 2, padtype=padtype).numpy()
+    want = np.asarray(jops.resample_poly(jnp.asarray(x), 3, 2,
+                                         padtype=padtype))
+    ref = sig.resample_poly(x, 3, 2, padtype=padtype, axis=-1)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_resample_poly_median_of_an_even_length():
+    x = _t([[1.0, 4.0, 2.0, 10.0]])
+    np.testing.assert_array_equal(tops._median(x).numpy(), [[3.0]])
+    np.testing.assert_array_equal(tops._median(x[:, :3]).numpy(), [[2.0]])
+
+
+@pytest.mark.parametrize("window", ["hamming", ("kaiser", 8.0), "taps",
+                                    "list"])
+def test_resample_poly_window_spec_and_taps(rng, window):
+    x = rng.standard_normal(800) + 3.0
+    if window == "taps":
+        window = sig.firwin(31, 0.4)
+    elif window == "list":
+        window = list(sig.firwin(21, 0.3))
+    got = tops.resample_poly(_t(x), 2, 3, window=window).numpy()
+    want = np.asarray(jops.resample_poly(jnp.asarray(x), 2, 3,
+                                         window=window))
+    ref = sig.resample_poly(x, 2, 3, window=window)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+def test_resample_poly_identity_and_errors(rng):
+    x = _t(rng.standard_normal(64))
+    assert tops.resample_poly(x, 3, 3) is x
+    with pytest.raises(ValueError):
+        tops.resample_poly(x, 2, 3, padtype="wrap")
+    with pytest.raises(ValueError):
+        tops.resample_poly(x, 2, 3, window=np.ones((3, 3)))
+    with pytest.raises(ValueError):
+        tops.resample_poly(x, 0, 3)

@@ -183,3 +183,65 @@ def test_bad_arguments_raise():
         state_from_numpy(np.zeros((2, 5, 3)))
     with pytest.raises(ValueError):
         tbq.design_lowpass(4, 20000.0, 39000.0)
+
+
+# -- sosfiltfilt / sosfilt_zi ---------------------------------------------------
+
+@pytest.mark.parametrize("method", ["auto", "scan", "block"])
+@pytest.mark.parametrize("name", sorted(DESIGNS))
+def test_sosfiltfilt_matches_jax_and_scipy(name, method):
+    jd, td = _designs(name)
+    x = np.random.default_rng(11).standard_normal((2, 3000)) + 1.5
+    got = tiir.sosfiltfilt(td, torch.as_tensor(x), method=method,
+                           block_size=128)
+    want = jiir.sosfiltfilt(jd, jnp.asarray(x), method=method, block_size=128)
+    ref = sig.sosfiltfilt(jbq.sos_matrix(jd), x, axis=-1)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("padlen", [0, 1, 40, 299])
+def test_sosfiltfilt_padlen(padlen):
+    """The odd reflection at its extremes: no padding, one sample, and
+    T - 1 samples (the longest scipy takes)."""
+    jd, td = _designs("lowpass")
+    x = np.random.default_rng(12).standard_normal((2, 300))
+    got = tiir.sosfiltfilt(td, torch.as_tensor(x), padlen=padlen)
+    want = jiir.sosfiltfilt(jd, jnp.asarray(x), padlen=padlen)
+    ref = sig.sosfiltfilt(jbq.sos_matrix(jd), x, axis=-1, padlen=padlen)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+
+
+def test_sosfiltfilt_rejects_long_padlen():
+    _, td = _designs("lowpass")
+    with pytest.raises(ValueError):
+        tiir.sosfiltfilt(td, torch.ones(10, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("name", sorted(DESIGNS))
+def test_preload_from_values_matches_jax(name):
+    jd, td = _designs(name)
+    v = np.array([0.5, -1.25, 3.0])
+    got = tiir._preload_from_values(td, torch.as_tensor(v))
+    want = jiir._preload_from_values(jd, jnp.asarray(v))
+    np.testing.assert_array_equal(state_to_numpy(got), np.asarray(want.y_hist))
+
+
+@pytest.mark.parametrize("sos", [
+    lambda: sig.butter(6, 0.3, output="sos"),
+    lambda: sig.cheby1(5, 1.0, 0.2, output="sos"),
+    lambda: sig.ellip(4, 0.5, 40.0, [0.2, 0.5], btype="bandpass",
+                      output="sos")])
+def test_sosfilt_zi_matches_jax_and_scipy(sos):
+    s = sos()
+    got = tiir.sosfilt_zi(s)
+    np.testing.assert_array_equal(got, jiir.sosfilt_zi(s))
+    np.testing.assert_allclose(got, sig.sosfilt_zi(s), atol=1e-13)
+
+
+def test_sosfilt_zi_rejects_bad_shape():
+    with pytest.raises(ValueError):
+        tiir.sosfilt_zi(np.zeros((2, 5)))

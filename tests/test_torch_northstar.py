@@ -220,6 +220,23 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.tools.probe_relayout\n"
             "import simpledsp_tpu_torch.tools.probe_mosaic\n"
             "import simpledsp_tpu_torch.tools.chain_forms\n"
+            "import simpledsp_tpu_torch.utils.fixtures\n"
+            "import simpledsp_tpu_torch.utils.intmath\n"
+            "import simpledsp_tpu_torch.ops.lfilter\n"
+            "import simpledsp_tpu_torch.ops.iir\n"
+            "import simpledsp_tpu_torch.design.biquad\n"
+            "import simpledsp_tpu_torch.design.iir\n"
+            "import simpledsp_tpu_torch.design.ltisys\n"
+            "import simpledsp_tpu_torch.design.residues\n"
+            "import simpledsp_tpu_torch.design.placement\n"
+            "import simpledsp_tpu_torch.design.systems\n"
+            "import simpledsp_tpu_torch.models.audio\n"
+            "import simpledsp_tpu_torch.models.comms\n"
+            "from simpledsp_tpu_torch.design.biquad import design_bandstop\n"
+            "design_bandstop(4, 6000.0, 39000.0, 3.0)\n"
+            "from simpledsp_tpu_torch.design.ltisys import dlsim, freqresp\n"
+            "dlsim(([1.0], [1.0, -0.5], 1.0), [1.0, 0.0, 0.0])\n"
+            "freqresp(([1.0], [1.0, 1.0]), [1.0, 2.0])\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
             "assert not bad, bad\n")
