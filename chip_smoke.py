@@ -4,7 +4,8 @@ SDR receiver banks, the 1-D and 2-D convolution paths, the spectral
 transforms, the pulse-Doppler radar and the chain's full spectrum and
 layouts end to end, and times them; runs the probes of the card
 (``simpledsp_tpu_torch/tools``) on their own kernels; then drives the
-general filtering surface, the audio features and the modems.
+general filtering surface, the audio features, the modems and the
+command-line front end.
 
     python3 chip_smoke.py
 
@@ -13,10 +14,11 @@ Phases (any failure exits nonzero before the result line):
 1. Device: a CUDA device is required; prints the card's name and power limit.
 2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``chain_tc.cu``,
    ``pfb.cu``, ``ols.cu``, ``conv2d.cu``, ``fft.cu`` and ``probes.cu`` into
-   ``build/``, one nvcc for each, started together (``chain.cu``,
+   ``build/``, one nvcc for each, and the host runtime's
+   ``native/sdsp_io.cpp`` with g++, all started together (``chain.cu``,
    ``chain_tc.cu``, ``ols.cu`` and ``fft.cu`` include the FFT core
    ``fft_core.cuh``; the two chain sources the kernel's template
-   ``chain_natural.cuh``); prints nvcc's seconds for each.
+   ``chain_natural.cuh``); prints each compiler's seconds.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -192,7 +194,32 @@ Phases (any failure exits nonzero before the result line):
     the OFDM round trip through a 3-tap channel with its equalizer give
     BER 0; through ``awgn`` at Eb/N0 4 dB the BER lies within 0.6-1.6 x
     the analytic value.  ms/call of each modulate and demodulate.
-    Phases 21-23 print their seconds, and the script its total.
+24. The command-line front end (``simpledsp_tpu_torch.cli``) on files in a
+    temporary directory: a 2^25-pair iq16 capture at 1.024 MS/s (a carrier
+    in each of the 16 channels, each with its own AM and FM tones, FM
+    deviation 5 kHz; seed 24), 2^25 float32 samples of noise (seed 24),
+    2^23 int16 PCM samples (seed 25).  First each command once as
+    ``python -m simpledsp_tpu_torch`` with no ``--device`` (CUDA, the
+    default), all at once, within a time limit: exit 0.  Then in this
+    process through ``cli.main``, the counts set to 0 before each run:
+    ``spectra`` (defaults: lp:2000, order 8, fft 4096, 8 blocks of 2^22)
+    launches the chain kernel once a block and every frame holds >= 130 dB
+    against ``NorthStarChain(use_kernel=False)`` in float64 over the same
+    blocks; ``fm-rx`` and ``am-rx`` at ``--block-frames`` 1024 and 16384
+    launch the flat PFB kernel once a block and every channel holds the
+    bank bar against the float64 composable bank over the same blocks (the
+    float32 plain error of the bar: the float32 composable bank);
+    ``spectra`` and ``fm-rx`` split at a block boundary and resumed with
+    ``--state`` equal the continuous run bit for bit; ``mfcc`` (defaults,
+    16 kHz) holds >= 100 dB against float64 ``mfcc`` over the same
+    overlapped blocks; ``modem-sim`` (QPSK, 2^20 symbols, Eb/N0 0-10 dB)
+    has a BER that falls with Eb/N0 and lies within 0.6-1.6 x theory
+    wherever >= 100 errors were counted.  ``mfcc`` and ``modem-sim``
+    launch no hand kernel, and no command launches one off its path; the
+    ``python -m`` runs' outputs are held to the same bars against this
+    process's.  Each run's Msamples/s of wall time beside the card's name
+    and power limit.
+    Phases 21-24 print their seconds, and the script its total.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -212,7 +239,8 @@ contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
 The ols and fft_frames records count the launches of phases 21 and 23
-beside those of phases 11 and 15-16.
+beside those of phases 11 and 15-16; the chain_frames and pfb_flat records
+count phase 24's beside those of phases 4 and 7.
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
 from phase 6, the OLS record its CUDA-graph time from phase 10, the
@@ -1967,6 +1995,339 @@ def comms_path(dev):
     return launches
 
 
+# -- the command-line front end ----------------------------------------------
+
+CLI_PAIRS = 1 << 25         # rx capture: iq16 I/Q pairs (128 MB, 33 s)
+CLI_FS, CLI_DEV = 1.024e6, 5e3   # its sample rate and FM deviation, Hz
+CLI_RX_FRAMES = (1024, 16384)    # --block-frames: 65536- and 2^20-pair blocks
+CLI_SAMPLES = 1 << 25       # spectra: f32 samples at 39 kHz
+CLI_PCM = 1 << 23           # mfcc: int16 samples at 16 kHz
+CLI_SYMBOLS = 1 << 20       # modem-sim: QPSK symbols a point
+CLI_TIMEOUT = 600           # seconds for the `python -m` runs, all together
+
+
+def band_capture(n, fs, m, seed, dev) -> np.ndarray:
+    """Interleaved int16 I/Q of n pairs with a carrier within 500 Hz of
+    the centre of each of m channels (numpy seed ``seed``), each
+    amplitude-modulated (depth 0.5) and frequency-modulated (CLI_DEV) by
+    tones of its own; built in float64 on the card.  A carrier in every
+    channel keeps every channel's audio well conditioned: a channel with
+    none demodulates quantization noise, where float32 against float64 is
+    chance."""
+    rng = np.random.default_rng(seed)
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fs
+    zr = torch.zeros(n, dtype=torch.float64, device=dev)
+    zi = torch.zeros_like(zr)
+    for c in range(m):
+        am, fm, off, ph0, ph1 = (rng.uniform(100, 3000), rng.uniform(300, 3000),
+                                 rng.uniform(-500, 500),
+                                 *rng.uniform(0, 2 * np.pi, 2))
+        env = 1 + 0.5 * torch.sin(2 * np.pi * am * t + ph0)
+        ang = (2 * np.pi * (c * fs / m + off) * t
+               + CLI_DEV / fm * torch.sin(2 * np.pi * fm * t) + ph1)
+        zr += env * torch.cos(ang)
+        zi += env * torch.sin(ang)
+    scale = 20000.0 / float(torch.sqrt(zr * zr + zi * zi).max())
+    iq = torch.stack([zr, zi], -1).mul_(scale).round_().to(torch.int16)
+    return iq.reshape(-1).cpu().numpy()
+
+
+def run_cli(cli, argv):
+    """cli.main(argv) in this process: (its stdout, its seconds)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli {' '.join(argv[:1])} exited {rc}")
+    return out.getvalue(), seconds
+
+
+def run_entry_points(cmds, cwd):
+    """Run each argument list as ``python -m simpledsp_tpu_torch``, all at
+    once, within CLI_TIMEOUT; kill any that is left; every exit code must
+    be 0."""
+    procs = [subprocess.Popen([sys.executable, "-m", "simpledsp_tpu_torch",
+                               *cmd], cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    deadline = time.monotonic() + CLI_TIMEOUT
+    try:
+        outs = [proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                for proc in procs]
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"chip_smoke: FAILED: python -m simpledsp_tpu_torch "
+                         f"runs not done in {CLI_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        check(proc.returncode == 0, f"python -m simpledsp_tpu_torch "
+                                    f"{cmd[0]} exited {proc.returncode}: "
+                                    f"{err[-2000:]}")
+
+
+def rx_oracle(sdr, mode, iq, blk, dtype, dev):
+    """The composable bank in ``dtype`` over the capture's blocks of
+    ``blk`` pairs, the state carried: (channels, T / channels / decim)."""
+    cls = sdr.FMReceiverBank if mode == "fm" else sdr.AMReceiverBank
+    kw = {"deviation_hz": CLI_DEV} if mode == "fm" else {}
+    bank = cls(M, CLI_FS, decim=DECIM, dtype=dtype, device=dev,
+               use_kernel=False, **kw)
+    # The converter's bits: int16 to float32 times 2^-15 is exact.
+    planes = (iq.view(-1, 2).T.to(torch.float32) / 32768.0).contiguous()
+    st, outs = None, []
+    for i in range(0, planes.shape[1], blk):
+        a, st = bank(tuple(p[None, i:i + blk].to(dtype) for p in planes), st)
+        outs.append(a[0])
+    return torch.cat(outs, -1)
+
+
+def cli_path(dev, smi, kchain, kpfb):
+    """Phase 24; returns (chain launches, flat PFB launches) of the CLI's
+    in-process runs."""
+    import tempfile
+    from pathlib import Path
+
+    from scipy.special import erfc
+
+    from simpledsp_tpu_torch import cli
+    from simpledsp_tpu_torch.models import audio, sdr
+    from simpledsp_tpu_torch.models.northstar import NorthStarChain
+    from simpledsp_tpu_torch.runtime import i16_to_f32
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    iq = band_capture(CLI_PAIRS, CLI_FS, M, 24, dev)
+    iq.tofile(tmp / "band.iq16")
+    half = CLI_PAIRS // 2           # a boundary of both block sizes
+    iq[: 2 * half].tofile(tmp / "band_a.iq16")
+    iq[2 * half:].tofile(tmp / "band_b.iq16")
+    x = np.random.default_rng(24).standard_normal(CLI_SAMPLES,
+                                                  dtype=np.float32)
+    x.tofile(tmp / "noise.f32")
+    x[: CLI_SAMPLES // 2].tofile(tmp / "noise_a.f32")
+    x[CLI_SAMPLES // 2:].tofile(tmp / "noise_b.f32")
+    pcm = np.round(np.random.default_rng(25).standard_normal(CLI_PCM)
+                   * 8000).clip(-32768, 32767).astype(np.int16)
+    pcm.tofile(tmp / "speech.pcm")
+
+    def rx(mode, name, frames, *extra):
+        return [f"{mode}-rx", "--input", str(tmp / f"{name}.iq16"),
+                "--output", str(tmp / f"{mode}_{name}_{frames}.npz"),
+                "--rate", str(CLI_FS), "--block-frames", str(frames),
+                *(("--deviation", str(CLI_DEV)) if mode == "fm" else ()),
+                *extra]
+
+    def spectra(name, *extra):
+        return ["spectra", "--input", str(tmp / f"{name}.f32"), "--output",
+                str(tmp / f"spectra_{name}.npz"), "--rate", "39000", *extra]
+
+    mfcc_cmd = ["mfcc", "--input", str(tmp / "speech.pcm"), "--output",
+                str(tmp / "mfcc.npz"), "--rate", "16000"]
+    modem_cmd = ["modem-sim", "--symbols", str(CLI_SYMBOLS), "--ebn0",
+                 "0:10:2", "--output", str(tmp / "modem.npz")]
+
+    # -- the entry point a user runs, each command once, all at once
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    cmds = [rx("fm", "band", CLI_RX_FRAMES[0]),
+            rx("am", "band", CLI_RX_FRAMES[0]), spectra("noise"), mfcc_cmd,
+            modem_cmd]
+    run_entry_points([[a.replace(".npz", "_sub.npz") for a in cmd]
+                      for cmd in cmds], Path(__file__).resolve().parent)
+    print(f"cli: python -m simpledsp_tpu_torch fm-rx, am-rx, spectra, mfcc "
+          f"and modem-sim, all at once: exit 0 in "
+          f"{time.perf_counter() - start:.1f} s")
+
+    # -- in this process, with the launch counts
+    launches = {}
+    rates = []
+
+    def counted(name, argv, kernel, samples):
+        """cli.main(argv) with the counts set to 0 before: ``kernel``'s
+        launches (None: no hand kernel may launch)."""
+        zero_counts()
+        out, secs = run_cli(cli, argv)
+        torch.cuda.synchronize()
+        launches[name] = 0 if kernel is None else kernel.launches
+        stray = [i for i, k in enumerate(KERNELS)
+                 if k is not kernel and k.launches]
+        check(not stray, f"cli {name}: kernels {stray} of KERNELS, off its "
+                         f"path, launched")
+        rates.append((name, samples / secs / 1e6, secs, out.strip()))
+        return out
+
+    n_spec = CLI_SAMPLES // (4096 * 1024)
+    counted("spectra", spectra("noise"), kchain.chain_kernel, CLI_SAMPLES)
+    counted("spectra first half", spectra("noise_a"), kchain.chain_kernel,
+            CLI_SAMPLES // 2)
+    counted("spectra second half", spectra(
+        "noise_b", "--state", str(tmp / "spectra_noise_a.npz.state.npz")),
+            kchain.chain_kernel, CLI_SAMPLES // 2)
+    for mode in ("fm", "am"):
+        for frames in CLI_RX_FRAMES:
+            counted(f"{mode}-rx {frames}", rx(mode, "band", frames),
+                    kpfb.pfb_flat_kernel, CLI_PAIRS)
+    frames = CLI_RX_FRAMES[1]
+    counted("fm-rx first half", rx("fm", "band_a", frames),
+            kpfb.pfb_flat_kernel, half)
+    counted("fm-rx second half", rx("fm", "band_b", frames, "--state", str(
+        tmp / f"fm_band_a_{frames}.npz.state.npz")), kpfb.pfb_flat_kernel,
+            half)
+    counted("mfcc", mfcc_cmd, None, CLI_PCM)
+    modem_out = counted("modem-sim", modem_cmd, None,
+                        CLI_SYMBOLS * 4 * 6)
+    for name, msps, secs, out in rates:
+        print(f"cli {name}: {msps:.6f} Msamples/s wall ({secs:.3f} s in "
+              f"cli.main); {smi}; the command printed: "
+              f"{out.splitlines()[-1] if out else ''}")
+    print("cli modem-sim records: " + " ".join(modem_out.split()))
+
+    # -- launches: one a block
+    n_rx = {f: CLI_PAIRS // (M * DECIM * f) for f in CLI_RX_FRAMES}
+    want = {"spectra": n_spec, "spectra first half": n_spec // 2,
+            "spectra second half": n_spec // 2,
+            "fm-rx first half": n_rx[frames] // 2,
+            "fm-rx second half": n_rx[frames] // 2, "mfcc": 0,
+            "modem-sim": 0,
+            **{f"{m}-rx {f}": n_rx[f] for m in ("fm", "am")
+               for f in CLI_RX_FRAMES}}
+    print("cli launches (chain kernel for spectra, flat PFB kernel for rx): "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for name, n in want.items():
+        check(launches[name] == n, f"cli {name}: {launches[name]} launches, "
+                                   f"want {n} (one a block)")
+
+    def load(name):
+        with np.load(tmp / name) as z:
+            return {k: z[k] for k in z.files}
+
+    # -- spectra: every frame against the float64 composable chain
+    spec = load("spectra_noise.npz")
+    got = spec["spec_re"] + 1j * spec["spec_im"]
+    chain64 = NorthStarChain(fft_size=4096, dtype=torch.float64, device=dev,
+                             use_kernel=False)
+    xs = torch.as_tensor(x, device=dev).double().reshape(n_spec, 1, -1)
+    st, ref = None, []
+    for blk in xs:
+        (rr, ri), st = chain64(blk, st)
+        ref.append(torch.complex(rr[0], ri[0]).cpu().numpy())
+    ref = np.concatenate(ref, axis=0)
+    check(got.shape == ref.shape and np.isfinite(got).all(),
+          f"cli spectra shape {got.shape} or values")
+    spec_snr = snr_db(ref, got)
+    whole = {k: spec[k] for k in ("spec_re", "spec_im")}
+    a, b = load("spectra_noise_a.npz"), load("spectra_noise_b.npz")
+    spec_resume = all(np.array_equal(np.concatenate([a[k], b[k]]), whole[k])
+                      for k in whole)
+    subs = load("spectra_noise_sub.npz")
+    sub_equal = all(np.array_equal(subs[k], whole[k]) for k in whole)
+    spec_sub = (np.inf if sub_equal
+                else snr_db(got, subs["spec_re"] + 1j * subs["spec_im"]))
+    print(f"cli spectra: {got.shape[0]} frames of 4096, all against the "
+          f"float64 composable chain over the same {n_spec} blocks: "
+          f"{spec_snr:.2f} dB; resumed at block {n_spec // 2} equal bit for "
+          f"bit: {spec_resume}; python -m run equal bits: {sub_equal}, "
+          f"{spec_sub:.2f} dB vs this process's")
+    check(spec_snr >= MIN_SNR_DB, f"cli spectra {spec_snr:.2f} dB")
+    check(spec_resume, "cli spectra resumed != continuous")
+    check(spec_sub >= MIN_SNR_DB, f"cli spectra python -m {spec_sub:.2f} dB")
+    del got, ref, whole, a, b, subs, spec, xs
+
+    # -- rx: every channel within the bank bar against float64
+    iq_dev = torch.as_tensor(iq, device=dev)
+    for mode in ("fm", "am"):
+        for f in CLI_RX_FRAMES:
+            blk = M * DECIM * f
+            audio_ = torch.as_tensor(load(f"{mode}_band_{f}.npz")["audio"],
+                                     device=dev)
+            r64 = rx_oracle(sdr, mode, iq_dev, blk, torch.float64, dev)
+            r32 = rx_oracle(sdr, mode, iq_dev, blk, torch.float32, dev)
+            check(audio_.shape == r64.shape
+                  and bool(torch.isfinite(audio_).all()),
+                  f"cli {mode}-rx {f}: audio shape {tuple(audio_.shape)}")
+            err = (audio_.double() - r64).abs().amax(-1)
+            own = (r32.double() - r64).abs().amax(-1)
+            scale = r64.abs().amax(-1)
+            limit = torch.maximum(BAR * scale.clamp_min(1.0), 2 * own)
+            print(f"cli {mode}-rx block-frames {f}: {M} channels x "
+                  f"{audio_.shape[1]} audio samples, every channel against "
+                  f"the float64 composable bank over the same "
+                  f"{CLI_PAIRS // blk} blocks: max |err| "
+                  f"{float(err.max()):.3e} (float32 composable bank "
+                  f"{float(own.max()):.3e}); worst channel at "
+                  f"{float((err / limit).max()):.3f} of its bar")
+            check(bool((err <= limit).all()),
+                  f"cli {mode}-rx {f}: channels over the bar: "
+                  f"{(err > limit).nonzero().flatten().tolist()}")
+            if f == CLI_RX_FRAMES[0]:
+                subs = torch.as_tensor(
+                    load(f"{mode}_band_{f}_sub.npz")["audio"], device=dev)
+                sub_err = float((subs - audio_).abs().max())
+                print(f"cli {mode}-rx python -m run: max |diff| {sub_err:.3e} "
+                      f"vs this process's")
+                check(sub_err <= BAR * max(1.0, float(scale.max())),
+                      f"cli {mode}-rx python -m run differs by {sub_err:.3e}")
+    whole = load(f"fm_band_{frames}.npz")["audio"]
+    a = load(f"fm_band_a_{frames}.npz")["audio"]
+    b = load(f"fm_band_b_{frames}.npz")["audio"]
+    rx_resume = np.array_equal(np.concatenate([a, b], -1), whole)
+    print(f"cli fm-rx resumed at pair {half} equal bit for bit: {rx_resume}")
+    check(rx_resume, "cli fm-rx resumed != continuous")
+    del iq_dev, whole, a, b
+
+    # -- mfcc: every frame against float64 over the same overlapped blocks
+    feats = load("mfcc.npz")["mfcc"]
+    hop, nfft, blk = 256, 512, 256 * 256
+    xf = torch.as_tensor(i16_to_f32(pcm), device=dev).double()
+    xf = torch.cat([torch.zeros(nfft - hop, dtype=xf.dtype, device=dev), xf])
+    nblk = CLI_PCM // blk
+    idx = (torch.arange(nblk, device=dev)[:, None] * blk
+           + torch.arange(blk + nfft - hop, device=dev))
+    ref = audio.mfcc(xf[idx], 13, nfft=nfft, hop=hop, n_mels=64, fs=16000.0,
+                     dtype=torch.float64).reshape(-1, 13)
+    got = torch.as_tensor(feats, device=dev)
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"cli mfcc shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    mfcc_snr = snr_db_dev(ref, got)
+    mfcc_sub = snr_db_dev(got, torch.as_tensor(load("mfcc_sub.npz")["mfcc"],
+                                               device=dev))
+    print(f"cli mfcc: {got.shape[0]} frames x 13, all against float64 mfcc "
+          f"over the same {nblk} overlapped blocks: {mfcc_snr:.2f} dB; "
+          f"python -m run {mfcc_sub:.2f} dB vs this process's")
+    check(mfcc_snr >= MIN_FILTER_DB, f"cli mfcc {mfcc_snr:.2f} dB")
+    check(mfcc_sub >= MIN_FILTER_DB, f"cli mfcc python -m {mfcc_sub:.2f} dB")
+    del xf, idx, ref, got
+
+    # -- modem-sim: the BER falls, and follows theory where it can be read
+    for name in ("modem.npz", "modem_sub.npz"):
+        z = load(name)
+        ebn0, ber_ = z["ebn0_db"], z["ber"]
+        bits = int(z["bits_per_point"])
+        theory = 0.5 * erfc(np.sqrt(10.0 ** (ebn0 / 10.0)))
+        read = ber_ * bits >= 100
+        ratio = ber_[read] / theory[read]
+        print(f"cli modem-sim ({name}): Eb/N0 {ebn0.tolist()} dB, BER "
+              f"{ber_.tolist()}, theory {theory.tolist()}; measured / theory "
+              f"where >= 100 errors {ratio.tolist()}")
+        check(ebn0.size == 6 and all(b2 < b1 for b1, b2 in
+                                     zip(ber_, ber_[1:])),
+              f"cli modem-sim {name}: BER does not fall {ber_.tolist()}")
+        check(bool(read.any()) and bool(((0.6 < ratio) & (ratio < 1.6)).all()),
+              f"cli modem-sim {name}: BER / theory {ratio.tolist()}")
+    tmp_dir.cleanup()
+    return (launches["spectra"] + launches["spectra first half"]
+            + launches["spectra second half"],
+            sum(v for k, v in launches.items() if "rx" in k))
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -1993,6 +2354,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from simpledsp_tpu_torch import runtime
     from simpledsp_tpu_torch.design.fir import lowpass_taps
     from simpledsp_tpu_torch.kernels import _build
     from simpledsp_tpu_torch.kernels import chain as kchain
@@ -2032,14 +2394,15 @@ def main() -> int:
     build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library,
                kols.ols_kernel.library, k2d.conv2d_kernel.library,
                kfft.fft_frames_kernel.library, kcv.chain_regs_kernel.library,
-               kprobes.scale_copy_kernel.library])
+               kprobes.scale_copy_kernel.library, runtime.load_library])
     secs = _build.build_seconds
     print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, chain_tc.cu "
           f"{secs['sdsp_chain_tc']:.2f} s, pfb.cu "
           f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s, "
           f"conv2d.cu {secs['sdsp_conv2d']:.2f} s, fft.cu "
           f"{secs['sdsp_fft']:.2f} s and probes.cu "
-          f"{secs['sdsp_probes']:.2f} s in nvcc, "
+          f"{secs['sdsp_probes']:.2f} s in nvcc, native/sdsp_io.cpp "
+          f"{secs['sdsp_io']:.2f} s in g++, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
     chain_record, chain_ms = chain_phases(dev, kchain, NorthStarChain,
@@ -2067,6 +2430,11 @@ def main() -> int:
     start = time.perf_counter()
     ols_more += comms_path(dev)
     print(f"phase 23 took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    chain_cli, flat_cli = cli_path(dev, smi, kchain, kpfb)
+    print(f"phase 24 took {time.perf_counter() - start:.1f} s")
+    chain_record["launches"] += chain_cli
+    flat_launches += flat_cli
     ols_launches += ols_more
     fft_launches += fft_more
     flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]

@@ -1,1 +1,2 @@
-"""Host-side integer helpers."""
+"""Host-side helpers: integer math, golden fixtures, host transfers,
+checkpoints, timing and numerical checks."""

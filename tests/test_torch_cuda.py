@@ -34,7 +34,10 @@ surface on the card: in float64 within 1e-9 of the largest output of the
 same call on the CPU; the FIR paths in float32 >= 100 dB against it, and
 the IIR paths in float32 no more than 6 dB below the same call in float32
 on the CPU.  The mel energies >= 100 dB against the CPU in float64; the
-modems' noiseless round trips give every bit back.
+modems' noiseless round trips give every bit back.  The command-line front
+end on the card against the same files with ``--device cpu``: the spectra
+>= 120 dB apart, the audio within twice the bank bar (each side within the
+bar of float64); a bank state saved from the card resumes bit for bit.
 """
 
 import numpy as np
@@ -1299,3 +1302,90 @@ def test_modems_round_trip_on_the_card(cuda_device):
                          device=cuda_device, generator=g)
     rx, _ = ofdm.demodulate(*ofdm.modulate(bits))
     assert torch.equal(rx, bits)
+
+
+# -- the utilities and the command-line front end on the card ---------------
+
+def test_checkpoint_resumes_a_bank_on_the_card(cuda_device, tmp_path):
+    """A kernel-route FM state saved from the card loads onto the card
+    (the None leaf included) and continues the stream bit for bit."""
+    from simpledsp_tpu_torch.utils.checkpoint import load_state, save_state
+    from simpledsp_tpu_torch.utils.host import tree_leaves
+    bank = tsdr.FMReceiverBank(16, 1.024e6)
+    assert bank.use_kernel
+    x = _noise((2, 2, 2, 65536), 15, cuda_device).float()
+    _, st = bank((x[0, 0], x[0, 1]))
+    save_state(tmp_path / "s.npz", st)
+    back = load_state(tmp_path / "s.npz", bank.init_state(2))
+    assert back.dc is None
+    for a, b in zip(tree_leaves(st), tree_leaves(back), strict=True):
+        assert b.device == a.device and torch.equal(a, b)
+    a1, _ = bank((x[1, 0], x[1, 1]), st)
+    a2, _ = bank((x[1, 0], x[1, 1]), back)
+    assert torch.equal(a1, a2)
+
+
+def test_host_fetch_and_checked_on_the_card(cuda_device):
+    from simpledsp_tpu_torch.utils.debug import checked
+    from simpledsp_tpu_torch.utils.host import to_numpy
+    z = torch.randn(64, dtype=torch.complex64, device=cuda_device)
+    np.testing.assert_array_equal(to_numpy({"z": z})["z"], z.cpu().numpy())
+    f = checked(lambda v: (v, torch.log(v)))
+    f(torch.ones(4, device=cuda_device))
+    with pytest.raises(RuntimeError, match=r"output\[1\]"):
+        f(-torch.ones(4, device=cuda_device))
+
+
+def test_timing_helpers_wait_for_the_card(cuda_device):
+    """A 4096^3 float32 product takes at least 2 ms at 67 TFLOP/s: timings
+    that only saw the launch would be some microseconds."""
+    from simpledsp_tpu_torch.utils.benchmark import (time_blocked,
+                                                     time_streaming)
+    x = torch.randn(4096, 4096, device=cuda_device)
+    assert time_blocked(lambda a: a @ a, x, iters=3) > 1e-3
+    assert time_streaming(lambda a, s: (a @ a, s + 1), x,
+                          torch.zeros((), device=cuda_device), iters=3) > 1e-3
+
+
+def test_cli_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """spectra and fm-rx with no --device (the card, one kernel launch a
+    block) against the same files with --device cpu (the plain routes):
+    the spectra >= 120 dB apart, the audio within twice the bank bar
+    (each side within the bar of float64)."""
+    from simpledsp_tpu_torch import cli
+    x = np.random.default_rng(16).standard_normal(4 * 4096)
+    x.astype(np.float32).tofile(tmp_path / "x.f32")
+    n, fs = 4 * 16 * 4 * 16, 256e3      # 4 blocks at --block-frames 16
+    t = np.arange(n) / fs
+    # A carrier in each channel, AM and FM by tones of its own.
+    z = sum((1 + 0.5 * np.sin(2 * np.pi * (300 + 50 * c) * t))
+            * np.exp(1j * (2 * np.pi * (c * fs / 16 + 100) * t
+                           + 2.0 * np.sin(2 * np.pi * (400 + 30 * c) * t)))
+            for c in range(16))
+    z *= 20000 / np.abs(z).max()
+    np.stack([z.real, z.imag], -1).round().astype(np.int16).tofile(
+        tmp_path / "x.iq16")
+    runs = {"spectra": (["spectra", "--input", str(tmp_path / "x.f32"),
+                         "--rate", "39000", "--block-frames", "1"],
+                        tchain.chain_kernel, 4),
+            "fm-rx": (["fm-rx", "--input", str(tmp_path / "x.iq16"),
+                       "--rate", str(fs), "--block-frames", "16",
+                       "--deviation", "3000"], tpfb.pfb_flat_kernel, 4)}
+    for name, (argv, kernel, blocks) in runs.items():
+        before = kernel.launches
+        assert cli.main([*argv, "--output", str(tmp_path / "g.npz")]) == 0
+        assert kernel.launches == before + blocks
+        assert cli.main([*argv, "--output", str(tmp_path / "c.npz"),
+                         "--device", "cpu"]) == 0
+        gpu, cpu = np.load(tmp_path / "g.npz"), np.load(tmp_path / "c.npz")
+        assert sorted(gpu.files) == sorted(cpu.files)
+        if name == "spectra":
+            ref = torch.complex(*(torch.as_tensor(cpu[k]).double()
+                                  for k in ("spec_re", "spec_im")))
+            got = torch.complex(*(torch.as_tensor(gpu[k]).double()
+                                  for k in ("spec_re", "spec_im")))
+            err = max(float(((got - ref).abs() ** 2).sum()), 1e-300)
+            assert 10 * np.log10(float((ref.abs() ** 2).sum()) / err) >= 120
+        else:
+            scale = max(1.0, float(np.abs(cpu["audio"]).max()))
+            assert np.abs(gpu["audio"] - cpu["audio"]).max() <= 3e-6 * scale

@@ -194,6 +194,8 @@ def _run_python(code, env=None):
 
 def test_port_imports_no_jax():
     code = ("import sys\n"
+            "sys.modules['jax'] = None  # any import of jax now raises\n"
+            "sys.modules['simpledsp_tpu'] = None\n"
             "import simpledsp_tpu_torch.models.northstar\n"
             "import simpledsp_tpu_torch.convert\n"
             "import simpledsp_tpu_torch.kernels.chain\n"
@@ -232,16 +234,39 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.design.systems\n"
             "import simpledsp_tpu_torch.models.audio\n"
             "import simpledsp_tpu_torch.models.comms\n"
+            "import simpledsp_tpu_torch.cli\n"
+            "import simpledsp_tpu_torch.runtime\n"
+            "import simpledsp_tpu_torch.utils.host\n"
+            "import simpledsp_tpu_torch.utils.checkpoint\n"
+            "import simpledsp_tpu_torch.utils.benchmark\n"
+            "import simpledsp_tpu_torch.utils.debug\n"
+            "simpledsp_tpu_torch.runtime.load_library()\n"
             "from simpledsp_tpu_torch.design.biquad import design_bandstop\n"
             "design_bandstop(4, 6000.0, 39000.0, 3.0)\n"
             "from simpledsp_tpu_torch.design.ltisys import dlsim, freqresp\n"
             "dlsim(([1.0], [1.0, -0.5], 1.0), [1.0, 0.0, 0.0])\n"
             "freqresp(([1.0], [1.0, 1.0]), [1.0, 2.0])\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith(('jax.', 'simpledsp_tpu.')))\n"
+            "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+            "             and (m in ('jax', 'simpledsp_tpu')\n"
+            "                  or m.startswith(('jax.', 'simpledsp_tpu.'))))\n"
             "assert not bad, bad\n")
     proc = _run_python(code)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("args", [["--help"], ["spectra", "--help"],
+                                  ["fm-rx", "--help"]])
+def test_port_cli_help_imports_no_jax(args):
+    """``python -m simpledsp_tpu_torch --help`` with every import of jax
+    and of the JAX package made to fail."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['simpledsp_tpu'] = None\n"
+            f"sys.argv = ['simpledsp_tpu_torch', *{args!r}]\n"
+            "runpy.run_module('simpledsp_tpu_torch', run_name='__main__')\n")
+    proc = _run_python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout or "fm-rx" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
