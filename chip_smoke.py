@@ -4,8 +4,8 @@ SDR receiver banks, the 1-D and 2-D convolution paths, the spectral
 transforms, the pulse-Doppler radar and the chain's full spectrum and
 layouts end to end, and times them; runs the probes of the card
 (``simpledsp_tpu_torch/tools``) on their own kernels; then drives the
-general filtering surface, the audio features, the modems and the
-command-line front end.
+general filtering surface, the audio features, the modems, the
+command-line front end and the smoothing filters.
 
     python3 chip_smoke.py
 
@@ -219,7 +219,33 @@ Phases (any failure exits nonzero before the result line):
     ``python -m`` runs' outputs are held to the same bars against this
     process's.  Each run's Msamples/s of wall time beside the card's name
     and power limit.
-    Phases 21-24 print their seconds, and the script its total.
+25. The smoothing filters (``ops/smooth``, ``ops/splines.sepfir2d``) on
+    64 x 2^20 float32 noise plus three tones a row (seed 25; the chain's
+    width): ``savgol_filter`` (31, 3) in 'interp' and 'mirror' and (11,
+    2), ``medfilt`` at 9 and 3, ``wiener`` at 5, ``detrend``; and on 32 x
+    512 x 512 float32 noise (the conv2d cell): ``medfilt2d`` 5x5,
+    ``wiener`` 5x5, ``sepfir2d`` with two 9-tap filters and
+    ``order_filter`` with a 3x3 cross, each once with the counts set to 0
+    before (no hand kernel may launch).  All rows against the CPU: the
+    linear filters >= 100 dB against scipy in float64; the rank filters
+    equal, bit for bit, the port's plain float64 path cast to float32;
+    ``wiener`` >= 100 dB against the port's float32 run on the CPU (its
+    local variance cancels in float32 on both sides), its float64 SNR
+    printed beside.  The device events of each call, traced once by
+    ``torch.profiler`` (``tools/probe_hlo.device_events``) in a process of
+    its own: savgol at 31 taps and medfilt at 9 launch no more than at 11
+    and 3.  Host checks:
+    ``max_len_seq(20)`` through the native LFSR equals scipy's, and
+    ``find_peaks`` of a savgol row on the card equals scipy's.  The CLI at
+    the sizes the kernels do not take, ``spectra --fft 32768`` on 2^22
+    samples and ``fm-rx --channels 12`` on a 1.5 M-pair capture with a
+    carrier in each channel, as ``python -m simpledsp_tpu_torch`` on the
+    card and with ``--device cpu``: exit 0, one stderr line naming the
+    plain route on the card; spectra card against CPU and each against
+    the float64 composable chain >= 120 dB, every channel of both within
+    the bank bar of the float64 composable bank.  ms/call of each
+    smoothing call beside the card's name and power limit.
+    Phases 21-25 print their seconds, and the script its total.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -2071,14 +2097,16 @@ def run_entry_points(cmds, cwd):
         check(proc.returncode == 0, f"python -m simpledsp_tpu_torch "
                                     f"{cmd[0]} exited {proc.returncode}: "
                                     f"{err[-2000:]}")
+    return outs
 
 
-def rx_oracle(sdr, mode, iq, blk, dtype, dev):
-    """The composable bank in ``dtype`` over the capture's blocks of
-    ``blk`` pairs, the state carried: (channels, T / channels / decim)."""
+def rx_oracle(sdr, mode, iq, blk, dtype, dev, m=M):
+    """The composable bank of ``m`` channels in ``dtype`` over the
+    capture's blocks of ``blk`` pairs, the state carried: (channels, T /
+    channels / decim)."""
     cls = sdr.FMReceiverBank if mode == "fm" else sdr.AMReceiverBank
     kw = {"deviation_hz": CLI_DEV} if mode == "fm" else {}
-    bank = cls(M, CLI_FS, decim=DECIM, dtype=dtype, device=dev,
+    bank = cls(m, CLI_FS, decim=DECIM, dtype=dtype, device=dev,
                use_kernel=False, **kw)
     # The converter's bits: int16 to float32 times 2^-15 is exact.
     planes = (iq.view(-1, 2).T.to(torch.float32) / 32768.0).contiguous()
@@ -2328,6 +2356,336 @@ def cli_path(dev, smi, kchain, kpfb):
             sum(v for k, v in launches.items() if "rx" in k))
 
 
+# -- the smoothing filters, splines, peaks and waveforms ----------------------
+
+SC, ST = 64, 1 << 20        # 1-D smoothing: rows, samples (the chain's)
+S2 = (32, 512, 512)         # 2-D smoothing: images (the conv2d cell)
+# The pairs of calls that differ only in their window: the launches a call
+# must not grow with it (a loop of shifted slices would launch a kernel a
+# tap).
+WINDOW_PAIRS = (("savgol_filter(x, 11, 2)", "savgol_filter(x, 31, 3)"),
+                ("medfilt(x, 3)", "medfilt(x, 9)"))
+CROSS = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]])
+SEP_TAPS = (np.hanning(11)[1:-1] / np.hanning(11)[1:-1].sum(),
+            np.array([-1.0, 2.0, 5.0, 10.0, 16.0, 10.0, 5.0, 2.0, -1.0]) / 48)
+SMOOTH_CLI_PAIRS = 12 * DECIM * 1024 * 32   # fm-rx --channels 12: 32 blocks
+SMOOTH_CLI_SAMPLES = 1 << 22                # spectra --fft 32768: 8 blocks
+# The plain route's spectra at --fft 32768, the card's against --device
+# cpu's and each against float64: the card-against-CPU bar of
+# tests/test_torch_cuda.py::test_cli_on_the_card_matches_the_cpu.  (The
+# chain's 130 dB is the kernel route's; the plain route's float32 engine
+# holds about 127 dB at this size.)
+MIN_PLAIN_CLI_DB = 120.0
+
+
+def smoothing_signals(dev):
+    """The phase's inputs on ``dev``: 64 x 2^20 float32 noise (numpy seed
+    25) plus three tones a row of random amplitude, frequency and phase
+    (made in float64 on the card), and 32 x 512 x 512 float32 noise."""
+    rng = np.random.default_rng(25)
+    x = torch.as_tensor(rng.standard_normal((SC, ST), dtype=np.float32),
+                        device=dev).double()
+    t = torch.arange(ST, dtype=torch.float64, device=dev)
+    for _ in range(3):
+        amp, freq, ph = (torch.as_tensor(v, device=dev)[:, None] for v in (
+            rng.uniform(0.5, 3.0, SC), rng.uniform(1e-4, 0.05, SC),
+            rng.uniform(0, 2 * np.pi, SC)))
+        x += amp * torch.sin(2 * np.pi * freq * t + ph)
+    img = torch.as_tensor(rng.standard_normal(S2, dtype=np.float32),
+                          device=dev)
+    return x.float(), img
+
+
+def smoothing_calls(x, img) -> dict:
+    """name: (call on a tensor, 1-D or 2-D input) of the phase."""
+    from simpledsp_tpu_torch.ops import smooth, splines
+
+    hr, hc = SEP_TAPS
+    return {
+        "savgol_filter(x, 31, 3)": (
+            lambda v: smooth.savgol_filter(v, 31, 3), x),
+        "savgol_filter(x, 31, 3, mode='mirror')": (
+            lambda v: smooth.savgol_filter(v, 31, 3, mode="mirror"), x),
+        "savgol_filter(x, 11, 2)": (
+            lambda v: smooth.savgol_filter(v, 11, 2), x),
+        "medfilt(x, 9)": (lambda v: smooth.medfilt(v, 9), x),
+        "medfilt(x, 3)": (lambda v: smooth.medfilt(v, 3), x),
+        "wiener(x, 5)": (lambda v: smooth.wiener(v, 5), x),
+        "detrend(x)": (lambda v: smooth.detrend(v), x),
+        "medfilt2d(img, 5)": (lambda v: smooth.medfilt2d(v, 5), img),
+        "wiener(img, 5)": (lambda v: smooth.wiener(v, 5), img),
+        "sepfir2d(img, 9 taps, 9 taps)": (
+            lambda v: splines.sepfir2d(v, hr, hc), img),
+        "order_filter(img, cross, 2)": (
+            lambda v: smooth.order_filter(v, CROSS, 2), img),
+    }
+
+
+def smoothing_launches() -> dict:
+    """Device events of one call of each of the phase's calls, traced in
+    one profiler session (``tools/probe_hlo.device_events``) after a
+    warm-up call: {name: {"kernels": n, "copies": n, "names": [device
+    events]}}.  Run in a process of its own: traced in this one, after
+    phase 20's session, the first call lost most of its device events."""
+    from simpledsp_tpu_torch.tools.probe_hlo import device_events
+
+    dev = torch.device("cuda", 0)
+    x, img = smoothing_signals(dev)
+    calls = {name: (lambda f=f, v=v: f(v))
+             for name, (f, v) in smoothing_calls(x, img).items()}
+    for call in calls.values():
+        call()
+    out = {}
+    for name, evs in device_events(calls).items():
+        out[name] = {k: sum(e["count"] for e in evs if (e["kind"] == "copy")
+                            == (k == "copies")) for k in ("kernels", "copies")}
+        out[name]["names"] = [f"{e['count']} x {e['name'][:80]}" for e in evs]
+    return out
+
+
+def in_background(fn):
+    """Run ``fn`` in a thread; returns a call that waits for it and gives
+    its result, or re-raises what it raised."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised by the waiter
+            box["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+
+    def wait():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+    return wait
+
+
+def smoothing_path(dev, smi, sdr):
+    """Phase 25."""
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+
+    # -- in the background: the launch counts in a process of their own, and
+    # the two CLI sizes the kernels do not take, on the card and on the CPU
+    counter = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.smoothing_launches()))"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        iq = band_capture(SMOOTH_CLI_PAIRS, CLI_FS, 12, 25, dev)
+        iq.tofile(tmp / "band12.iq16")
+        xs = np.random.default_rng(25).standard_normal(SMOOTH_CLI_SAMPLES,
+                                                       dtype=np.float32)
+        xs.tofile(tmp / "noise.f32")
+        cli_cmds = {
+            "spectra": ["spectra", "--input", str(tmp / "noise.f32"),
+                        "--rate", "39000", "--fft", "32768",
+                        "--block-frames", "16"],
+            "fm-rx": ["fm-rx", "--input", str(tmp / "band12.iq16"),
+                      "--rate", str(CLI_FS), "--channels", "12",
+                      "--deviation", str(CLI_DEV)]}
+        labels = [(name, where) for name in cli_cmds
+                  for where in ("card", "cpu")]
+        runs = [[*cli_cmds[name], "--output",
+                 str(tmp / f"{name}_{where}.npz"),
+                 *(("--device", "cpu") if where == "cpu" else ())]
+                for name, where in labels]
+        cli_outs = in_background(lambda: run_entry_points(runs, root))
+        smoothing_checks(dev, smi, sdr, tmp, counter, cli_outs, labels, iq,
+                         xs)
+    finally:
+        if counter.poll() is None:
+            counter.kill()
+            counter.wait()
+        tmp_dir.cleanup()
+
+
+def smoothing_checks(dev, smi, sdr, tmp, counter, cli_outs, labels, iq, xs):
+    """Phase 25 once its background work has started: the card's calls
+    against the CPU, the host paths, the launch counts, the CLI's
+    outputs, and the timings."""
+    import scipy.signal as ss
+
+    from simpledsp_tpu_torch.models.northstar import NorthStarChain
+    from simpledsp_tpu_torch.ops import peaks, smooth, waveforms
+
+    # -- every call once on the card, then against the CPU
+    x, img = smoothing_signals(dev)
+    calls = smoothing_calls(x, img)
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = {name: f(v) for name, (f, v) in calls.items()}
+    torch.cuda.synchronize()
+    stray = [i for i, k in enumerate(KERNELS) if k.launches]
+    check(not stray, f"smoothing: kernels {stray} of KERNELS launched")
+    x_host, img_host = x.cpu(), img.cpu()
+    x64, img64 = x_host.double(), img_host.double()
+    xn, imgn = x64.numpy(), img64.numpy()
+    hr, hc = SEP_TAPS
+    # The float64 reference on the CPU of each call: scipy for the linear
+    # filters (in a thread, beside the rest), the port's plain float64 path
+    # for the rank filters (scipy 1.17's order_filter ignores the holes of a
+    # domain) and for wiener.
+    start = time.perf_counter()
+    scipy_refs = in_background(lambda: {
+        "savgol_filter(x, 31, 3)": ss.savgol_filter(xn, 31, 3),
+        "savgol_filter(x, 31, 3, mode='mirror')":
+            ss.savgol_filter(xn, 31, 3, mode="mirror"),
+        "savgol_filter(x, 11, 2)": ss.savgol_filter(xn, 11, 2),
+        "detrend(x)": ss.detrend(xn, axis=-1),
+        "sepfir2d(img, 9 taps, 9 taps)":
+            np.stack([ss.sepfir2d(im, hr, hc) for im in imgn])})
+    rank = ("medfilt(x, 9)", "medfilt(x, 3)", "medfilt2d(img, 5)",
+            "order_filter(img, cross, 2)")
+    report = {}
+    # The port's own references first, while the scipy thread runs.
+    for name in sorted(calls, key=lambda n: not (n in rank
+                                                 or n.startswith("wiener"))):
+        f, v = calls[name]
+        got = outs[name]
+        check(got.shape == v.shape and got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()),
+              f"smoothing {name}: shape {tuple(got.shape)}, {got.dtype}, or "
+              f"not finite")
+        got = got.cpu()
+        inp64 = x64 if v is x else img64
+        if name in rank:
+            want = f(inp64).float()
+            equal = torch.equal(got, want)
+            report[name] = "equal bits to the port's plain float64 path on " \
+                           f"the CPU cast to float32: {equal}"
+            check(equal, f"smoothing {name}: not the float64 result's bits")
+        elif name.startswith("wiener"):
+            cpu32 = f(x_host if v is x else img_host)
+            snr32 = snr_db_dev(cpu32, got)
+            snr64 = snr_db_dev(f(inp64), got)
+            report[name] = (f"{snr32:.2f} dB vs the port's float32 run on "
+                            f"the CPU (bar {MIN_FILTER_DB}"
+                            f"), {snr64:.2f} dB vs its float64 run")
+            check(snr32 >= MIN_FILTER_DB,
+                  f"smoothing {name}: {snr32:.2f} dB vs float32 on the CPU")
+        else:
+            snr = snr_db_dev(torch.as_tensor(scipy_refs()[name]), got)
+            report[name] = (f"{snr:.2f} dB vs scipy float64 on the CPU "
+                            f"(bar {MIN_FILTER_DB})")
+            check(snr >= MIN_FILTER_DB,
+                  f"smoothing {name}: {snr:.2f} dB vs scipy float64")
+    print(f"smoothing: the references on the CPU took "
+          f"{time.perf_counter() - start:.1f} s")
+    del outs, x64, img64, xn, imgn
+
+    # -- host checks: the native LFSR, peaks of a tensor on the card
+    start = time.perf_counter()
+    seq, state = waveforms.max_len_seq(20)
+    mls_s = time.perf_counter() - start
+    ref_seq, ref_state = ss.max_len_seq(20)
+    check(seq.device.type == "cuda"
+          and np.array_equal(seq.cpu().numpy(), ref_seq)
+          and np.array_equal(state, ref_state),
+          "max_len_seq(20) differs from scipy")
+    # A 65536-sample piece: the peak search is a Python loop on the host.
+    row = smooth.savgol_filter(x[0, :1 << 16], 31, 3)
+    pk, props = peaks.find_peaks(row, prominence=1.0, distance=64)
+    ref_pk, ref_props = ss.find_peaks(row.double().cpu().numpy(),
+                                      prominence=1.0, distance=64)
+    check(pk.size > 0 and np.array_equal(pk, ref_pk) and np.array_equal(
+        props["prominences"], ref_props["prominences"]),
+          "find_peaks of a tensor on the card differs from scipy")
+    print(f"smoothing host paths: max_len_seq(20) {seq.numel()} bits on "
+          f"{seq.device} in {mls_s * 1e3:.1f} ms (the native LFSR), equal "
+          f"to scipy with its state; find_peaks of a savgol row on the card "
+          f"{pk.size} peaks, equal to scipy's")
+
+    # -- the launch counts, traced in their own process
+    out, err = counter.communicate(timeout=CLI_TIMEOUT)
+    check(counter.returncode == 0, f"smoothing launch count exited "
+                                   f"{counter.returncode}: {err[-2000:]}")
+    launches = json.loads(out.strip().splitlines()[-1])
+    for small, large in WINDOW_PAIRS:
+        a = launches[small]["kernels"] + launches[small]["copies"]
+        b = launches[large]["kernels"] + launches[large]["copies"]
+        print(f"smoothing launches a call: {small} {a}, {large} {b}: "
+              f"{launches[small]['names']} / {launches[large]['names']}")
+        check(0 < b <= a, f"smoothing: {large} launched {b} times a call, "
+                          f"{small} {a}: the count grows with the window")
+
+    # -- the CLI at sizes the kernels do not take
+    for (name, where), (_, err) in zip(labels, cli_outs()):
+        said = [ln for ln in err.splitlines() if "plain PyTorch route" in ln]
+        print(f"cli {name} ({where}) stderr route line: {said}")
+        check(len(said) == (1 if where == "card" else 0),
+              f"cli {name} on the {where}: route lines {said}")
+
+    def load(name):
+        with np.load(tmp / name) as z:
+            return {k: z[k] for k in z.files}
+
+    card, cpu = load("spectra_card.npz"), load("spectra_cpu.npz")
+    got = card["spec_re"] + 1j * card["spec_im"]
+    want = cpu["spec_re"] + 1j * cpu["spec_im"]
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"cli spectra --fft 32768 shape {got.shape} vs {want.shape}")
+    # The float64 composable chain over the same blocks, as phase 24's.
+    chain64 = NorthStarChain(fft_size=32768, dtype=torch.float64, device=dev,
+                             use_kernel=False)
+    st, ref = None, []
+    for blk in torch.as_tensor(xs, device=dev).double().reshape(-1, 1,
+                                                                 32768 * 16):
+        (rr, ri), st = chain64(blk, st)
+        ref.append(torch.complex(rr[0], ri[0]).cpu().numpy())
+    ref = np.concatenate(ref, axis=0)
+    snrs = (snr_db(want, got), snr_db(ref, got), snr_db(ref, want))
+    print(f"cli spectra --fft 32768 (the plain route): {got.shape[0]} frames, "
+          f"card vs --device cpu {snrs[0]:.2f} dB; against the float64 "
+          f"composable chain over the same blocks: card {snrs[1]:.2f} dB, "
+          f"cpu {snrs[2]:.2f} dB (bar {MIN_PLAIN_CLI_DB} for each)")
+    check(min(snrs) >= MIN_PLAIN_CLI_DB,
+          f"cli spectra --fft 32768: {snrs} dB")
+    blk = 12 * DECIM * 1024
+    iq_dev = torch.as_tensor(iq, device=dev)
+    r64, r32 = (rx_oracle(sdr, "fm", iq_dev, blk, dt, dev, m=12)
+                for dt in (torch.float64, torch.float32))
+    own = (r32.double() - r64).abs().amax(-1)
+    scale = r64.abs().amax(-1)
+    limit = torch.maximum(BAR * scale.clamp_min(1.0), 2 * own)
+    worst = {}
+    for where in ("card", "cpu"):
+        audio_ = torch.as_tensor(load(f"fm-rx_{where}.npz")["audio"],
+                                 device=dev)
+        check(audio_.shape == r64.shape, f"cli fm-rx --channels 12 ({where}) "
+                                         f"audio {tuple(audio_.shape)}")
+        err = (audio_.double() - r64).abs().amax(-1)
+        worst[where] = float((err / limit).max())
+        check(bool((err <= limit).all()), f"cli fm-rx --channels 12 ({where}):"
+                                          f" channels over the bank bar")
+    apart = float(np.abs(load("fm-rx_card.npz")["audio"]
+                         - load("fm-rx_cpu.npz")["audio"]).max())
+    print(f"cli fm-rx --channels 12 (the plain route): 12 channels x "
+          f"{r64.shape[1]} audio samples against the float64 composable bank "
+          f"over the same {SMOOTH_CLI_PAIRS // blk} blocks, the worst channel "
+          f"at {worst['card']:.3f} (card) and {worst['cpu']:.3f} (--device "
+          f"cpu) of its bar; card vs cpu max |diff| {apart:.3e}")
+    del iq_dev, r64, r32
+
+    # -- ms/call on the card, alone now
+    for name, (f, v) in calls.items():
+        ms = median_ms(lambda: f(v), **SLOW)
+        n = launches[name]
+        print(f"smoothing {name} on {tuple(v.shape)} float32: {ms:.3f} ms/call "
+              f"({v.numel() / ms / 1e3:.1f} Msamples/s), {n['kernels']} "
+              f"kernel(s) and {n['copies']} copies a call; {report[name]}; "
+              f"{smi}")
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -2433,6 +2791,9 @@ def main() -> int:
     start = time.perf_counter()
     chain_cli, flat_cli = cli_path(dev, smi, kchain, kpfb)
     print(f"phase 24 took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    smoothing_path(dev, smi, sdr)
+    print(f"phase 25 took {time.perf_counter() - start:.1f} s")
     chain_record["launches"] += chain_cli
     flat_launches += flat_cli
     ols_launches += ols_more

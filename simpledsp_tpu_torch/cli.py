@@ -13,7 +13,10 @@ Ingest runs through the native streaming runtime (ring buffer, background
 file reader and IQ converters, simpledsp_tpu_torch/runtime); DSP runs on
 CUDA.  Every command takes --device; without a card, a command exits with
 status 2 unless it is given --device cpu: it never moves to the CPU on its
-own.  Outputs are .npz files with the keys of the JAX package's CLI, and
+own.  A size the CUDA kernel does not take (``spectra --fft 32768``,
+``fm-rx --channels 12``) runs the plain PyTorch route on the same device,
+which the command says in one line on stderr (``chain_route``,
+``bank_route``).  Outputs are .npz files with the keys of the JAX package's CLI, and
 the carried state is saved beside them in the JAX package's checkpoint
 format, so a follow-up run of either package can resume the stream.
 """
@@ -81,6 +84,42 @@ def _ingest_blocks(path: str, fmt: str, block_pairs: int):
             yield x, np.zeros_like(x)
 
 
+def chain_route(fft_size: int, device) -> str:
+    """The spectra chain's route for ``fft_size`` on ``device``: "kernel"
+    where the CUDA chain kernel takes the size (a split fft_size = n1 n2
+    with n1, n2 <= 128 and n2 even), else "plain", the composable path on
+    the same device.  The CPU always takes "plain"."""
+    import torch
+
+    from simpledsp_tpu_torch.kernels.chain import kernel_supports
+    from simpledsp_tpu_torch.kernels.fft import _best_split
+
+    if torch.device(device).type != "cuda":
+        return "plain"
+    split = _best_split(int(fft_size))
+    return "kernel" if split and kernel_supports(*split) else "plain"
+
+
+def bank_route(channels: int, taps_per_channel: int, device) -> str:
+    """The receiver bank's route on ``device``: "kernel" where the CUDA
+    PFB kernel takes (M, K) = (``channels``, ``taps_per_channel``), M | 128
+    and K <= 32, else "plain", the composable path on the same device.
+    The CPU always takes "plain"."""
+    import torch
+
+    from simpledsp_tpu_torch.kernels.pfb import kernel_supports
+
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "kernel" if kernel_supports(int(channels),
+                                       int(taps_per_channel)) else "plain"
+
+
+def _say_plain(cmd: str, size: str, why: str, dev) -> None:
+    print(f"{cmd}: {size}: {why}; running the plain PyTorch route on {dev}",
+          file=sys.stderr)
+
+
 def _state_path(args) -> str:
     return args.save_state or (args.output + ".state.npz")
 
@@ -101,12 +140,19 @@ def _cmd_rx(args, mode: str, dev) -> int:
     from simpledsp_tpu_torch.models.sdr import AMReceiverBank, FMReceiverBank
     from simpledsp_tpu_torch.utils.checkpoint import save_state
 
+    taps = 16      # the banks' taps_per_channel, which the CLI keeps
+    route = bank_route(args.channels, taps, dev)
+    if route == "plain" and dev.type == "cuda":
+        _say_plain(f"{mode}-rx", f"--channels {args.channels}",
+                   f"the CUDA PFB kernel takes M | 128 channels and at most "
+                   f"32 taps per channel (here {taps})", dev)
+    kw = dict(decim=args.decim, taps_per_channel=taps, device=dev,
+              use_kernel=route == "kernel")
     if mode == "fm":
-        rx = FMReceiverBank(args.channels, args.rate, decim=args.decim,
-                            deviation_hz=args.deviation, device=dev)
+        rx = FMReceiverBank(args.channels, args.rate,
+                            deviation_hz=args.deviation, **kw)
     else:
-        rx = AMReceiverBank(args.channels, args.rate, decim=args.decim,
-                            device=dev)
+        rx = AMReceiverBank(args.channels, args.rate, **kw)
     block = args.channels * args.decim * args.block_frames
 
     # On the kernel path each block is uploaded at offset `front` of a
@@ -174,7 +220,13 @@ def _cmd_spectra(args, dev) -> int:
               file=sys.stderr)
         return 2
     design = designer(args.order // 2, f0, args.rate)
-    chain = NorthStarChain(design=design, fft_size=args.fft, device=dev)
+    route = chain_route(args.fft, dev)
+    if route == "plain" and dev.type == "cuda":
+        _say_plain("spectra", f"--fft {args.fft}",
+                   "the CUDA chain kernel takes fft = n1 x n2 with n1, n2 <= "
+                   "128 and n2 even", dev)
+    chain = NorthStarChain(design=design, fft_size=args.fft, device=dev,
+                           use_kernel=route == "kernel")
     block = args.fft * args.block_frames
 
     state = _resume_state(

@@ -106,6 +106,13 @@ def load_library() -> ctypes.CDLL:
         lib.sdsp_file_sink_written.argtypes = [ctypes.c_void_p]
         lib.sdsp_file_sink_stop.restype = ctypes.c_uint64
 
+        u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.sdsp_mls.restype = None
+        lib.sdsp_mls.argtypes = [
+            ctypes.c_int32, np.ctypeslib.ndpointer(np.int32,
+                                                   flags="C_CONTIGUOUS"),
+            ctypes.c_int32, u8, u8, ctypes.c_int64, u8]
+
         _lib = lib
         return lib
 

@@ -8,7 +8,6 @@ no quiet fallback to the CPU.  Every subprocess has a timeout.
 """
 
 import argparse
-import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +19,7 @@ import torch
 
 from simpledsp_tpu import cli as jcli
 from simpledsp_tpu_torch import cli
+from simpledsp_tpu_torch import device as devmod
 from simpledsp_tpu_torch.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -343,12 +343,10 @@ class TestRxCmds:
         iq[n:].tofile(b)
         plain = self._run(tmp_path, "plain", infile, mode)
         calls = []
-        for name in ("FMReceiverBank", "AMReceiverBank"):
-            cls = getattr(sdr, name)
-            monkeypatch.setattr(sdr, name, functools.partial(
-                cls, use_kernel=True))
-        real = sdr.FMReceiverBank.func.process_padded
-        monkeypatch.setattr(sdr.FMReceiverBank.func, "process_padded",
+        # The route the CLI picks on a card for M = 16, K = 16.
+        monkeypatch.setattr(cli, "bank_route", lambda *a: "kernel")
+        real = sdr.FMReceiverBank.process_padded
+        monkeypatch.setattr(sdr.FMReceiverBank, "process_padded",
                             lambda self, *a: calls.append(1) or real(self, *a))
         ref = self._run(tmp_path, "w", infile, mode)
         assert len(calls) == 4
@@ -591,3 +589,92 @@ def test_python_m_entry_point(tmp_path):
         assert proc.returncode == 2
         assert "CUDA is not available" in proc.stderr
         assert not (tmp_path / "x.npz").exists()
+
+
+# -- the route the CLI picks for a size ------------------------------------
+
+CUDA = torch.device("cuda")   # a device name only: no card is touched
+
+
+@pytest.mark.parametrize("fft,route", [(4096, "kernel"), (1024, "kernel"),
+                                       (200, "kernel"), (32768, "plain"),
+                                       (65536, "plain"), (1000, "plain")])
+def test_chain_route_follows_the_kernel_sizes(fft, route):
+    """"kernel" exactly where the CUDA chain kernel takes the size (a
+    split n1 x n2 <= 128 x 128 with n2 even), on a CUDA device."""
+    assert cli.chain_route(fft, CUDA) == route
+    assert cli.chain_route(fft, "cuda:0") == route
+
+
+@pytest.mark.parametrize("m,k,route", [(16, 16, "kernel"), (8, 16, "kernel"),
+                                       (32, 32, "kernel"), (12, 16, "plain"),
+                                       (256, 16, "plain"), (16, 33, "plain")])
+def test_bank_route_follows_the_kernel_sizes(m, k, route):
+    assert cli.bank_route(m, k, CUDA) == route
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
+def test_routes_on_the_cpu_are_plain(device):
+    assert cli.chain_route(4096, device) == "plain"
+    assert cli.bank_route(16, 16, device) == "plain"
+
+
+def test_plain_route_on_the_card_is_said_on_stderr(tmp_path, monkeypatch,
+                                                   capsys):
+    """A size the kernel does not take builds the model with
+    use_kernel=False and says so in one stderr line naming the size; a size
+    it takes builds the kernel route and says nothing.  The models are
+    recorded, not run: there is no card here."""
+    from simpledsp_tpu_torch.models import northstar, sdr
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def record(*args, **kw):
+        built.append(kw.get("use_kernel"))
+        raise Stop
+
+    monkeypatch.setattr(northstar, "NorthStarChain", record)
+    monkeypatch.setattr(sdr, "FMReceiverBank", record)
+    monkeypatch.setattr(devmod, "resolve_device", lambda d: CUDA)
+    runs = [(["spectra", "--fft", "32768"], False, "--fft 32768"),
+            (["spectra", "--fft", "4096"], True, None),
+            (["fm-rx", "--channels", "12"], False, "--channels 12"),
+            (["fm-rx", "--channels", "16"], True, None)]
+    for argv, kernel, said in runs:
+        with pytest.raises(Stop):
+            cli.main([argv[0], "--input", "x", "--output", "o.npz",
+                      "--rate", "1e6", *argv[1:]])
+        assert built[-1] is kernel
+        err = capsys.readouterr().err
+        if said is None:
+            assert err == ""
+        else:
+            assert len(err.strip().splitlines()) == 1
+            assert said in err and "plain PyTorch route on cuda" in err
+
+
+@pytest.mark.parametrize("cmd", ["spectra", "fm-rx"])
+def test_sizes_without_a_kernel_match_the_jax_cli(tmp_path, cmd):
+    """spectra --fft 32768 and fm-rx --channels 12, the sizes the port's
+    kernels do not take, on the port's plain route against the JAX CLI's
+    composable path (float32 on both sides)."""
+    infile = tmp_path / "in.bin"
+    if cmd == "spectra":
+        x = np.random.default_rng(16).standard_normal(3 * 32768)
+        x.astype(np.float32).tofile(infile)
+        argv = ["spectra", "--input", str(infile), "--rate", "39000",
+                "--fft", "32768", "--block-frames", "1"]
+    else:
+        fs = 12 * 16e3
+        _write_iq16_band(infile, fs, 12, 3 * 12 * 4 * 16)
+        argv = ["fm-rx", "--input", str(infile), "--rate", str(fs),
+                "--channels", "12", "--block-frames", "16",
+                "--deviation", "3000"]
+    assert cli.main([*argv, "--output", str(tmp_path / "t.npz"), *CPU]) == 0
+    assert jcli.main([*argv, "--output", str(tmp_path / "j.npz")]) == 0
+    mine, theirs = np.load(tmp_path / "t.npz"), np.load(tmp_path / "j.npz")
+    assert sorted(mine.files) == sorted(theirs.files)
+    for key in mine.files:
+        _close(mine[key], theirs[key])

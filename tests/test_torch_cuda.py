@@ -37,7 +37,12 @@ on the CPU.  The mel energies >= 100 dB against the CPU in float64; the
 modems' noiseless round trips give every bit back.  The command-line front
 end on the card against the same files with ``--device cpu``: the spectra
 >= 120 dB apart, the audio within twice the bank bar (each side within the
-bar of float64); a bank state saved from the card resumes bit for bit.
+bar of float64); a bank state saved from the card resumes bit for bit; at
+the sizes the kernels do not take (``--fft 32768``, ``--channels 12``) the
+same bars on the plain route, with no chain or PFB launch.  The smoothing
+filters: in float64 within 1e-12 of the largest output of the same call on
+the CPU, in float32 >= 100 dB against it (the FIR bar); the rank filters
+give the CPU's bits; ``max_len_seq`` equals scipy.
 """
 
 import numpy as np
@@ -1389,3 +1394,161 @@ def test_cli_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         else:
             scale = max(1.0, float(np.abs(cpu["audio"]).max()))
             assert np.abs(gpu["audio"] - cpu["audio"]).max() <= 3e-6 * scale
+
+
+# -- the smoothing filters, splines, waveforms and peaks on the card ---------
+
+_SMOOTH_1D = {
+    "savgol interp": lambda v: _smooth().savgol_filter(v, 31, 3),
+    "savgol mirror": lambda v: _smooth().savgol_filter(v, 11, 2,
+                                                       mode="mirror"),
+    "savgol wrap deriv": lambda v: _smooth().savgol_filter(
+        v, 9, 3, deriv=1, mode="wrap"),
+    "savgol constant": lambda v: _smooth().savgol_filter(
+        v, 7, 2, mode="constant", cval=0.5),
+    "savgol nearest": lambda v: _smooth().savgol_filter(v, 5, 2,
+                                                        mode="nearest"),
+    "wiener": lambda v: _smooth().wiener(v, 5),
+    "detrend": lambda v: _smooth().detrend(v),
+    "detrend constant": lambda v: _smooth().detrend(v, type="constant"),
+}
+_RANK = {
+    "medfilt 3": lambda v: _smooth().medfilt(v, 3),
+    "medfilt 9": lambda v: _smooth().medfilt(v, 9),
+    "medfilt2d 5": lambda v: _smooth().medfilt2d(v[..., :64, :], 5),
+    "order_filter cross": lambda v: _smooth().order_filter(
+        v[..., :64, :], np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]]), 2),
+}
+
+
+def _smooth():
+    from simpledsp_tpu_torch.ops import smooth
+    return smooth
+
+
+@pytest.mark.parametrize("name", sorted(_SMOOTH_1D))
+def test_smoothing_on_the_card_matches_cpu(name, cuda_device):
+    """In float64 within 1e-12 of the largest output of the same call on
+    the CPU; in float32 >= 100 dB against it (the FIR bar)."""
+    fn = _SMOOTH_1D[name]
+    x = _noise((4, 8192), 25, "cpu").cumsum(-1) / 30
+    ref = fn(x)
+    assert _rel_err(fn(x.to(cuda_device)), ref) < 1e-12
+    got32 = fn(x.float().to(cuda_device))
+    assert got32.dtype == torch.float32 and got32.device.type == "cuda"
+    assert _snr(got32, ref) >= 100.0
+
+
+@pytest.mark.parametrize("name", sorted(_RANK))
+def test_rank_filters_on_the_card_equal_cpu(name, cuda_device):
+    """A rank filter selects: the card gives the CPU's bits."""
+    fn = _RANK[name]
+    x = _noise((4, 8192), 26, "cpu").reshape(4, 128, 64)
+    if name.startswith("medfilt "):
+        x = x.reshape(4, 8192)
+    for dtype in (torch.float64, torch.float32):
+        xd = x.to(dtype)
+        assert torch.equal(fn(xd.to(cuda_device)).cpu(), fn(xd))
+
+
+def test_sepfir2d_and_gauss_spline_on_the_card(cuda_device):
+    from simpledsp_tpu_torch.ops.splines import gauss_spline, sepfir2d
+    img = _noise((3, 96, 80), 27, "cpu")
+    hr, hc = np.hanning(11)[1:-1], np.array([-1.0, 4.0, 10.0, 4.0, -1.0])
+    hr, hc = hr / hr.sum(), hc / hc.sum()
+    ref = sepfir2d(img, hr, hc)
+    assert _rel_err(sepfir2d(img.to(cuda_device), hr, hc), ref) < 1e-12
+    assert _snr(sepfir2d(img.float().to(cuda_device), hr, hc), ref) >= 100.0
+    assert _rel_err(gauss_spline(img.to(cuda_device), 3),
+                    gauss_spline(img, 3)) < 1e-12
+
+
+def test_smoothing_launches_do_not_grow_with_the_window(cuda_device):
+    """savgol 11 against 31 taps and medfilt 3 against 9: the same number
+    of device launches a call (one library call, not one a tap)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = _noise((8, 1 << 16), 28, cuda_device).float()
+    counts = {}
+    smooth = _smooth()
+    calls = {"sg11": lambda: smooth.savgol_filter(x, 11, 2),
+             "sg31": lambda: smooth.savgol_filter(x, 31, 3),
+             "mf3": lambda: smooth.medfilt(x, 3),
+             "mf9": lambda: smooth.medfilt(x, 9)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        counts[name] = sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert counts["sg31"] <= counts["sg11"] and counts["mf9"] <= counts["mf3"]
+    assert 0 < counts["sg11"] < 11, counts
+
+
+def test_waveforms_and_peaks_on_the_card(cuda_device):
+    import scipy.signal as sig
+    from simpledsp_tpu_torch.ops import peaks, waveforms
+    seq, st = waveforms.max_len_seq(14)
+    assert seq.device.type == "cuda"
+    ref, rst = sig.max_len_seq(14)
+    np.testing.assert_array_equal(seq.cpu().numpy(), ref)
+    np.testing.assert_array_equal(st, rst)
+    assert waveforms.unit_impulse(9, "mid").device.type == "cuda"
+    t = torch.linspace(0, 1, 20001, dtype=torch.float64, device=cuda_device)
+    y = waveforms.chirp(t, 3.0, 1.0, 40.0)
+    assert y.device.type == "cuda"
+    assert _rel_err(y, waveforms.chirp(t.cpu(), 3.0, 1.0, 40.0)) < 1e-12
+    a, pa = peaks.find_peaks(y, prominence=0.5)
+    b, pb = sig.find_peaks(y.cpu().numpy(), prominence=0.5)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(pa["prominences"], pb["prominences"])
+
+
+@pytest.mark.parametrize("cmd", ["spectra", "fm-rx"])
+def test_cli_sizes_without_a_kernel_on_the_card(cmd, cuda_device, tmp_path,
+                                                capsys):
+    """spectra --fft 32768 and fm-rx --channels 12, which the kernels do
+    not take: the CLI says so in one stderr line and runs the plain route
+    on the card, no chain or flat-PFB launch; the output against the same
+    file with --device cpu: the spectra >= 120 dB apart, the audio within
+    twice the bank bar, as test_cli_on_the_card_matches_the_cpu holds."""
+    from simpledsp_tpu_torch import cli
+    infile = tmp_path / "in.bin"
+    if cmd == "spectra":
+        np.random.default_rng(16).standard_normal(4 * 32768).astype(
+            np.float32).tofile(infile)
+        argv = ["spectra", "--input", str(infile), "--rate", "39000",
+                "--fft", "32768", "--block-frames", "1"]
+        kernel = tchain.chain_kernel
+    else:
+        fs, n = 12 * 16e3, 4 * 12 * 4 * 16
+        t = np.arange(n) / fs
+        z = sum((1 + 0.5 * np.sin(2 * np.pi * (300 + 50 * c) * t))
+                * np.exp(1j * (2 * np.pi * (c * fs / 12 + 100) * t
+                               + 2.0 * np.sin(2 * np.pi * (400 + 30 * c) * t)))
+                for c in range(12))
+        z *= 20000 / np.abs(z).max()
+        np.stack([z.real, z.imag], -1).round().astype(np.int16).tofile(infile)
+        argv = ["fm-rx", "--input", str(infile), "--rate", str(fs),
+                "--channels", "12", "--block-frames", "16", "--deviation",
+                "3000"]
+        kernel = tpfb.pfb_flat_kernel
+    before = kernel.launches
+    assert cli.main([*argv, "--output", str(tmp_path / "g.npz")]) == 0
+    err = capsys.readouterr().err
+    assert kernel.launches == before
+    assert len([ln for ln in err.splitlines()
+                if "plain PyTorch route on cuda" in ln]) == 1
+    assert cli.main([*argv, "--output", str(tmp_path / "c.npz"),
+                     "--device", "cpu"]) == 0
+    gpu, cpu = np.load(tmp_path / "g.npz"), np.load(tmp_path / "c.npz")
+    assert sorted(gpu.files) == sorted(cpu.files)
+    if cmd == "spectra":
+        ref = cpu["spec_re"] + 1j * cpu["spec_im"]
+        got = gpu["spec_re"] + 1j * gpu["spec_im"]
+        err64 = max(float((np.abs(got - ref) ** 2).sum()), 1e-300)
+        assert 10 * np.log10(float((np.abs(ref) ** 2).sum()) / err64) >= 120
+    else:
+        scale = max(1.0, float(np.abs(cpu["audio"]).max()))
+        assert np.abs(gpu["audio"] - cpu["audio"]).max() <= 3e-6 * scale

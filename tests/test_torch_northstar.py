@@ -240,6 +240,19 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.utils.checkpoint\n"
             "import simpledsp_tpu_torch.utils.benchmark\n"
             "import simpledsp_tpu_torch.utils.debug\n"
+            "import simpledsp_tpu_torch.tools.rank_forms\n"
+            "import simpledsp_tpu_torch.ops.peaks\n"
+            "import simpledsp_tpu_torch.ops.smooth\n"
+            "import simpledsp_tpu_torch.ops.splines\n"
+            "import simpledsp_tpu_torch.ops.waveforms\n"
+            "import simpledsp_tpu_torch.design\n"
+            "import simpledsp_tpu_torch.kernels\n"
+            "import simpledsp_tpu_torch.models\n"
+            "import simpledsp_tpu_torch as sdsp\n"
+            "for name in sdsp.__all__:\n"
+            "    getattr(sdsp, name)\n"
+            "from simpledsp_tpu_torch.ops.waveforms import max_len_seq\n"
+            "max_len_seq(10, device='cpu')\n"
             "simpledsp_tpu_torch.runtime.load_library()\n"
             "from simpledsp_tpu_torch.design.biquad import design_bandstop\n"
             "design_bandstop(4, 6000.0, 39000.0, 3.0)\n"
