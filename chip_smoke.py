@@ -245,7 +245,38 @@ Phases (any failure exits nonzero before the result line):
     the float64 composable chain >= 120 dB, every channel of both within
     the bank bar of the float64 composable bank.  ms/call of each
     smoothing call beside the card's name and power limit.
-    Phases 21-25 print their seconds, and the script its total.
+26. The parallel layer (``simpledsp_tpu_torch/parallel``) on a mesh of one
+    rank: ``single_device_mesh()`` starts an NCCL group of one in this
+    process (dp = sp = 1; the card has one H100, and NCCL takes one rank a
+    device), destroyed at the end whatever happens.
+    ``ShardedNorthStarChain`` on its kernel path at the chain cell
+    (64 x 2^20 float32, phase 4's input, N = 4096, block 256, 4 chained
+    calls): one chain kernel launch a call; each call's spectra equal, bit
+    for bit, ``NorthStarChain``'s on the same input and incoming state (at
+    sp = 1 the closed form's incoming state is s0 exactly), its final
+    state within 1e-6 relative of the serial call's, call 0 rows 0-1 >= 130
+    dB against the float64 oracle; on ``use_kernel=False`` once, >= 130
+    dB, launching what the serial composable chain launches (the frames
+    FFT kernel under ``rfft_ri``).  ``ShardedBlockIIR`` (block 256, 2 chained calls on 64 x 2^20):
+    rows 0-1 >= 90 dB against scipy ``sosfilt`` in float64, its largest
+    difference to the serial ``BlockIIR`` printed.  ``ShardedReceiverBank``
+    on the FM bank M16/K16 (16 x 2^20 I/Q, 4 chained calls): equal bits to
+    the serial bank, one flat PFB launch a call.  On the 1-D conv cell
+    (256 x 65536, 301 taps) ``ShardedConvolve`` and
+    ``ShardedOverlapSaveFIR`` (block 1024, nfft 2048): equal bits to
+    ``convolve(x, h, "same")`` and to ``OverlapSaveFIR``, rows 0-1 >= 100
+    dB against scipy in float64, their OLS and frames FFT launches those
+    of the serial calls.  ``ShardedSTFT`` (4096, hop 2048) on 64 x 262144:
+    rows 0-1 >= 100 dB against numpy, one frames FFT launch.
+    ``ShardedFIR`` (63 taps) on 64 x 2^20 and ``ShardedChannelizer`` (M 16,
+    K 16, with and without ``gather_output``) on 16 x 2^20 complex: equal
+    bits to the serial ops.  ``entry.dryrun_multichip(1)`` prints its
+    summary.  Each module's ms/call beside the serial module's (CUDA
+    events, median of 3 windows of back-to-back calls), and, from one
+    ``torch.profiler`` window in a process of its own, the NCCL kernels of
+    a sharded chain call and a gathered channelizer call with their
+    device time, beside the card's name and power limit.
+    Phases 21-26 print their seconds, and the script its total.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -264,9 +295,9 @@ probe_relayout's relayout kernel alone (``.permute(1, 2, 0).contiguous()``),
 contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
-The ols and fft_frames records count the launches of phases 21 and 23
+The ols and fft_frames records count the launches of phases 21, 23 and 26
 beside those of phases 11 and 15-16; the chain_frames and pfb_flat records
-count phase 24's beside those of phases 4 and 7.
+count phases 24's and 26's beside those of phases 4 and 7.
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
 from phase 6, the OLS record its CUDA-graph time from phase 10, the
@@ -433,8 +464,8 @@ def carriers(b, m, t0, t, dev, seed=0):
 # -- the chain ---------------------------------------------------------------
 
 def chain_phases(dev, kchain, NorthStarChain, design):
-    """Phases 3-5; returns the chain kernel's record and the main path's
-    ms/call."""
+    """Phases 3-5; returns the chain kernel's record, the main path's
+    ms/call and its inputs (host float32, one array a call)."""
     # The prepass runs in IEEE float32 whatever the caller set: with TF32
     # enabled it gives the same starts bit for bit, and the flag survives.
     ops = kchain.FusedNorthStarOperators(design, MAIN_N, device=dev)
@@ -559,7 +590,7 @@ def chain_phases(dev, kchain, NorthStarChain, design):
             "launches": launches, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None}, chain_ms
+            "library_ms": None}, chain_ms, x_host
 
 
 # -- the PFB kernels and the receiver banks ---------------------------------
@@ -2686,6 +2717,372 @@ def smoothing_checks(dev, smi, sdr, tmp, counter, cli_outs, labels, iq, xs):
               f"{smi}")
 
 
+# -- 26. the parallel layer ---------------------------------------------------
+
+SHARDED_IIR_CALLS = 2       # ShardedBlockIIR: chained calls on the chain cell
+MIN_IIR_DB = 90.0           # the sharded float32 IIR's bar (tests/test_parallel.py)
+STATE_REL = 1e-6            # the sharded chain's final state against the serial
+
+
+def sharded_trace() -> dict:
+    """Device events of one sharded chain call (kernel path, 64 x 2^20),
+    the serial chain's on the same input and one gathered channelizer call
+    (16 x 2^20 complex) on a mesh of one, traced in one profiler session
+    (``tools/probe_hlo.device_events``) after a warm-up call: {name:
+    {"kernels", "nccl", "nccl_us", "device_us", "names"}}.  Run in a
+    process of its own (a second profiler session in one process records
+    no device activity), with its own NCCL group of one."""
+    import torch.distributed as dist
+
+    from simpledsp_tpu_torch.models.northstar import (NorthStarChain,
+                                                      ShardedNorthStarChain)
+    from simpledsp_tpu_torch.parallel import (ShardedChannelizer,
+                                              single_device_mesh)
+    from simpledsp_tpu_torch.tools.probe_hlo import device_events
+
+    dev = torch.device("cuda", 0)
+    mesh = single_device_mesh()
+    try:
+        g = torch.Generator(device=dev).manual_seed(26)
+        x = torch.randn(C, T, generator=g, device=dev)
+        xc = torch.complex(torch.randn(B, TB, generator=g, device=dev),
+                           torch.randn(B, TB, generator=g, device=dev))
+        sharded = ShardedNorthStarChain(mesh)
+        serial = NorthStarChain(device=dev)
+        chan = ShardedChannelizer(M, mesh, taps_per_channel=K,
+                                  gather_output=True)
+        calls = {"sharded chain": lambda: sharded(x),
+                 "serial chain": lambda: serial(x),
+                 "gathered channelizer": lambda: chan(xc)}
+        for call in calls.values():
+            call()
+        out = {}
+        for name, evs in device_events(calls).items():
+            nccl = [e for e in evs if "nccl" in e["name"].lower()]
+            out[name] = {
+                "kernels": sum(e["count"] for e in evs if e["kind"] != "copy"),
+                "nccl": sum(e["count"] for e in nccl),
+                "nccl_us": sum(e["device_us"] for e in nccl),
+                "device_us": sum(e["device_us"] for e in evs),
+                "names": [f"{e['count']} x {e['name'][:70]} "
+                          f"{e['device_us']:.1f} us" for e in evs]}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_path(dev, smi, chain_x):
+    """Phase 26; returns {kernel wrapper: launches} of the sharded modules'
+    runs (not of the serial calls they are compared with)."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from simpledsp_tpu_torch.parallel import single_device_mesh
+
+    root = Path(__file__).resolve().parent
+    # In the background: the profiler window in a process of its own.
+    tracer = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.sharded_trace()))"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    started = not dist.is_initialized()
+    try:
+        mesh = single_device_mesh()
+        check(dist.get_backend() == "nccl", f"the group's backend is "
+                                            f"{dist.get_backend()}")
+        return sharded_checks(dev, smi, mesh, chain_x, tracer)
+    finally:
+        if tracer.poll() is None:
+            tracer.kill()
+            tracer.wait()
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sharded_checks(dev, smi, mesh, chain_x, tracer):
+    """Phase 26 on the mesh, the tracer started."""
+    import scipy.signal as ss
+
+    from simpledsp_tpu_torch import entry
+    from simpledsp_tpu_torch.design.biquad import sos_matrix
+    from simpledsp_tpu_torch.design.fir import lowpass_taps
+    from simpledsp_tpu_torch.kernels import chain as kchain
+    from simpledsp_tpu_torch.kernels import fft as kfft
+    from simpledsp_tpu_torch.kernels import ols as kols
+    from simpledsp_tpu_torch.kernels import pfb as kpfb
+    from simpledsp_tpu_torch.models.northstar import (NorthStarChain,
+                                                      ShardedNorthStarChain,
+                                                      default_design)
+    from simpledsp_tpu_torch.models.sdr import FMReceiverBank
+    from simpledsp_tpu_torch.ops.channelizer import PFBChannelizer
+    from simpledsp_tpu_torch.ops.conv import convolve
+    from simpledsp_tpu_torch.ops.fir import FIRFilter, OverlapSaveFIR
+    from simpledsp_tpu_torch.ops.iir import BlockIIR, IIRState
+    from simpledsp_tpu_torch.ops.spectral import stft_ri, window_taps
+    from simpledsp_tpu_torch.parallel import (ShardedBlockIIR,
+                                              ShardedChannelizer,
+                                              ShardedConvolve, ShardedFIR,
+                                              ShardedOverlapSaveFIR,
+                                              ShardedReceiverBank,
+                                              ShardedSTFT)
+
+    launches = {k: 0 for k in KERNELS}
+    times = []
+
+    def counted(fn):
+        """``fn()`` with the counts set to 0 before and added to the
+        phase's after: returns (its result, {kernel: launches})."""
+        torch.cuda.synchronize()
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        now = {k: k.launches for k in KERNELS}
+        for k, n in now.items():
+            launches[k] += n
+        return out, now
+
+    def launched(fn):
+        """The launches of ``fn()`` (a serial call to compare with), not
+        added to the phase's."""
+        zero_counts()
+        fn()
+        torch.cuda.synchronize()
+        return {k: k.launches for k in KERNELS}
+
+    def timed(name, sharded_fn, serial_fn, **window):
+        ms, serial_ms = median_ms(sharded_fn, **window), median_ms(serial_fn,
+                                                                    **window)
+        times.append(f"{name} {ms:.3f} (serial {serial_ms:.3f})")
+        return ms, serial_ms
+
+    def local(d):
+        """A mesh of one's DTensor as its one (whole) local tensor."""
+        check(tuple(d.to_local().shape) == tuple(d.shape),
+              f"a DTensor of shape {tuple(d.shape)} holds "
+              f"{tuple(d.to_local().shape)} on the one rank")
+        return d.to_local()
+
+    design = default_design()
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    # -- the chain, kernel path: 4 chained calls at the chain cell ----------
+    sharded = ShardedNorthStarChain(mesh, fft_size=MAIN_N, block_size=256)
+    serial = NorthStarChain(fft_size=MAIN_N, block_size=256, device=dev)
+    check(sharded.use_kernel, "ShardedNorthStarChain on CUDA is not on the "
+                              "kernel")
+    xs = [torch.as_tensor(x, device=dev) for x in chain_x]
+    state, worst_rel, outs = None, 0.0, []
+    for i, x in enumerate(xs):
+        ((sr, si), new), n = counted(lambda: sharded(x, state))
+        check(n[kchain.chain_kernel] == 1, f"sharded chain call {i} launched "
+              f"the chain kernel {n[kchain.chain_kernel]} times")
+        s_in = None if state is None else IIRState(local(state.y_hist))
+        (rr, ri), ref_state = serial(x, s_in)
+        check(torch.equal(local(sr), rr) and torch.equal(local(si), ri),
+              f"sharded chain call {i}: spectra differ from the serial "
+              f"chain's on the same input and state")
+        s_sh, s_se = local(new.y_hist), ref_state.y_hist
+        rel = float((s_sh - s_se).abs().max() / s_se.abs().max())
+        check(rel <= STATE_REL, f"sharded chain call {i}: final state "
+                                f"{rel:.3e} relative from the serial one")
+        worst_rel = max(worst_rel, rel)
+        outs.append((sr, si))
+        state = new
+    oracle = oracle_packed(design, chain_x[0][:2].astype(np.float64), MAIN_N)
+    sr0, si0 = (local(p)[:2].double().cpu().numpy() for p in outs[0])
+    snr_chain = snr_db(oracle, sr0 + 1j * si0)
+    check(snr_chain >= MIN_SNR_DB, f"sharded chain {snr_chain:.2f} dB")
+    x0 = xs[0]
+    ms, serial_ms = timed("chain", lambda: sharded(x0, state),
+                          lambda: serial(x0), per=STEADY, reps=3)
+    print(f"sharded chain (kernel path, mesh of one): {CALLS} calls of {C} x "
+          f"{T}, 1 chain launch a call, spectra equal bits to NorthStarChain "
+          f"on the same input and state, final state within {worst_rel:.3e} "
+          f"relative; call 0 rows 0-1 {snr_chain:.2f} dB vs float64 oracle; "
+          f"{ms:.3f} ms/call ({C * T / ms / 1e3:.1f} Msamples/s), serial "
+          f"{serial_ms:.3f}; {smi}")
+
+    # -- the chain, composable path, once ------------------------------------
+    plain = ShardedNorthStarChain(mesh, fft_size=MAIN_N, block_size=256,
+                                  use_kernel=False)
+    plain_serial = NorthStarChain(fft_size=MAIN_N, block_size=256,
+                                  device=dev, use_kernel=False)
+    ((pr, pi), _), n = counted(lambda: plain(x0))
+    ref_n = launched(lambda: plain_serial(x0))
+    check(n == ref_n, "the composable sharded chain's launches differ from "
+                      "the serial composable chain's")
+    pr0, pi0 = (local(p)[:2].double().cpu().numpy() for p in (pr, pi))
+    snr_plain = snr_db(oracle, pr0 + 1j * pi0)
+    check(snr_plain >= MIN_SNR_DB, f"composable sharded chain "
+                                   f"{snr_plain:.2f} dB")
+    ms, serial_ms = timed("chain composable", lambda: plain(x0),
+                          lambda: plain_serial(x0), reps=3)
+    print(f"sharded chain (use_kernel=False): {snr_plain:.2f} dB vs float64 "
+          f"oracle; {n[kfft.fft_frames_kernel]} frames FFT launch(es), as "
+          f"the serial composable chain; {ms:.3f} ms/call, serial "
+          f"{serial_ms:.3f}")
+    del xs, outs, sr, si, rr, ri, pr, pi
+
+    # -- ShardedBlockIIR: 2 chained calls ------------------------------------
+    fi = ShardedBlockIIR(design, mesh, block_size=256)
+    bi = BlockIIR(design, block_size=256, device=dev)
+    sos = sos_matrix(design)
+    zi = np.zeros((sos.shape[0], 2, 2))
+    st, st_ser, worst, snr_iir = None, None, 0.0, []
+    for i in range(SHARDED_IIR_CALLS):
+        x = chain_x[i]
+        xd = torch.as_tensor(x, device=dev)
+        (y, st), _ = counted(lambda: fi(xd, st))
+        y_ser, st_ser = bi(xd, st_ser)
+        worst = max(worst, float((local(y) - y_ser).abs().max()))
+        ref, zi = ss.sosfilt(sos, x[:2].astype(np.float64), axis=-1, zi=zi)
+        snr_iir.append(snr_db(ref, local(y)[:2].double().cpu().numpy()))
+        check(snr_iir[-1] >= MIN_IIR_DB, f"ShardedBlockIIR call {i} rows 0-1 "
+                                         f"{snr_iir[-1]:.2f} dB")
+    ms, serial_ms = timed("iir", lambda: fi(xd), lambda: bi(xd), **SLOW)
+    print(f"ShardedBlockIIR: {SHARDED_IIR_CALLS} calls of {C} x {T}, rows "
+          f"0-1 {', '.join(f'{v:.2f}' for v in snr_iir)} dB vs scipy sosfilt "
+          f"float64; max |sharded - serial BlockIIR| {worst:.3e}; {ms:.3f} "
+          f"ms/call, serial {serial_ms:.3f}")
+    del y, y_ser, xd
+
+    # -- ShardedReceiverBank: FM M16/K16, 4 chained calls --------------------
+    bank = FMReceiverBank(M, fs=FS, device=dev)
+    sbank = ShardedReceiverBank(bank, mesh)
+    inputs = [carriers(B, M, i * TB, TB, dev) for i in range(CALLS)]
+    sst = ser = None
+    for i, (xr, xi) in enumerate(inputs):
+        (a, sst), n = counted(lambda: sbank((xr, xi), sst))
+        check(n[kpfb.pfb_flat_kernel] == 1, f"sharded bank call {i} launched "
+              f"the flat PFB kernel {n[kpfb.pfb_flat_kernel]} times")
+        b_, ser = bank((xr, xi), ser)
+        check(torch.equal(local(a), b_), f"sharded bank call {i} differs "
+                                         f"from the serial bank")
+    ms, serial_ms = timed("bank", lambda: sbank(inputs[0]),
+                          lambda: bank(inputs[0]), per=STEADY, reps=3)
+    print(f"ShardedReceiverBank (FM M{M}/K{K}): {CALLS} calls of {B} x {TB} "
+          f"I/Q, 1 flat PFB launch a call, equal bits to the serial bank; "
+          f"{ms:.3f} ms/call, serial {serial_ms:.3f}")
+
+    # -- ShardedChannelizer (with and without gather) and ShardedFIR ---------
+    xc = torch.complex(*inputs[0])
+    pfb = PFBChannelizer(M, taps_per_channel=K, device=dev)
+    ref_c, _ = pfb(xc)
+    for gather in (False, True):
+        chan = ShardedChannelizer(M, mesh, taps_per_channel=K,
+                                  gather_output=gather)
+        (yc, _), _ = counted(lambda: chan(xc))
+        check(torch.equal(local(yc), ref_c), f"ShardedChannelizer (gather "
+                                             f"{gather}) differs from serial")
+    ms_c, serial_c = timed("channelizer", lambda: chan(xc), lambda: pfb(xc),
+                           per=STEADY, reps=3)
+    taps63 = lowpass_taps(63, 0.12, fs=1.0)
+    xf = torch.randn(C, T, generator=g, device=dev)
+    sfir, fir = ShardedFIR(taps63, mesh), FIRFilter(taps63, device=dev)
+    ((yf, sf), _), (rf, rfs) = counted(lambda: sfir(xf)), fir(xf)
+    check(torch.equal(local(yf), rf) and torch.equal(local(sf.hist), rfs.hist),
+          "ShardedFIR differs from FIRFilter")
+    ms_f, serial_f = timed("fir", lambda: sfir(xf), lambda: fir(xf),
+                           per=STEADY, reps=3)
+    print(f"ShardedChannelizer (M {M}, K {K}, {B} x {TB} complex, with and "
+          f"without gather_output) and ShardedFIR (63 taps, {C} x {T}): equal "
+          f"bits to the serial ops; {ms_c:.3f} / {ms_f:.3f} ms/call, serial "
+          f"{serial_c:.3f} / {serial_f:.3f}")
+    del xc, ref_c, yc, xf, yf, rf, inputs
+
+    # -- the 1-D conv cell: ShardedConvolve and ShardedOverlapSaveFIR ---------
+    taps = np.random.default_rng(301).standard_normal(301)
+    xv = torch.randn(CB, CT, generator=g, device=dev)
+    rows = xv[:2].double().cpu().numpy()
+    sconv = ShardedConvolve(taps, mesh)
+    yv, nv = counted(lambda: sconv(xv))
+    ref_n = launched(lambda: convolve(xv, taps, "same"))
+    check(nv == ref_n and nv[kols.ols_kernel] == 1,
+          f"ShardedConvolve launched {nv[kols.ols_kernel]} OLS kernels")
+    check(torch.equal(local(yv), convolve(xv, taps, "same")),
+          "ShardedConvolve differs from convolve(x, h, 'same')")
+    snr_conv = snr_db(ss.convolve(rows[0], taps, "same"),
+                      local(yv)[0].double().cpu().numpy())
+    snr_conv = min(snr_conv, snr_db(ss.convolve(rows[1], taps, "same"),
+                                    local(yv)[1].double().cpu().numpy()))
+    check(snr_conv >= MIN_CONV_DB, f"ShardedConvolve {snr_conv:.2f} dB")
+    ms_v, serial_v = timed("convolve", lambda: sconv(xv),
+                           lambda: convolve(xv, taps, "same"), per=STEADY,
+                           reps=3)
+    sols = ShardedOverlapSaveFIR(taps, mesh, block_size=1024)
+    osf = OverlapSaveFIR(taps, block_size=1024, device=dev)
+    check(osf.nfft == 2048, f"OverlapSaveFIR nfft {osf.nfft}")
+    ((yo, so), no), (ro, rso) = counted(lambda: sols(xv)), osf(xv)
+    ref_n = launched(lambda: osf(xv))
+    check(no == ref_n and no[kfft.fft_frames_kernel] == 2,
+          f"ShardedOverlapSaveFIR launched {no[kfft.fft_frames_kernel]} "
+          f"frames FFT kernels")
+    ((yo2, _), _), (ro2, _) = counted(lambda: sols(xv, so)), osf(xv, rso)
+    check(torch.equal(local(yo), ro) and torch.equal(local(yo2), ro2),
+          "ShardedOverlapSaveFIR differs from OverlapSaveFIR")
+    lf = ss.lfilter(taps, [1.0], rows, axis=-1)
+    snr_ols = min(snr_db(lf[k], local(yo)[k].double().cpu().numpy())
+                  for k in range(2))
+    check(snr_ols >= MIN_CONV_DB, f"ShardedOverlapSaveFIR {snr_ols:.2f} dB")
+    ms_o, serial_o = timed("overlap-save", lambda: sols(xv), lambda: osf(xv),
+                           per=STEADY, reps=3)
+    print(f"ShardedConvolve / ShardedOverlapSaveFIR (301 taps, block 1024, "
+          f"{CB} x {CT}): equal bits to convolve same / OverlapSaveFIR (two "
+          f"chained calls), {nv[kols.ols_kernel]} OLS / "
+          f"{no[kfft.fft_frames_kernel]} frames FFT launches a call; rows "
+          f"0-1 {snr_conv:.2f} / {snr_ols:.2f} dB vs scipy float64; "
+          f"{ms_v:.3f} / {ms_o:.3f} ms/call, serial {serial_v:.3f} / "
+          f"{serial_o:.3f}")
+    del xv, yv, yo, ro, yo2, ro2
+
+    # -- ShardedSTFT at the transform cell ------------------------------------
+    xt = torch.randn(64, 262144, generator=g, device=dev)
+    st_ = ShardedSTFT(mesh, nfft=4096, hop=2048)
+    (gr, gi), nt = counted(lambda: st_(xt))
+    check(nt[kfft.fft_frames_kernel] == 1, f"ShardedSTFT launched "
+          f"{nt[kfft.fft_frames_kernel]} frames FFT kernels")
+    rows = xt[:2].double().cpu().numpy()
+    ref_t = np.fft.rfft(np.lib.stride_tricks.sliding_window_view(
+        rows, 4096, -1)[:, ::2048] * window_taps("hann", 4096))
+    got_t = (local(gr)[:2].double().cpu().numpy()
+             + 1j * local(gi)[:2].double().cpu().numpy())
+    check(got_t.shape == ref_t.shape, f"ShardedSTFT frames {got_t.shape} != "
+                                      f"{ref_t.shape}")
+    snr_t = snr_db(ref_t, got_t)
+    check(snr_t >= MIN_TRANSFORM_DB, f"ShardedSTFT {snr_t:.2f} dB")
+    ms_t, serial_t = timed("stft", lambda: st_(xt),
+                           lambda: stft_ri(xt, 4096, hop=2048), per=STEADY,
+                           reps=3)
+    print(f"ShardedSTFT (4096, hop 2048, 64 x 262144): 1 frames FFT launch, "
+          f"rows 0-1 {snr_t:.2f} dB vs numpy float64; {ms_t:.3f} ms/call, "
+          f"serial stft_ri {serial_t:.3f}")
+    del xt, gr, gi
+
+    # -- the dry run on the card ------------------------------------------------
+    start = time.perf_counter()
+    entry.dryrun_multichip(1)
+    print(f"dryrun_multichip(1) on the card: "
+          f"{time.perf_counter() - start:.2f} s")
+
+    # -- the profiler window ------------------------------------------------------
+    out, err = tracer.communicate(timeout=300)
+    check(tracer.returncode == 0, f"the phase's tracer failed: {err[-2000:]}")
+    trace = json.loads(out.strip().splitlines()[-1])
+    for name, t in trace.items():
+        print(f"traced {name} (mesh of one): {t['kernels']} kernels, "
+              f"{t['device_us']:.1f} us of device time; {t['nccl']} NCCL "
+              f"kernels, {t['nccl_us']:.1f} us; "
+              f"{'; '.join(t['names'][:8])}")
+    check(trace["sharded chain"]["nccl"] >= 1,
+          "the traced sharded chain call ran no NCCL kernel")
+    print(f"sharded timings (ms/call, {smi}): {'; '.join(times)}")
+    print(f"sharded launches: " + ", ".join(
+        f"{k.__class__.__name__}:{getattr(k, 'modes', '')} {n}"
+        for k, n in launches.items() if n))
+    return launches
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -2763,8 +3160,8 @@ def main() -> int:
           f"{secs['sdsp_io']:.2f} s in g++, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
-    chain_record, chain_ms = chain_phases(dev, kchain, NorthStarChain,
-                                          default_design())
+    chain_record, chain_ms, chain_x = chain_phases(dev, kchain, NorthStarChain,
+                                                   default_design())
     family = chain_family_phase(dev, kchain, kcv, default_design())
     full_launches, layout_launches = full_path(dev, kchain, kcv,
                                                default_design(), chain_ms)
@@ -2794,10 +3191,14 @@ def main() -> int:
     start = time.perf_counter()
     smoothing_path(dev, smi, sdr)
     print(f"phase 25 took {time.perf_counter() - start:.1f} s")
-    chain_record["launches"] += chain_cli
-    flat_launches += flat_cli
-    ols_launches += ols_more
-    fft_launches += fft_more
+    start = time.perf_counter()
+    sharded = sharded_path(dev, smi, chain_x)
+    del chain_x
+    print(f"phase 26 took {time.perf_counter() - start:.1f} s")
+    chain_record["launches"] += chain_cli + sharded[kchain.chain_kernel]
+    flat_launches += flat_cli + sharded[kpfb.pfb_flat_kernel]
+    ols_launches += ols_more + sharded[kols.ols_kernel]
+    fft_launches += fft_more + sharded[kfft.fft_frames_kernel]
     flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain, fr_bound, fr_dev = pfb[("frames", "chan")]
     ols_err, ols_ms, ols_plain, ols_bound, ols_lib, ols_dev = ols[4096]

@@ -35,6 +35,17 @@ a constellation's points and a mel spectrogram's table cross the same way
 The transforms, spectral functions and the radar carry no state: ``CZT`` and
 ``ZoomFFT`` are built from the same arguments on both sides, and nothing
 else crosses.
+
+The sharded modules' states (``parallel/``) cross the same way.  Their
+leaves are ``DTensor`` s, which the ``*_to_numpy`` functions gather whole
+(``full_tensor()``, so every rank of the mesh calls them); a state made by
+``*_from_numpy`` is the global state, the same on every rank, which a
+sharded call takes as it stands::
+
+    state = state_from_numpy(np.asarray(jax_sharded_state.y_hist),
+                             device="cuda")
+    y, state = sharded_iir(x, state)
+    y_hist = state_to_numpy(state)      # back to a JAX sharded call
 """
 
 from __future__ import annotations
@@ -76,9 +87,18 @@ def state_from_numpy(y_hist, device=None, dtype=torch.float32) -> IIRState:
     return IIRState(torch.tensor(y_hist, dtype=dtype, device=device))
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host; a sharded module's ``DTensor`` leaf
+    is gathered whole first (``full_tensor()``, a collective: every rank
+    of its mesh calls it)."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    return t.detach().cpu().numpy()
+
+
 def state_to_numpy(state: IIRState) -> np.ndarray:
     """The state's (..., M+1, 2) history as a host numpy array."""
-    return state.y_hist.detach().cpu().numpy()
+    return _host(state.y_hist)
 
 
 def fir_state_from_numpy(hist, device=None, dtype=torch.float32) -> FIRState:
@@ -89,7 +109,7 @@ def fir_state_from_numpy(hist, device=None, dtype=torch.float32) -> FIRState:
 
 def fir_state_to_numpy(state: FIRState) -> np.ndarray:
     """The state's (..., hist_len) history as a host numpy array."""
-    return state.hist.detach().cpu().numpy()
+    return _host(state.hist)
 
 
 def prototype_from_branch(branch) -> np.ndarray:
@@ -117,7 +137,7 @@ def sdr_state_to_numpy(state: SDRState) -> dict:
     """The state's arrays on the host, under the names
     :func:`sdr_state_from_numpy` takes."""
     def n(a):
-        return None if a is None else a.detach().cpu().numpy()
+        return None if a is None else _host(a)
 
     return dict(hist_r=n(state.chan.hist_r), hist_i=n(state.chan.hist_i),
                 prev_r=n(state.demod.prev_r), prev_i=n(state.demod.prev_i),

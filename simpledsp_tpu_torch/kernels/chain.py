@@ -174,6 +174,15 @@ class FusedNorthStarOperators(nn.Module):
                 np.ascontiguousarray(a).astype(npdt), device=device))
         self._ptabs = {}
 
+    def shard_powers(self, frames_per_shard: int,
+                     n_shards: int) -> np.ndarray:
+        """(n_shards + 1, D, D) stack of Fs^p with Fs = Ff^{frames_per_shard}
+        in float64: the cross-shard transition powers of the
+        sequence-parallel chain (``fused_chain_frames(..., group=,
+        shard_powers=)``)."""
+        from simpledsp_tpu_torch.parallel.iir import transition_powers
+        return transition_powers(self._Ff64, frames_per_shard, n_shards)
+
     def tables(self, full: bool = False) -> ChainTables:
         """The kernel's tables: packed half-spectrum step 3, or with
         ``full`` the full-spectrum one."""
@@ -561,13 +570,23 @@ def chain_frames_full(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables
 
 
 def chain_prepass(ops: FusedNorthStarOperators, x: torch.Tensor,
-                  s0: torch.Tensor, projection: Optional[str] = None):
+                  s0: torch.Tensor, projection: Optional[str] = None,
+                  group=None, shard_powers=None):
     """The matmuls before the kernel: every sub-block's incoming IIR state.
 
     x is (C, T), T a multiple of fft_size, or pre-framed (C, F, n1, n2);
     s0 is the flat incoming state (C, D).  projection: "two_step" (default:
     kb = K x per sub-block, then the F-power block-Toeplitz combine) or
     "dense" (one x @ TKt matmul); the two agree to rounding.
+
+    group, shard_powers: x is one time shard of a stream sharded over the
+    ranks of the process group ``group`` (the ``sp`` axis of a mesh,
+    ``mesh.get_group("sp")``); s0 and s_final are the stream's global
+    states.  Between the input-driven half of the frame prefix and
+    its finish, the shard's input-driven final state goes through the
+    closed form of ``parallel/iir.py`` (one all_gather, one all_reduce)
+    with ``shard_powers`` (``ops.shard_powers``, a numpy array or a tensor
+    on x's device) to give the state entering the shard.
 
     Returns (x3 (C F, n1, n2) frames, s3 (C F, D, n1) D-major sub-block
     starts, s_final (C, D)).
@@ -596,15 +615,30 @@ def chain_prepass(ops: FusedNorthStarOperators, x: torch.Tensor,
 
         # Frame-level state chain: two-level block-Toeplitz prefix.
         tabs = ops.frame_prefix_tables(nf)
-        L_, W_, _ = _frame_prefix_start(tabs, k_frame.transpose(0, 1))
-        s_after = _frame_prefix_finish(tabs, L_, W_, s0, nf)
-        s_fin = s_after[:, -1]
-        s_frames = torch.cat([s0[:, None], s_after[:, :-1]], dim=1)
+        L_, W_, vc_last = _frame_prefix_start(tabs, k_frame.transpose(0, 1))
+        s_in = s0
+        if group is not None:
+            # vc_last is this shard's input-driven final state.
+            s_in, s_glob = _shard_states(group, shard_powers, s0, vc_last)
+        s_after = _frame_prefix_finish(tabs, L_, W_, s_in, nf)
+        s_fin = s_after[:, -1] if group is None else s_glob
+        s_frames = torch.cat([s_in[:, None], s_after[:, :-1]], dim=1)
 
         # Sub-block starts: state part + input part, D-major, so the
         # (F, n1 D) -> (F, D, n1) view is free.
         starts = s_frames.reshape(f_total, D) @ ops.FpT + kxs
     return xsub.reshape(f_total, n1, n2), starts.reshape(f_total, D, n1), s_fin
+
+
+def _shard_states(group, shard_powers, s0: torch.Tensor,
+                  k_shard: torch.Tensor):
+    """(state entering the shard, global final state) of a chain sharded
+    over the ranks of ``group``: :func:`parallel.iir.shard_states`."""
+    if shard_powers is None:
+        raise ValueError("group requires shard_powers")
+    from simpledsp_tpu_torch.parallel.iir import shard_states
+    apow = torch.as_tensor(shard_powers, dtype=s0.dtype, device=s0.device)
+    return shard_states(group, apow, s0, k_shard)
 
 
 def resolve_layout(n1: int) -> str:
@@ -632,7 +666,8 @@ def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
                        s0: torch.Tensor, *, frames_per_tile: int = 64,
                        half_spectrum: bool = False,
                        layout: Optional[str] = None, flat_out: bool = False,
-                       projection: Optional[str] = None):
+                       projection: Optional[str] = None, group=None,
+                       shard_powers=None):
     """Run the fused chain (:func:`chain_prepass`, then one kernel launch)
     over x (C, T), T a multiple of fft_size, or pre-framed (C, F, n1, n2),
     from the flat state s0 (C, D).  The JAX function's signature and shapes.
@@ -654,15 +689,23 @@ def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
     flat_out: half spectrum with "reg*" or "k1": (C F, n2/2/qf, qf n1)
       planes, qf = ``chain_variants._regw_qf`` for "regw", else 1.
     projection: "two_step" (default) or "dense", see :func:`chain_prepass`.
+    group, shard_powers: the sequence-parallel chain.  x is one time shard
+      of a stream sharded over the ranks of the process group ``group``
+      (``mesh.get_group("sp")``), s0 and s_final the stream's global
+      states, and ``shard_powers`` the (n_shards + 1, D, D) transition
+      powers of :meth:`FusedNorthStarOperators.shard_powers`; the state
+      entering the shard comes from one all_gather and the global final
+      state from one all_reduce (see :func:`chain_prepass`).  JAX names the
+      mesh axis (``axis_name``) inside its ``shard_map``; the port has no
+      ambient axis and takes its group.
 
     Returns ((re, im), s_final (C, D)): re and im (C, F, n2, n1) for the
     full spectrum, (C, F, n2/2, n1) for the half one (or the flat form);
     flattening the last two axes gives natural bin order k = k1 + n1 k2.
 
-    Not taken from the JAX signature: ``axis_name`` / ``shard_powers`` (the
-    sequence-parallel chain, with the port's ``parallel/``), and the TPU
-    hooks ``precision`` (IEEE float32 only), ``interpret``,
-    ``_debug_stage`` and ``_proj_prec``.
+    Not taken from the JAX signature: ``axis_name`` (``group`` in its
+    place), and the TPU hooks ``precision`` (IEEE float32 only),
+    ``interpret``, ``_debug_stage`` and ``_proj_prec``.
     """
     n1, n2, N = ops.n1, ops.n2, ops.fft_size
     if layout is None:
@@ -676,7 +719,8 @@ def fused_chain_frames(ops: FusedNorthStarOperators, x: torch.Tensor,
             raise ValueError("layout 'regs' requires float32 (the split "
                              "targets a 24-bit significand)")
     c = x.shape[0]
-    x3, s3, s_fin = chain_prepass(ops, x, s0, projection)
+    x3, s3, s_fin = chain_prepass(ops, x, s0, projection, group,
+                                  shard_powers)
     f_total = x3.shape[0]
     nf = f_total // c
     if not half_spectrum:

@@ -45,6 +45,7 @@ __all__ = [
     "block_operators_f64",
     "block_operators_from_ss_f64",
     "run_state_blocks",
+    "state_scan",
     "sosfilt",
     "sosfiltfilt",
 ]
@@ -289,16 +290,24 @@ def run_state_blocks(xb: torch.Tensor, s0: torch.Tensor, H: torch.Tensor,
     with ieee_fp32():
         conv = torch.matmul(xb, H.T)                    # (..., nb, B)
         kx = torch.matmul(xb, K.T)                      # (..., nb, D)
-        # The D-dim state chain, one block at a time (the block count is the
-        # only serial dimension left).
+        s_starts, s = state_scan(kx, s0, F)
+        y = conv + torch.matmul(s_starts, Phi.T)
+    return y, s
+
+
+def state_scan(kx: torch.Tensor, s0: torch.Tensor, F: torch.Tensor):
+    """The D-dim state chain s' = F s + k over the blocks' input-driven
+    states kx (..., nblocks, D) from s0 (..., D), one block at a time (the
+    block count is the only serial dimension left), in IEEE float32 for
+    float32 operands.  Returns (the state entering each block (..., nblocks,
+    D), the final state (..., D))."""
+    with ieee_fp32():
         s = s0
         starts = []
         for kxk in kx.unbind(-2):
             starts.append(s)
             s = torch.matmul(s, F.T) + kxk
-        s_starts = torch.stack(starts, dim=-2)          # (..., nb, D)
-        y = conv + torch.matmul(s_starts, Phi.T)
-    return y, s
+        return torch.stack(starts, dim=-2), s
 
 
 class BlockIIR(nn.Module):
@@ -330,6 +339,12 @@ class BlockIIR(nn.Module):
         """xb: (..., nblocks, B) full blocks; s0: (..., D) flat state.
         Returns (y (..., nblocks, B), s_final (..., D))."""
         return run_state_blocks(xb, s0, self.H, self.Phi, self.K, self.F)
+
+    @property
+    def operators(self):
+        """(H, Phi, K, F), the block operators as held (the sharded IIR's
+        tables)."""
+        return self.H, self.Phi, self.K, self.F
 
     def forward(self, x: torch.Tensor, state: Optional[IIRState] = None
                 ) -> Tuple[torch.Tensor, IIRState]:

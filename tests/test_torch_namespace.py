@@ -1,10 +1,9 @@
 """The port's package namespaces against the JAX package's.
 
 Every name of ``simpledsp_tpu``, ``simpledsp_tpu.design``,
-``simpledsp_tpu.kernels`` and ``simpledsp_tpu.models`` resolves in the
-port's counterpart, to the very object its submodule defines, and is
-listed by ``dir()`` and ``__all__``.  The one exception is
-``ShardedNorthStarChain``, which comes with the port of ``parallel/``.
+``simpledsp_tpu.kernels``, ``simpledsp_tpu.models`` and
+``simpledsp_tpu.parallel`` resolves in the port's counterpart, to the very
+object its submodule defines, and is listed by ``dir()`` and ``__all__``.
 The names resolve lazily: importing the port, in a process where any
 import of jax fails, imports none of its submodules until a name is
 touched.
@@ -20,8 +19,8 @@ import pytest
 import simpledsp_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
-PACKAGES = ("", ".design", ".kernels", ".models")
-NOT_YET = {"ShardedNorthStarChain"}      # with parallel/ (ROADMAP item 8)
+PACKAGES = ("", ".design", ".kernels", ".models", ".parallel")
+NOT_YET = set()
 
 
 def _jax_exports(sub: str) -> dict:
@@ -45,7 +44,7 @@ def _cases():
 
 def test_the_jax_namespaces_have_the_counts_the_port_mirrors():
     counts = [len(_jax_exports(sub)) for sub in PACKAGES]
-    assert counts == [221, 41, 3, 15]
+    assert counts == [221, 41, 3, 15, 14]
 
 
 @pytest.mark.parametrize("sub,name,mod", _cases(),
@@ -75,8 +74,8 @@ def test_version_and_unknown_names():
     with pytest.raises(AttributeError, match="no attribute 'nope'"):
         simpledsp_tpu_torch.nope
     from simpledsp_tpu_torch import models
-    with pytest.raises(AttributeError):
-        models.ShardedNorthStarChain
+    from simpledsp_tpu_torch.models import northstar
+    assert models.ShardedNorthStarChain is northstar.ShardedNorthStarChain
     # A submodule still imports by its name through the lazy namespace.
     from simpledsp_tpu_torch.kernels import _build, fft
     assert fft.pallas_fft_supported is fft.fft_split_supported
@@ -125,4 +124,4 @@ def test_names_resolve_lazily_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["221", "41", "3", "14"]
+    assert proc.stdout.split() == ["221", "41", "3", "15"]

@@ -238,6 +238,14 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.runtime\n"
             "import simpledsp_tpu_torch.utils.host\n"
             "import simpledsp_tpu_torch.utils.checkpoint\n"
+            "import simpledsp_tpu_torch.parallel\n"
+            "import simpledsp_tpu_torch.parallel.mesh\n"
+            "import simpledsp_tpu_torch.parallel.iir\n"
+            "import simpledsp_tpu_torch.parallel.fir\n"
+            "import simpledsp_tpu_torch.parallel.sdr\n"
+            "import simpledsp_tpu_torch.parallel.spectral\n"
+            "import simpledsp_tpu_torch.parallel.multihost\n"
+            "import simpledsp_tpu_torch.entry\n"
             "import simpledsp_tpu_torch.utils.benchmark\n"
             "import simpledsp_tpu_torch.utils.debug\n"
             "import simpledsp_tpu_torch.tools.rank_forms\n"
