@@ -5,7 +5,8 @@ transforms, the pulse-Doppler radar and the chain's full spectrum and
 layouts end to end, and times them; runs the probes of the card
 (``simpledsp_tpu_torch/tools``) on their own kernels; then drives the
 general filtering surface, the audio features, the modems, the
-command-line front end and the smoothing filters.
+command-line front end, the smoothing filters, the parallel layer, the
+headline benchmark and the example scenarios.
 
     python3 chip_smoke.py
 
@@ -276,7 +277,24 @@ Phases (any failure exits nonzero before the result line):
     ``torch.profiler`` window in a process of its own, the NCCL kernels of
     a sharded chain call and a gathered channelizer call with their
     device time, beside the card's name and power limit.
-    Phases 21-26 print their seconds, and the script its total.
+27. The headline benchmark, its smoke and the example scenarios.
+    ``python -m simpledsp_tpu_torch bench`` as a subprocess with its smoke
+    on: one JSON line with the JAX ``bench.py``'s keys and metric, parity
+    >= 130 dB, and the smoke's record (``build/smoke.json``) reading
+    ``compiled_smoke_ok: true``; its value and seconds a call are printed
+    beside the card's name and power limit.  Once its line is out, each of
+    ``simpledsp_tpu_torch.examples.{fm_receiver, channelize_resample,
+    radar_rdm}`` runs as ``python -m`` (exit 0, its last line the OK
+    line), and, in a process of its own, once under the profiler
+    (``example_trace``: its hand kernels by name, at least one each);
+    meanwhile in this process each example's ``run`` on the card, the
+    counts set to 0 before: its ground truth holds and it launches at
+    least one hand kernel.  Then the FFT engine's small-DFT route on the
+    card: ``fft_ri`` at n = 64 and 128 in float32 against float64 (>= 120
+    dB, no hand kernel), beside the stacked (2n, n) form it replaced, the
+    same route on the CPU and ``torch.fft.fft``; and the plain chain route
+    at N = 32768 against the float64 oracle.
+    Phases 21-27 print their seconds, and the script its total.
 
 Every kernel's record gives its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -295,9 +313,9 @@ probe_relayout's relayout kernel alone (``.permute(1, 2, 0).contiguous()``),
 contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).
 
-The ols and fft_frames records count the launches of phases 21, 23 and 26
-beside those of phases 11 and 15-16; the chain_frames and pfb_flat records
-count phases 24's and 26's beside those of phases 4 and 7.
+The ols and fft_frames records count the launches of phases 21, 23, 26
+and 27 beside those of phases 11 and 15-16; the chain_frames and pfb_flat
+records count phases 24's, 26's and 27's beside those of phases 4 and 7.
 
 The PFB records also carry ``device_ms``, the kernel's CUDA-graph time
 from phase 6, the OLS record its CUDA-graph time from phase 10, the
@@ -3083,6 +3101,194 @@ def sharded_checks(dev, smi, mesh, chain_x, tracer):
     return launches
 
 
+# -- 27. the benchmark, its smoke and the example scenarios ---------------
+
+EXAMPLES = ("fm_receiver", "channelize_resample", "radar_rdm")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL = {"channels", "samples_per_channel", "seconds_per_call",
+                "device", "dtype", "parity_snr_db", "baseline"}
+PHASE27_TIMEOUT = 300       # seconds for the phase's subprocesses, all together
+SMALL_DFT_SIZES = (64, 128)
+PLAIN_CHAIN_N = 32768
+
+
+def example_trace() -> dict:
+    """Device events of one in-process run of each example on the card,
+    traced in one profiler session (``tools/probe_hlo.device_events``)
+    after a warm-up run: {name: {"hand": {kernel: launches}, "kernels",
+    "device_us"}}.  Run in a process of its own (a second profiler session
+    in one process records no device activity)."""
+    import importlib
+
+    from simpledsp_tpu_torch.tools.probe_hlo import device_events
+
+    calls = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"simpledsp_tpu_torch.examples.{name}")
+        calls[name] = lambda mod=mod: mod.run("cuda")
+    for call in calls.values():
+        call()
+    out = {}
+    for name, evs in device_events(calls).items():
+        hand = {}
+        for e in evs:
+            if e["kind"] == "hand":
+                hand[e["name"][:60]] = hand.get(e["name"][:60], 0) + e["count"]
+        out[name] = {"hand": hand,
+                     "kernels": sum(e["count"] for e in evs
+                                    if e["kind"] != "copy"),
+                     "device_us": sum(e["device_us"] for e in evs)}
+    return out
+
+
+def stacked_dft(xr: torch.Tensor, xi: torch.Tensor) -> tuple:
+    """The small-DFT route's form before the repair, for the comparison:
+    [xr | xi] against stacked (2n, n) tables, a 2n-term sum an output."""
+    from simpledsp_tpu_torch.ops.fft import dft_matrix
+
+    n = xr.shape[-1]
+    wr, wi = dft_matrix(n)
+    tre, tim = (torch.as_tensor(t, dtype=xr.dtype, device=xr.device)
+                for t in (np.concatenate([wr.T, -wi.T]),
+                          np.concatenate([wi.T, wr.T])))
+    v = torch.cat([xr, xi], -1)
+    return v @ tre, v @ tim
+
+
+def small_dft_rereads(dev, smi):
+    """The FFT engine's small-DFT route on the card in float32 against
+    float64, beside the form it replaced on the same card, the same route
+    on the CPU and ``torch.fft.fft`` (cuFFT); then the plain chain route
+    at N = 32768 against the float64 oracle."""
+    from simpledsp_tpu_torch.models.northstar import NorthStarChain
+    from simpledsp_tpu_torch.ops import fft as tfft
+
+    rng = np.random.default_rng(27)
+    for n in SMALL_DFT_SIZES:
+        xr, xi = rng.standard_normal((2, (1 << 20) // n, n)).astype(np.float32)
+        ref = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
+        gr, gi = (torch.as_tensor(p, device=dev) for p in (xr, xi))
+        zero_counts()
+        card = tfft.fft_ri(gr, gi)
+        check(sum(k.launches for k in KERNELS) == 0,
+              f"the {n}-point small-DFT route launched a hand kernel")
+        old = stacked_dft(gr, gi)
+        cpu = tfft.fft_ri(torch.as_tensor(xr), torch.as_tensor(xi))
+        lib = torch.fft.fft(torch.complex(gr, gi))
+        dbs = [snr_db(ref, p[0].cpu().numpy() + 1j * p[1].cpu().numpy())
+               for p in (card, old, cpu, (lib.real, lib.imag))]
+        check(dbs[0] >= MIN_FFT_DB, f"the {n}-point small-DFT route on the "
+                                    f"card: {dbs[0]:.2f} dB")
+        print(f"small-DFT route, fft_ri n = {n}, {ref.shape[0]} rows, "
+              f"float32 against float64: card {dbs[0]:.2f} dB; the stacked "
+              f"(2n, n) form it replaced, on the card {dbs[1]:.2f}; the same "
+              f"route on the CPU {dbs[2]:.2f}; torch.fft.fft {dbs[3]:.2f} "
+              f"({smi})")
+    x = rng.standard_normal((2, 1 << 20)).astype(np.float32)
+    chain = NorthStarChain(fft_size=PLAIN_CHAIN_N, device=dev,
+                           use_kernel=False)
+    (sr, si), _ = chain(torch.as_tensor(x, device=dev))
+    ref = oracle_packed(chain.design, x.astype(np.float64), PLAIN_CHAIN_N)
+    db = snr_db(ref, sr.cpu().numpy() + 1j * si.cpu().numpy())
+    check(db >= MIN_SNR_DB - 10, f"the plain chain at N = {PLAIN_CHAIN_N}: "
+                                 f"{db:.2f} dB")
+    print(f"plain chain route at N = {PLAIN_CHAIN_N} on 2 x 2^20 float32 "
+          f"(seed 27): {db:.2f} dB against float64 scipy + numpy")
+
+
+def bench_and_examples(dev, smi):
+    """Phase 27; returns {kernel wrapper: launches} of the examples' runs
+    in this process."""
+    import importlib
+    import os
+    from pathlib import Path
+
+    from simpledsp_tpu_torch.tools.smoke import default_out_path
+
+    root = Path(__file__).resolve().parent
+    record = default_out_path()
+    record.unlink(missing_ok=True)
+    env = {k: v for k, v in os.environ.items() if k != "SDSP_SKIP_SMOKE"}
+
+    def start(args):
+        return subprocess.Popen([sys.executable, *args], cwd=root, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    procs = {"bench": start(["-m", "simpledsp_tpu_torch", "bench"])}
+    deadline = time.monotonic() + PHASE27_TIMEOUT
+    try:
+        # The benchmark times its loops alone on the card: the rest of the
+        # phase starts once its line is out (its smoke runs beside them).
+        line = procs["bench"].stdout.readline()
+        for name in EXAMPLES:
+            procs[name] = start(["-m", f"simpledsp_tpu_torch.examples.{name}"])
+        procs["trace"] = start(["-c", "import json, chip_smoke; print("
+                                      "json.dumps(chip_smoke.example_trace()))"])
+        launches = {k: 0 for k in KERNELS}
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"simpledsp_tpu_torch.examples.{name}")
+            zero_counts()
+            mod.check(mod.run(dev))
+            ran = {k: k.launches for k in KERNELS if k.launches}
+            check(bool(ran), f"the example {name} launched no hand kernel")
+            print(f"example {name} in this process: ground truth held; "
+                  f"launches " + ", ".join(
+                      f"{k.__class__.__name__}:{getattr(k, 'modes', '')} {n}"
+                      for k, n in ran.items()))
+            for k, n in ran.items():
+                launches[k] += n
+        small_dft_rereads(dev, smi)
+        outs = {}
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"chip_smoke: FAILED: phase 27's subprocesses not "
+                         f"done in {PHASE27_TIMEOUT} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        check(proc.returncode == 0, f"phase 27's {name} run exited "
+                                    f"{proc.returncode}: {outs[name][1][-2000:]}")
+
+    lines = (line + outs["bench"][0]).splitlines()
+    check(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
+    rec = json.loads(lines[0])
+    check(set(rec) == BENCH_KEYS and set(rec["detail"]) == BENCH_DETAIL,
+          f"bench's keys: {sorted(rec)}, {sorted(rec['detail'])}")
+    check(rec["metric"] == "northstar_chain_8sos_iir_4096fft_throughput",
+          f"bench's metric {rec['metric']}")
+    d = rec["detail"]
+    check(d["parity_snr_db"] >= MIN_SNR_DB, f"bench parity "
+                                            f"{d['parity_snr_db']} dB")
+    smoke = json.loads(record.read_text())
+    check(smoke["compiled_smoke_ok"] is True, f"the smoke's record: {smoke}")
+    print(f"bench: {rec['value']} {rec['unit']}, vs_baseline "
+          f"{rec['vs_baseline']}, {d['seconds_per_call'] * 1e3:.4f} ms/call "
+          f"({d['channels']} x {d['samples_per_channel']}), parity "
+          f"{d['parity_snr_db']} dB; device {d['device']!r} ({smi})")
+    print(f"smoke: {json.dumps(smoke)}")
+    for name in EXAMPLES:
+        out = outs[name][0].splitlines()
+        ok = importlib.import_module(f"simpledsp_tpu_torch.examples.{name}").OK
+        check(bool(out) and out[-1] == ok,
+              f"python -m simpledsp_tpu_torch.examples.{name}: {out[-1:]}")
+        print(f"python -m simpledsp_tpu_torch.examples.{name}: exit 0; "
+              + " | ".join(s.strip() for s in out))
+    trace = json.loads(outs["trace"][0].strip().splitlines()[-1])
+    for name in EXAMPLES:
+        t = trace[name]
+        check(bool(t["hand"]), f"the traced example {name} ran no hand kernel")
+        print(f"traced example {name}: {t['kernels']} kernels, "
+              f"{t['device_us']:.1f} us of device time; hand kernels "
+              + ", ".join(f"{n} x {k}" for k, n in t["hand"].items()))
+    return launches
+
+
 def build_all(libs):
     """Build every kernel library at once, one nvcc each; re-raise the
     first failure."""
@@ -3195,10 +3401,18 @@ def main() -> int:
     sharded = sharded_path(dev, smi, chain_x)
     del chain_x
     print(f"phase 26 took {time.perf_counter() - start:.1f} s")
-    chain_record["launches"] += chain_cli + sharded[kchain.chain_kernel]
-    flat_launches += flat_cli + sharded[kpfb.pfb_flat_kernel]
-    ols_launches += ols_more + sharded[kols.ols_kernel]
-    fft_launches += fft_more + sharded[kfft.fft_frames_kernel]
+    start = time.perf_counter()
+    examples = bench_and_examples(dev, smi)
+    print(f"phase 27 took {time.perf_counter() - start:.1f} s")
+    chain_record["launches"] += (chain_cli + sharded[kchain.chain_kernel]
+                                 + examples[kchain.chain_kernel])
+    flat_launches += (flat_cli + sharded[kpfb.pfb_flat_kernel]
+                      + examples[kpfb.pfb_flat_kernel])
+    frames_launches += examples[kpfb.pfb_frames_kernel]
+    ols_launches += (ols_more + sharded[kols.ols_kernel]
+                     + examples[kols.ols_kernel])
+    fft_launches += (fft_more + sharded[kfft.fft_frames_kernel]
+                     + examples[kfft.fft_frames_kernel])
     flat_err, flat_ms, flat_plain, flat_bound, flat_dev = pfb[("flat", "fm_dec")]
     fr_err, fr_ms, fr_plain, fr_bound, fr_dev = pfb[("frames", "chan")]
     ols_err, ols_ms, ols_plain, ols_bound, ols_lib, ols_dev = ols[4096]

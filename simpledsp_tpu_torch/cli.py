@@ -8,6 +8,7 @@
     python -m simpledsp_tpu_torch mfcc --input speech.pcm --rate 16000 \
         --output features.npz
     python -m simpledsp_tpu_torch modem-sim --constellation qpsk --ebn0 0:10:2
+    python -m simpledsp_tpu_torch bench
 
 Ingest runs through the native streaming runtime (ring buffer, background
 file reader and IQ converters, simpledsp_tpu_torch/runtime); DSP runs on
@@ -356,8 +357,8 @@ def _cmd_modem_sim(args, dev) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The parser of :func:`main`: the JAX package's commands and options
-    (less ``bench``), each command with ``--device``."""
+    """The parser of :func:`main`: the JAX package's commands and options,
+    each command with ``--device``."""
     p = argparse.ArgumentParser(prog="simpledsp_tpu_torch",
                                 description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -410,6 +411,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hop-frames per device call")
     device(sp)
 
+    sp = sub.add_parser("bench", help="run the headline benchmark")
+    device(sp)
+
     sp = sub.add_parser("modem-sim", help="digital modem BER simulation "
                                           "(TX -> AWGN -> matched RX)")
     sp.add_argument("--constellation",
@@ -446,6 +450,10 @@ def main(argv=None) -> int:
         return _cmd_spectra(args, dev)
     if args.cmd == "mfcc":
         return _cmd_mfcc(args, dev)
+    if args.cmd == "bench":
+        from simpledsp_tpu_torch import bench
+        bench.main(device=dev)
+        return 0
     return _cmd_modem_sim(args, dev)
 
 

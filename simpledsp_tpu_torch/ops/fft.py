@@ -147,34 +147,47 @@ def _dft_rows(n: int, device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _dft_blocks_f64(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
-    """(2n, n) real tables with [xr | xi] @ re = Re(x W^T) and
-    [xr | xi] @ im = Im(x W^T), W the n-point DFT matrix."""
+def _dft_table_f64(n: int, inverse: bool) -> np.ndarray:
+    """The real table [W_re^T | W_im^T], W the n-point DFT matrix, with a
+    zero row after an odd n, as (2, h, 2n), h = ceil(n / 2): the two
+    halves of the sum's n terms."""
     wr, wi = dft_matrix(n, inverse=inverse)
-    return np.concatenate([wr.T, -wi.T]), np.concatenate([wi.T, wr.T])
+    h = -(-n // 2)
+    table = np.zeros((2 * h, 2 * n))
+    table[:n] = np.concatenate([wr.T, wi.T], axis=1)
+    return table.reshape(2, h, 2 * n)
 
 
 def _dft_last(xr: torch.Tensor, xi: torch.Tensor, inverse: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unscaled DFT along the last axis (n <= _MAX_DFT) as dense products
-    of a fixed shape: each block of :func:`_dft_rows` rows of [xr | xi]
-    times the two (2n, n) tables.  Returns contiguous planes."""
+    of a fixed shape.  Each block of :func:`_dft_rows` rows of xr, and of
+    xi, times the table of :func:`_dft_table_f64` gives
+    P = xr [Wr^T | Wi^T] and Q = xi [Wr^T | Wi^T], each as its two
+    half sums (one batched product a plane); then
+    Re = xr Wr^T - xi Wi^T and Im = xi Wr^T + xr Wi^T, as in the JAX
+    package: in float32 one 2n-term sum over [xr | xi] costs about 2.7
+    dB, and an n-term sum taken whole (MKL's order) 1.5-1.9 dB at n = 16
+    and 32 against XLA's CPU dot.  Returns contiguous planes."""
     n = xr.shape[-1]
     lead = xr.shape[:-1]
     rows = int(np.prod(lead, dtype=np.int64))
     block = _dft_rows(n, xr.device)
     padded = -(-rows // block) * block
-    v = xr.new_empty((padded, 2 * n))
-    v[:rows, :n] = xr.reshape(rows, n)
-    v[:rows, n:] = xi.reshape(rows, n)
-    v[rows:] = 0
-    tre, tim = (_table(t, xr) for t in _dft_blocks_f64(n, bool(inverse)))
-    yr = xr.new_empty((padded, n))
-    yi = torch.empty_like(yr)
-    for lo in range(0, padded, block):
-        torch.mm(v[lo: lo + block], tre, out=yr[lo: lo + block])
-        torch.mm(v[lo: lo + block], tim, out=yi[lo: lo + block])
-    return yr[:rows].reshape(lead + (n,)), yi[:rows].reshape(lead + (n,))
+    h = -(-n // 2)
+    v = xr.new_zeros((2, padded, 2 * h))
+    v[0, :rows, :n] = xr.reshape(rows, n)
+    v[1, :rows, :n] = xi.reshape(rows, n)
+    table = _table(_dft_table_f64(n, bool(inverse)), xr)
+    p = xr.new_empty((2, padded // block, 2, block, 2 * n))
+    for b, lo in enumerate(range(0, padded, block)):
+        for plane in range(2):
+            halves = v[plane, lo: lo + block].view(block, 2, h)
+            torch.bmm(halves.transpose(0, 1), table, out=p[plane, b])
+    s = (p[:, :, 0] + p[:, :, 1]).reshape(2, padded, 2 * n)[:, :rows]
+    yr = s[0, :, :n] - s[1, :, n:]
+    yi = s[1, :, :n] + s[0, :, n:]
+    return yr.reshape(lead + (n,)), yi.reshape(lead + (n,))
 
 
 # Route this engine through the frames FFT kernel (kernels/fft.py) where

@@ -127,6 +127,70 @@ def test_rows_get_the_same_bits_in_any_batch(n, dtype, rng):
                 assert torch.equal(p, w[lo: lo + count]), (entry, lo, count)
 
 
+def _snr_db(ref, got) -> float:
+    err = np.asarray(got, np.complex128) - ref
+    return float(10 * np.log10((np.abs(ref) ** 2).sum()
+                               / (np.abs(err) ** 2).sum()))
+
+
+# The float32 accuracy cases hold the port to the JAX engine on the same
+# input, within this many dB (the small-DFT route once summed [xr | xi]
+# against stacked (2n, n) tables and lost 2.2-2.9 dB at every size below).
+JAX_SNR_SLACK_DB = 0.3
+
+
+@pytest.mark.parametrize("n", [64, 128, 4096, 32768])
+@pytest.mark.parametrize("entry", ["fft_ri", "rfft_ri"])
+def test_float32_transform_keeps_the_jax_engines_accuracy(entry, n):
+    """float32 on the CPU, 2^20 values of noise (seed 0): the SNR against
+    numpy in float64 is at least the JAX engine's on the same input, less
+    0.3 dB.  Each output of a small DFT (n <= 128: the sizes themselves,
+    and step 1 of the larger ones) is a difference of n-term sums, as in
+    the JAX engine.  ``-s`` prints both SNRs."""
+    xr, xi = np.random.default_rng(0).standard_normal(
+        (2, (1 << 20) // n, n)).astype(np.float32)
+    if entry == "fft_ri":
+        ref = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
+        ours = tfft.fft_ri(_t(xr), _t(xi))
+        theirs = jfft.fft_ri(jnp.asarray(xr), jnp.asarray(xi))
+    else:
+        ref = np.fft.rfft(xr.astype(np.float64))
+        ours = tfft.rfft_ri(_t(xr))
+        theirs = jfft.rfft_ri(jnp.asarray(xr))
+    mine = _snr_db(ref, ours[0].numpy() + 1j * ours[1].numpy())
+    jax_db = _snr_db(ref, np.asarray(theirs[0]) + 1j * np.asarray(theirs[1]))
+    print(f"{entry} n = {n}: port {mine:.2f} dB, JAX {jax_db:.2f} dB")
+    assert mine >= jax_db - JAX_SNR_SLACK_DB, (mine, jax_db)
+
+
+@pytest.mark.parametrize("fft_size", [4096, 32768])
+def test_float32_plain_chain_keeps_the_jax_chains_accuracy(fft_size):
+    """The plain ``NorthStarChain`` in float32 on 2 x 2^18 samples of noise
+    (seed 0): its spectra's SNR against the float64 oracle (scipy
+    ``sosfilt`` + numpy ``rfft``, packed) is at least the JAX composable
+    chain's on the same input, less 0.3 dB."""
+    import scipy.signal as sig
+
+    from simpledsp_tpu.models.northstar import NorthStarChain as JChain
+    from simpledsp_tpu_torch.design.biquad import sos_matrix
+    from simpledsp_tpu_torch.models.northstar import NorthStarChain
+
+    x = np.random.default_rng(0).standard_normal((2, 1 << 18)).astype(
+        np.float32)
+    chain = NorthStarChain(fft_size=fft_size, device="cpu")
+    (sr, si), _ = chain(torch.as_tensor(x))
+    (jr, ji), _ = JChain(fft_size=fft_size, dtype=jnp.float32)(jnp.asarray(x))
+    y64 = sig.sosfilt(sos_matrix(chain.design), x.astype(np.float64), axis=-1)
+    full = np.fft.rfft(y64.reshape(2, -1, fft_size))
+    ref = full[..., : fft_size // 2].copy()
+    ref[..., 0] += 1j * full[..., fft_size // 2].real
+    mine = _snr_db(ref, sr.numpy() + 1j * si.numpy())
+    jax_db = _snr_db(ref, np.asarray(jr) + 1j * np.asarray(ji))
+    print(f"plain chain N = {fft_size}: port {mine:.2f} dB, JAX "
+          f"{jax_db:.2f} dB")
+    assert mine >= jax_db - JAX_SNR_SLACK_DB, (mine, jax_db)
+
+
 @pytest.mark.parametrize("n,factor", [(257, 257), (262, 131), (524, 131),
                                       (1031, 1031), (4099, 4099)])
 def test_prime_factor_above_128_not_ported(n, factor, rng):

@@ -256,6 +256,20 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.design\n"
             "import simpledsp_tpu_torch.kernels\n"
             "import simpledsp_tpu_torch.models\n"
+            "import simpledsp_tpu_torch.bench\n"
+            "import simpledsp_tpu_torch.tools.smoke\n"
+            "import simpledsp_tpu_torch.examples\n"
+            "import simpledsp_tpu_torch.examples.fm_receiver\n"
+            "import simpledsp_tpu_torch.examples.channelize_resample\n"
+            "import simpledsp_tpu_torch.examples.radar_rdm\n"
+            "for ex in (simpledsp_tpu_torch.examples.fm_receiver,\n"
+            "           simpledsp_tpu_torch.examples.channelize_resample,\n"
+            "           simpledsp_tpu_torch.examples.radar_rdm):\n"
+            "    ex.check(ex.run('cpu'))\n"
+            "import os\n"
+            "os.environ['SDSP_SKIP_SMOKE'] = '1'\n"
+            "simpledsp_tpu_torch.bench.main(channels=1, samples=8192, "
+            "device='cpu', iters=1, loops=1)\n"
             "import simpledsp_tpu_torch as sdsp\n"
             "for name in sdsp.__all__:\n"
             "    getattr(sdsp, name)\n"
