@@ -54,6 +54,7 @@ from simpledsp_tpu_torch.kernels.fft import (_best_split, _consts,
                                              _kernel_tables, _split_table_f64)
 from simpledsp_tpu_torch.ops.iir import block_operators_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["ChainTables", "FusedNorthStarOperators", "LAYOUTS",
            "chain_frames", "chain_frames_full", "chain_frames_full_reference",
@@ -517,9 +518,12 @@ class _ChainKernel:
     the outputs it launches, :data:`_STORES` or "full"), built at first
     launch; ``launches`` counts its launches."""
 
+    launches = tracing.Launches()
+
     def __init__(self, *modes: str):
         self.modes = modes
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter(
+            "chain_" + "_".join(modes))
 
     def library(self) -> ctypes.CDLL:
         return _library()
@@ -545,12 +549,13 @@ def _on_device(x3: torch.Tensor, kernel, reference, *args):
     """The kernel on CUDA tensors, its plain version on CPU tensors; any
     other device raises.  There is no fallback from a kernel to its plain
     version."""
-    if x3.device.type == "cuda":
-        return kernel(*args)
-    if x3.device.type == "cpu":
+    if x3.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the chain runs on CUDA or CPU tensors, got "
+                         f"{x3.device}")
+    with tracing.span("sdsp.chain.launch"):
+        if x3.device.type == "cuda":
+            return kernel(*args)
         return reference(*args)
-    raise ValueError(f"the chain runs on CUDA or CPU tensors, got "
-                     f"{x3.device}")
 
 
 def chain_frames(x3: torch.Tensor, s3: torch.Tensor, tables: ChainTables
@@ -591,43 +596,47 @@ def chain_prepass(ops: FusedNorthStarOperators, x: torch.Tensor,
     Returns (x3 (C F, n1, n2) frames, s3 (C F, D, n1) D-major sub-block
     starts, s_final (C, D)).
     """
-    n1, n2, N = ops.n1, ops.n2, ops.fft_size
-    if x.ndim == 4:
-        c, nf = x.shape[:2]
-    else:
-        c, t = x.shape
-        nf = t // N
-    D = ops.state_dim
-    f_total = c * nf
-    xsub = x.reshape(c, nf, n1, n2)
-    x_flat = xsub.reshape(f_total, N)
-    projection = projection or "two_step"
-    with ieee_fp32():
-        if projection == "two_step":
-            kb = x_flat.reshape(f_total * n1, n2) @ ops.KT       # (F n1, D)
-            big = kb.reshape(f_total, n1 * D) @ ops.TO
-        elif projection == "dense":
-            big = x_flat @ ops.TKt                          # (F, (n1 + 1) D)
+    with tracing.span("sdsp.chain.prepass"):
+        n1, n2, N = ops.n1, ops.n2, ops.fft_size
+        if x.ndim == 4:
+            c, nf = x.shape[:2]
         else:
-            raise ValueError(f"unknown projection {projection!r}")
-        kxs = big[:, : n1 * D]                         # starts, input part
-        k_frame = big[:, n1 * D:].reshape(c, nf, D)
+            c, t = x.shape
+            nf = t // N
+        D = ops.state_dim
+        f_total = c * nf
+        xsub = x.reshape(c, nf, n1, n2)
+        x_flat = xsub.reshape(f_total, N)
+        projection = projection or "two_step"
+        with ieee_fp32():
+            if projection == "two_step":
+                kb = x_flat.reshape(f_total * n1, n2) @ ops.KT   # (F n1, D)
+                big = kb.reshape(f_total, n1 * D) @ ops.TO
+            elif projection == "dense":
+                big = x_flat @ ops.TKt                  # (F, (n1 + 1) D)
+            else:
+                raise ValueError(f"unknown projection {projection!r}")
+            kxs = big[:, : n1 * D]                         # starts, input part
+            k_frame = big[:, n1 * D:].reshape(c, nf, D)
 
-        # Frame-level state chain: two-level block-Toeplitz prefix.
-        tabs = ops.frame_prefix_tables(nf)
-        L_, W_, vc_last = _frame_prefix_start(tabs, k_frame.transpose(0, 1))
-        s_in = s0
-        if group is not None:
-            # vc_last is this shard's input-driven final state.
-            s_in, s_glob = _shard_states(group, shard_powers, s0, vc_last)
-        s_after = _frame_prefix_finish(tabs, L_, W_, s_in, nf)
-        s_fin = s_after[:, -1] if group is None else s_glob
-        s_frames = torch.cat([s_in[:, None], s_after[:, :-1]], dim=1)
+            # Frame-level state chain: two-level block-Toeplitz prefix.
+            tabs = ops.frame_prefix_tables(nf)
+            L_, W_, vc_last = _frame_prefix_start(tabs,
+                                                  k_frame.transpose(0, 1))
+            s_in = s0
+            if group is not None:
+                # vc_last is this shard's input-driven final state.
+                s_in, s_glob = _shard_states(group, shard_powers, s0,
+                                             vc_last)
+            s_after = _frame_prefix_finish(tabs, L_, W_, s_in, nf)
+            s_fin = s_after[:, -1] if group is None else s_glob
+            s_frames = torch.cat([s_in[:, None], s_after[:, :-1]], dim=1)
 
-        # Sub-block starts: state part + input part, D-major, so the
-        # (F, n1 D) -> (F, D, n1) view is free.
-        starts = s_frames.reshape(f_total, D) @ ops.FpT + kxs
-    return xsub.reshape(f_total, n1, n2), starts.reshape(f_total, D, n1), s_fin
+            # Sub-block starts: state part + input part, D-major, so the
+            # (F, n1 D) -> (F, D, n1) view is free.
+            starts = s_frames.reshape(f_total, D) @ ops.FpT + kxs
+        return (xsub.reshape(f_total, n1, n2),
+                starts.reshape(f_total, D, n1), s_fin)
 
 
 def _shard_states(group, shard_powers, s0: torch.Tensor,
@@ -638,7 +647,8 @@ def _shard_states(group, shard_powers, s0: torch.Tensor,
         raise ValueError("group requires shard_powers")
     from simpledsp_tpu_torch.parallel.iir import shard_states
     apow = torch.as_tensor(shard_powers, dtype=s0.dtype, device=s0.device)
-    return shard_states(group, apow, s0, k_shard)
+    with tracing.span("sdsp.sharded_chain.exchange"):
+        return shard_states(group, apow, s0, k_shard)
 
 
 def resolve_layout(n1: int) -> str:

@@ -47,6 +47,7 @@ from simpledsp_tpu_torch.kernels import chain as _chain
 from simpledsp_tpu_torch.kernels.chain import ChainTables
 from simpledsp_tpu_torch.kernels.fft import _kernel_tables
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["chain_frames_grouped", "chain_frames_regs",
            "chain_frames_regs_reference", "chain_frames_store",
@@ -242,8 +243,10 @@ class _RegsKernel:
     block as split-bf16 products on the tensor cores); ``launches`` counts
     its launches."""
 
+    launches = tracing.Launches()
+
     def __init__(self):
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter("chain_regs")
 
     def library(self) -> ctypes.CDLL:
         return _tc_library()
@@ -284,8 +287,10 @@ class _GroupedKernel:
     the caller's g frames a block; ``launches`` counts its launches and
     ``last_g`` holds the frames a block of the last launch."""
 
+    launches = tracing.Launches()
+
     def __init__(self):
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter("chain_grouped")
         self.last_g = None
 
     def library(self) -> ctypes.CDLL:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from simpledsp_tpu_torch.kernels import _build
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["conv2d_fused_supported", "conv2d_valid_fused",
            "conv2d_valid_reference", "conv2d_kernel"]
@@ -66,8 +67,10 @@ class _Conv2dKernel:
     """The CUDA direct conv2d kernel: built from ``csrc/conv2d.cu`` at first
     launch; ``launches`` counts its launches."""
 
+    launches = tracing.Launches()
+
     def __init__(self):
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter("conv2d")
 
     def library(self) -> ctypes.CDLL:
         return _library()

@@ -33,6 +33,7 @@ import torch
 from simpledsp_tpu_torch.kernels import _build
 from simpledsp_tpu_torch.ops.fft import _dft_mats_f64, _twiddle_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["fft_split_supported", "pallas_fft_supported",
            "fft_frames_reference", "fft_frames_ri", "rfft_frames",
@@ -212,8 +213,10 @@ class _FFTFramesKernel:
     """The CUDA frames FFT kernel: built from ``csrc/fft.cu`` at first
     launch; ``launches`` counts its launches."""
 
+    launches = tracing.Launches()
+
     def __init__(self):
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter("fft_frames")
 
     def library(self) -> ctypes.CDLL:
         return _library()

@@ -42,6 +42,7 @@ from simpledsp_tpu_torch.kernels.fft import (_best_split, _kernel_table_f64,
                                              _plan)
 from simpledsp_tpu_torch.ops.fft import _dft_mats_f64, _twiddle_f64
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["OLSTables", "ols_supported", "ols_tables", "conv_ols_frames",
            "conv_ols_frames_reference", "convolve_ols_fused", "ols_kernel"]
@@ -174,8 +175,10 @@ class _OLSKernel:
     """The CUDA overlap-save kernel: built from ``csrc/ols.cu`` at first
     launch; ``launches`` counts its launches."""
 
+    launches = tracing.Launches()
+
     def __init__(self):
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter("ols")
 
     def library(self) -> ctypes.CDLL:
         return _library()

@@ -52,6 +52,7 @@ import torch
 
 from simpledsp_tpu_torch.kernels import _build
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["PFBOperators", "PFBTables", "decimator_phase_index",
            "fft_order", "fft_twiddles_f64", "flat_pad_to", "kernel_supports",
@@ -365,9 +366,11 @@ class _PFBKernel:
     output frames per block (default: chosen from the shared memory a
     block needs); outputs do not depend on it, bit for bit."""
 
+    launches = tracing.Launches()
+
     def __init__(self, layout: str):
         self.layout = layout
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter(f"pfb_{layout}")
 
     def library(self) -> ctypes.CDLL:
         return _library()
@@ -464,48 +467,51 @@ def _run(layout: str, mode: str, ops: PFBOperators, xr, xi, prev=None, *,
          decim: int = 1, ahist=None, emit_sum: bool = False):
     """Check the arguments, then run the kernel on CUDA tensors or its
     plain version on CPU tensors."""
-    m, k = ops.m, ops.k
-    b = xr.shape[0]
-    if layout == "flat":
-        w = xr.shape[1]
-        if g is None:
-            g = (w - _flat_halo(ops)) // m
-        have = w // m
-    else:
-        if xr.shape[1] != m:
-            raise ValueError(f"input has {xr.shape[1]} rows, operators "
-                             f"expect {m}")
-        have = xr.shape[2]
-        if g is None:
-            g = have - (k - 1)
-    if g < 1 or have < g + k - 1:
-        raise ValueError(f"g={g} output frames need {g + k - 1} input frames "
-                         f"of {m} samples; the input has {have}")
-    if xi.shape != xr.shape:
-        raise ValueError(f"re/im planes differ: {tuple(xr.shape)} and "
-                         f"{tuple(xi.shape)}")
-    dtaps = None
-    if dec_taps is not None:
-        if g % decim:
-            raise ValueError(f"g={g} not a multiple of decim={decim}")
-        dtaps = torch.as_tensor(dec_taps, device=xr.device)
-        if dtaps.dtype == torch.float64 and xr.dtype != torch.float64:
-            dtaps = dtaps.to(xr.dtype)
-        if ahist is None or ahist.shape != (b, m, dtaps.numel() - 1):
-            raise ValueError(f"ahist must be (B, M, kd - 1) = "
-                             f"{(b, m, dtaps.numel() - 1)}")
-    prev_r, prev_i = prev if prev is not None else (None, None)
-    kw = dict(gain=gain, g=g, decim=decim, emit_sum=emit_sum)
-    tables = ops.tables(xr.device)
-    if xr.device.type == "cuda":
-        kernel = pfb_flat_kernel if layout == "flat" else pfb_frames_kernel
-        return kernel(mode, tables, xr, xi, prev_r, prev_i, ahist, dtaps,
-                      tile=None, **kw)
-    if xr.device.type == "cpu":
-        ref = pfb_flat_reference if layout == "flat" else pfb_frames_reference
-        return ref(mode, tables, xr, xi, prev_r, prev_i, ahist, dtaps, **kw)
-    raise ValueError(f"the PFB kernels run on CUDA or CPU tensors, got "
-                     f"{xr.device}")
+    with tracing.span("sdsp.pfb.launch"):
+        m, k = ops.m, ops.k
+        b = xr.shape[0]
+        if layout == "flat":
+            w = xr.shape[1]
+            if g is None:
+                g = (w - _flat_halo(ops)) // m
+            have = w // m
+        else:
+            if xr.shape[1] != m:
+                raise ValueError(f"input has {xr.shape[1]} rows, operators "
+                                 f"expect {m}")
+            have = xr.shape[2]
+            if g is None:
+                g = have - (k - 1)
+        if g < 1 or have < g + k - 1:
+            raise ValueError(f"g={g} output frames need {g + k - 1} input "
+                             f"frames of {m} samples; the input has {have}")
+        if xi.shape != xr.shape:
+            raise ValueError(f"re/im planes differ: {tuple(xr.shape)} and "
+                             f"{tuple(xi.shape)}")
+        dtaps = None
+        if dec_taps is not None:
+            if g % decim:
+                raise ValueError(f"g={g} not a multiple of decim={decim}")
+            dtaps = torch.as_tensor(dec_taps, device=xr.device)
+            if dtaps.dtype == torch.float64 and xr.dtype != torch.float64:
+                dtaps = dtaps.to(xr.dtype)
+            if ahist is None or ahist.shape != (b, m, dtaps.numel() - 1):
+                raise ValueError(f"ahist must be (B, M, kd - 1) = "
+                                 f"{(b, m, dtaps.numel() - 1)}")
+        prev_r, prev_i = prev if prev is not None else (None, None)
+        kw = dict(gain=gain, g=g, decim=decim, emit_sum=emit_sum)
+        tables = ops.tables(xr.device)
+        if xr.device.type == "cuda":
+            kernel = pfb_flat_kernel if layout == "flat" else pfb_frames_kernel
+            return kernel(mode, tables, xr, xi, prev_r, prev_i, ahist, dtaps,
+                          tile=None, **kw)
+        if xr.device.type == "cpu":
+            ref = (pfb_flat_reference if layout == "flat"
+                   else pfb_frames_reference)
+            return ref(mode, tables, xr, xi, prev_r, prev_i, ahist, dtaps,
+                       **kw)
+        raise ValueError(f"the PFB kernels run on CUDA or CPU tensors, got "
+                         f"{xr.device}")
 
 
 def pfb_fm_flat(ops: PFBOperators, xpr, xpi, prev_r, prev_i, *,

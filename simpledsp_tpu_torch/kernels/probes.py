@@ -34,6 +34,7 @@ import torch
 
 from simpledsp_tpu_torch.kernels import _build
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["scale_reference", "permute_reference", "contract_reference",
            "row_sum_reference", "scale_copy", "permute", "contract", "row_sum",
@@ -127,9 +128,11 @@ class _ProbeKernel:
     """One kernel of ``csrc/probes.cu``, built at first launch;
     ``launches`` counts its launches."""
 
+    launches = tracing.Launches()
+
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
+        self.launch_counter = tracing.kernel_counter(name)
 
     def library(self) -> ctypes.CDLL:
         return _library()

@@ -38,6 +38,7 @@ from simpledsp_tpu_torch.device import resolve_device, resolve_use_kernel
 from simpledsp_tpu_torch.kernels import chain as _kchain
 from simpledsp_tpu_torch.ops.fft import pack_rfft_ri, rfft_ri
 from simpledsp_tpu_torch.ops.iir import BlockIIR, IIRState, iir_init
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["default_design", "NorthStarChain", "ShardedNorthStarChain"]
 
@@ -110,35 +111,41 @@ class NorthStarChain(nn.Module):
 
     def forward(self, x: torch.Tensor, state: Optional[IIRState] = None
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], IIRState]:
-        if x.ndim == 4:
-            if self.ops is None:
+        with tracing.span("sdsp.chain.forward"):
+            if x.ndim == 4:
+                if self.ops is None:
+                    raise ValueError(
+                        "pre-framed (C, F, n1, n2) input requires the "
+                        "fused kernel path (use_kernel=True); pass flat "
+                        "(C, T) input")
+                c = x.shape[0]
+                t = x.shape[1] * self.fft_size
+            else:
+                c, t = x.shape
+            if t % self.fft_size or t % self.iir.block_size:
                 raise ValueError(
-                    "pre-framed (C, F, n1, n2) input requires the fused "
-                    "kernel path (use_kernel=True); pass flat (C, T) input")
-            c = x.shape[0]
-            t = x.shape[1] * self.fft_size
-        else:
-            c, t = x.shape
-        if t % self.fft_size or t % self.iir.block_size:
-            raise ValueError(
-                f"T={t} must be a multiple of fft_size={self.fft_size} "
-                f"and block_size={self.iir.block_size}")
-        m = self.design.nsections
-        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        if state is None:
-            state = iir_init(m, (c,), dtype=self.dtype, device=self.device)
-        s0 = state.y_hist.to(dtype=self.dtype, device=self.device).reshape(c, -1)
-        if self.ops is not None:
-            (sr, si), s_fin = _kchain.fused_chain_frames(
-                self.ops, x, s0, half_spectrum=True, projection=self.projection)
-            # (C, F, N/2 / n1, n1) planes flatten to natural bin order.
-            sr = sr.reshape(c, -1, self.fft_size // 2)
-            si = si.reshape(c, -1, self.fft_size // 2)
-        else:
-            y, s_fin = self.iir.run_blocks(
-                x.reshape(c, -1, self.iir.block_size), s0)
-            sr, si = pack_rfft_ri(*rfft_ri(y.reshape(c, -1, self.fft_size)))
-        return (sr, si), IIRState(s_fin.reshape(c, m + 1, 2))
+                    f"T={t} must be a multiple of fft_size={self.fft_size} "
+                    f"and block_size={self.iir.block_size}")
+            m = self.design.nsections
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+            if state is None:
+                state = iir_init(m, (c,), dtype=self.dtype,
+                                 device=self.device)
+            s0 = state.y_hist.to(dtype=self.dtype,
+                                 device=self.device).reshape(c, -1)
+            if self.ops is not None:
+                (sr, si), s_fin = _kchain.fused_chain_frames(
+                    self.ops, x, s0, half_spectrum=True,
+                    projection=self.projection)
+                # (C, F, N/2 / n1, n1) planes flatten to natural bin order.
+                sr = sr.reshape(c, -1, self.fft_size // 2)
+                si = si.reshape(c, -1, self.fft_size // 2)
+            else:
+                y, s_fin = self.iir.run_blocks(
+                    x.reshape(c, -1, self.iir.block_size), s0)
+                sr, si = pack_rfft_ri(
+                    *rfft_ri(y.reshape(c, -1, self.fft_size)))
+            return (sr, si), IIRState(s_fin.reshape(c, m + 1, 2))
 
     def frame_input(self, x_host: np.ndarray) -> torch.Tensor:
         """Upload a host (C, T) sample block to the chain's device, in the
@@ -215,33 +222,37 @@ class ShardedNorthStarChain(nn.Module):
         from simpledsp_tpu_torch.parallel import mesh as _mesh
         from simpledsp_tpu_torch.parallel.mesh import (ROWS, SEQ_AXIS,
                                                        SHARDED, SHARDED_FRAMES)
-        c, t = x.shape
-        t_local = t // self.iir.n_seq
-        if (t_local * self.iir.n_seq != t or t_local % self.fft_size
-                or t_local % self.iir.block_size):
-            raise ValueError(
-                f"local shard length must be a multiple of fft_size="
-                f"{self.fft_size} and block_size={self.iir.block_size}")
-        m = self.design.nsections
-        if state is None:
-            state = iir_init(m, (c,), dtype=self.dtype)
-        xl = _mesh.local_part(self.mesh, x, SHARDED, self.dtype)
-        cl = xl.shape[0]
-        s0 = _mesh.local_part(self.mesh, state.y_hist, ROWS,
-                              self.dtype).reshape(cl, -1)
-        half = self.fft_size // 2
-        if self.ops is not None:
-            nf_local = t_local // self.fft_size
-            (sr, si), s_fin = _kchain.fused_chain_frames(
-                self.ops, xl, s0, half_spectrum=True,
-                group=self.mesh.get_group(SEQ_AXIS),
-                shard_powers=self._shard_powers(nf_local))
-            sr, si = sr.reshape(cl, -1, half), si.reshape(cl, -1, half)
-        else:
-            apow = self.iir._apow(t_local // self.iir.block_size)
-            y, s_fin = self.iir._local(apow, xl, s0)
-            sr, si = pack_rfft_ri(*rfft_ri(y.reshape(cl, -1, self.fft_size)))
-        return ((_mesh.from_local(self.mesh, sr, SHARDED_FRAMES),
-                 _mesh.from_local(self.mesh, si, SHARDED_FRAMES)),
-                IIRState(_mesh.from_local(
-                    self.mesh, s_fin.reshape(cl, m + 1, 2), ROWS)))
+        with tracing.span("sdsp.sharded_chain.forward"):
+            c, t = x.shape
+            t_local = t // self.iir.n_seq
+            if (t_local * self.iir.n_seq != t or t_local % self.fft_size
+                    or t_local % self.iir.block_size):
+                raise ValueError(
+                    f"local shard length must be a multiple of fft_size="
+                    f"{self.fft_size} and block_size={self.iir.block_size}")
+            m = self.design.nsections
+            if state is None:
+                state = iir_init(m, (c,), dtype=self.dtype)
+            with tracing.span("sdsp.sharded_chain.wrap"):
+                xl = _mesh.local_part(self.mesh, x, SHARDED, self.dtype)
+                cl = xl.shape[0]
+                s0 = _mesh.local_part(self.mesh, state.y_hist, ROWS,
+                                      self.dtype).reshape(cl, -1)
+            half = self.fft_size // 2
+            if self.ops is not None:
+                nf_local = t_local // self.fft_size
+                (sr, si), s_fin = _kchain.fused_chain_frames(
+                    self.ops, xl, s0, half_spectrum=True,
+                    group=self.mesh.get_group(SEQ_AXIS),
+                    shard_powers=self._shard_powers(nf_local))
+                sr, si = sr.reshape(cl, -1, half), si.reshape(cl, -1, half)
+            else:
+                apow = self.iir._apow(t_local // self.iir.block_size)
+                y, s_fin = self.iir._local(apow, xl, s0)
+                sr, si = pack_rfft_ri(
+                    *rfft_ri(y.reshape(cl, -1, self.fft_size)))
+            with tracing.span("sdsp.sharded_chain.unwrap"):
+                return ((_mesh.from_local(self.mesh, sr, SHARDED_FRAMES),
+                         _mesh.from_local(self.mesh, si, SHARDED_FRAMES)),
+                        IIRState(_mesh.from_local(
+                            self.mesh, s_fin.reshape(cl, m + 1, 2), ROWS)))

@@ -32,6 +32,7 @@ from simpledsp_tpu_torch.kernels import pfb as _pfb
 from simpledsp_tpu_torch.ops.channelizer import ChanStateRI, PFBChannelizer
 from simpledsp_tpu_torch.ops.demod import DemodStateRI, am_demod_ri, fm_demod_ri
 from simpledsp_tpu_torch.ops.fir import FIRState, PolyphaseDecimator, fir_init
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["SDRState", "FMReceiverBank", "AMReceiverBank"]
 
@@ -135,17 +136,25 @@ class FMReceiverBank(nn.Module):
     # -- fused path --------------------------------------------------------
     def _flat_prefix(self, xr, xi, state: SDRState, g: int):
         """[hist | x | zero pad] planes of width ``flat_pad_to(ops, g)``
-        and the new channelizer state (the last L-1 samples of [hist | x])."""
-        h = self.chan.hist_len
-        w = _pfb.flat_pad_to(self.chan.kernel_ops, g)
-        pad = max(0, w - h - xr.shape[-1])
-        planes = []
-        for hist, x in ((state.chan.hist_r, xr), (state.chan.hist_i, xi)):
-            z = torch.zeros(x.shape[:-1] + (pad,), dtype=x.dtype,
-                            device=x.device)
-            planes.append(torch.cat([hist.to(x.dtype), x, z], -1))
-        end = h + xr.shape[-1]
-        chan_state = ChanStateRI(*(p[:, end - h:end].clone() for p in planes))
+        and the new channelizer state (the last L-1 samples of [hist | x]).
+        Counts the bytes its copies move in ``bank.prefix_bytes``."""
+        with tracing.span("sdsp.bank.prefix"):
+            h = self.chan.hist_len
+            w = _pfb.flat_pad_to(self.chan.kernel_ops, g)
+            pad = max(0, w - h - xr.shape[-1])
+            planes = []
+            for hist, x in ((state.chan.hist_r, xr), (state.chan.hist_i, xi)):
+                z = torch.zeros(x.shape[:-1] + (pad,), dtype=x.dtype,
+                                device=x.device)
+                planes.append(torch.cat([hist.to(x.dtype), x, z], -1))
+            end = h + xr.shape[-1]
+            chan_state = ChanStateRI(*(p[:, end - h:end].clone()
+                                       for p in planes))
+            # A plane's row: the pad's zeros written, [hist | x | pad] read
+            # and written by the cat, the new history read and written.
+            row = pad + 2 * planes[0].shape[-1] + 2 * h
+            tracing.count("bank.prefix_bytes",
+                          2 * xr.shape[0] * row * xr.element_size())
         return planes[0], planes[1], chan_state
 
     def _fused_call(self, xpr, xpi, chan_state, state: SDRState, g: int):
@@ -223,24 +232,27 @@ class FMReceiverBank(nn.Module):
 
     def forward(self, x, state: Optional[SDRState] = None
                 ) -> Tuple[torch.Tensor, SDRState]:
-        kw = dict(dtype=self.dtype, device=self.device)
-        if isinstance(x, (tuple, list)):
-            xr, xi = (torch.as_tensor(v, **kw) for v in x)
-        elif isinstance(x, np.ndarray) and np.iscomplexobj(x):
-            xr = torch.as_tensor(x.real, **kw)
-            xi = torch.as_tensor(x.imag, **kw)
-        elif torch.is_tensor(x) and x.is_complex():
-            xr, xi = x.real.to(**kw), x.imag.to(**kw)
-        else:
-            xr = torch.as_tensor(x, **kw)
-            xi = torch.zeros_like(xr)
-        b, t = xr.shape
-        if t % (self.m * self.decim) != 0:
-            raise ValueError(
-                f"T={t} must be a multiple of M*decim={self.m * self.decim}")
-        if state is None:
-            state = self.init_state(b)
-        return self._forward(xr, xi, state)
+        with tracing.span("sdsp.bank.forward"):
+            tracing.count("bank.calls")
+            kw = dict(dtype=self.dtype, device=self.device)
+            if isinstance(x, (tuple, list)):
+                xr, xi = (torch.as_tensor(v, **kw) for v in x)
+            elif isinstance(x, np.ndarray) and np.iscomplexobj(x):
+                xr = torch.as_tensor(x.real, **kw)
+                xi = torch.as_tensor(x.imag, **kw)
+            elif torch.is_tensor(x) and x.is_complex():
+                xr, xi = x.real.to(**kw), x.imag.to(**kw)
+            else:
+                xr = torch.as_tensor(x, **kw)
+                xi = torch.zeros_like(xr)
+            b, t = xr.shape
+            if t % (self.m * self.decim) != 0:
+                raise ValueError(
+                    f"T={t} must be a multiple of M*decim="
+                    f"{self.m * self.decim}")
+            if state is None:
+                state = self.init_state(b)
+            return self._forward(xr, xi, state)
 
 
 class AMReceiverBank(FMReceiverBank):

@@ -1,2 +1,2 @@
 """Host-side helpers: integer math, golden fixtures, host transfers,
-checkpoints, timing and numerical checks."""
+checkpoints, timing, tracing and numerical checks."""

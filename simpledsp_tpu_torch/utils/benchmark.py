@@ -93,7 +93,13 @@ def trace(dirname: Optional[str] = None):
     """``torch.profiler`` over the body (the CPU, and CUDA where there is
     a card), written as a Chrome trace ``trace-<ns>.json`` into ``dirname``
     (default: ``simpledsp_tpu_torch_trace`` in the temporary directory);
-    view it in Perfetto or ``chrome://tracing``.  Yields ``dirname``."""
+    view it in Perfetto or ``chrome://tracing``.  Yields ``dirname``.
+
+    The profiler turns the port's spans on (``utils/tracing.py``), so the
+    trace also shows each ``sdsp.*`` layer range (the chain's and the
+    bank's entry, prepass, copies and kernel launches, the sharded chain's
+    wraps and exchange) on the host's timeline above the kernels it
+    launched."""
     dirname = dirname or os.path.join(tempfile.gettempdir(),
                                       "simpledsp_tpu_torch_trace")
     os.makedirs(dirname, exist_ok=True)

@@ -56,6 +56,7 @@ WORKER = textwrap.dedent('''
                                                       default_design)
     from simpledsp_tpu_torch.models.sdr import AMReceiverBank, FMReceiverBank
     from simpledsp_tpu_torch.parallel.mesh import ROWS
+    from simpledsp_tpu_torch.utils import tracing
     from torch.distributed.tensor import Replicate, Shard
     mesh = P.make_mesh(dp=dp, device="cpu")
     I = dict(np.load(inputs))
@@ -251,9 +252,14 @@ WORKER = textwrap.dedent('''
                                             use_kernel=use_kernel)
             if not streaming:
                 x = t("chain")
+                tracing.enable()
                 (br, bi), s_b = sharded(x)
+                spans = sorted({{s["name"]
+                                 for s in tracing.snapshot()["spans"]}})
+                tracing.disable()
+                tracing.reset()
                 return {{"re": full(br), "im": full(bi),
-                         "s": full(s_b.y_hist)}}
+                         "s": full(s_b.y_hist), "spans": np.array(spans)}}
             x = t("chain_stream")
             (ar, _), _ = sharded(x)
             (br, _), s = sharded(x[:, :4 * 16384])
@@ -749,6 +755,20 @@ def test_sharded_chain_streaming(run24, jmesh24, use_kernel):
     sharded._interpret = use_kernel
     (ar, _), _ = sharded(jnp.asarray(run24.inputs["chain_stream"]))
     close(run24[case, "whole"], ar, 1e-10)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_sharded_chain_records_its_spans(run24, use_kernel):
+    """A rank's spans of one call with tracing on: the entry, the wraps and
+    the unwraps on both paths; the fused path's prepass, kernel and the
+    shard states' exchange besides."""
+    case = "fused_serial" if use_kernel else "chain_serial"
+    want = {"sdsp.sharded_chain.forward", "sdsp.sharded_chain.wrap",
+            "sdsp.sharded_chain.unwrap"}
+    if use_kernel:
+        want |= {"sdsp.sharded_chain.exchange", "sdsp.chain.prepass",
+                 "sdsp.chain.launch"}
+    assert set(run24[case, "spans"].tolist()) == want
 
 
 # -- in-process: tables, a group of one, the dry run -------------------------
