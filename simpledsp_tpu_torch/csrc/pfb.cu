@@ -11,7 +11,10 @@
 //                                    pfb_channelize_frames)
 // The two layouts differ only in how a block reads its input.  Stream b's
 // frame f, sample m (0 <= m < M) is
-//   flat   x[b * ld + f * M + m]     (the history-prefixed (B, W) plane)
+//   flat   element j = f * M + m of the stream [hist | x]: hist[b * ld_h + j]
+//          below h, else x[b * ld + j - h]  (the carried history's (B, h)
+//          planes and the call's (B, T) planes, each with its own row
+//          stride: no prefixed copy of the stream exists)
 //   frames x[b * ld + m * ld_m + f]  (channel-major (B, M, nfr) planes)
 //
 // Per output frame n and channel c, with taps_t[m, j] = h[j M + M-1-m] (the
@@ -47,7 +50,9 @@
 //   input    the tile goes to shared memory by cp.async, 16 bytes a copy
 //            where the address allows, the next round's frames in flight
 //            while the current round computes (flat layout; the frames
-//            layout keeps its transposing reader);
+//            layout keeps its transposing reader); the part of a tile that
+//            lies in the history (the first tile's first h elements at
+//            most) comes by 4-byte copies from hist, the rest from x;
 //   FIR      a thread runs R consecutive frames of P branches (P = M / 32
 //            above M = 32, else 1; R = 9, 4, 2): each tap brings one input
 //            sample into a sliding register window, 3 loads for 2 R FMAs;
@@ -89,6 +94,10 @@ struct Params {
   const float* xi;
   long long ld;          // elements between streams
   long long ld_m;        // frames layout: elements between rows m
+  const float* hist_r;   // flat layout: the history, (B, h) at row stride ld_h
+  const float* hist_i;
+  long long ld_h;
+  int h;
   const float* fir_taps; // (K, M): [j][e], the taps of the row FFT input e reads
   const int* order;      // (2, M): [0][e] that row, [1][e] the channel output e holds
   const float2* tw;      // (log2 M, M): twiddle of FFT stage s at position e
@@ -411,15 +420,18 @@ pfb_kernel(const Params p) {
   const long long row = static_cast<long long>(b) * M;  // (b, c = 0)
   const int tid = threadIdx.x, lane = tid & 31;
 
-  // The tile's element e (frame a0 + e / M) at xs[e]; a plane's origin is
-  // shifted so that xs + e and its device address agree mod 16 bytes.
+  // The tile's element e (frame a0 + e / M) at xs[e].  Flat: it is stream
+  // element gbase + e, from the history below h and from x at xo + e past
+  // it; a plane's origin is shifted so that xs + e and x's address of e
+  // agree mod 16 bytes (the history's elements go by 4-byte copies).
   const long long gbase = static_cast<long long>(a0) * M;
+  const long long xo = kFlat ? gbase - p.h : 0;
   const float* gr = p.xr + b * p.ld;
   const float* gi = p.xi + b * p.ld;
   const int sr = kFlat ? static_cast<int>(
-      ((reinterpret_cast<uintptr_t>(gr) >> 2) + gbase) & 3) : 0;
+      ((reinterpret_cast<uintptr_t>(gr) >> 2) + xo) & 3) : 0;
   const int si = kFlat ? static_cast<int>(
-      ((reinterpret_cast<uintptr_t>(gi) >> 2) + gbase) & 3) : 0;
+      ((reinterpret_cast<uintptr_t>(gi) >> 2) + xo) & 3) : 0;
   float* xs_r = smem + lay.front + sr;
   float* xs_i = smem + lay.x_plane + lay.front + si;
   float* ds = smem + 2 * lay.x_plane;          // d, [c][k]
@@ -433,13 +445,27 @@ pfb_kernel(const Params p) {
   // Round rd computes frames [i0 + rd F, i0 + (rd + 1) F) and reads input
   // frames below chunk_end(rd).
   auto chunk_end = [&](int rd) { return min(nx, i0 + (rd + 1) * F + K - 1); };
+  // Tile elements [lo M, hi M) from x (past the history's end).
   auto copy_chunk = [&](int lo, int hi) {
-    const long long o = gbase;   // src + e is element e of the tile, e >= i0 M
-    copy_range(xs_r, gr + o, lo * M, hi * M);
-    copy_range(xs_i, gi + o, lo * M, hi * M);
+    copy_range(xs_r, gr + xo, lo * M, hi * M);
+    copy_range(xs_i, gi + xo, lo * M, hi * M);
   };
   if (kFlat) {
-    copy_chunk(i0, chunk_end(0));
+    // The first chunk holds every element the tile takes from the history
+    // (e >= i0 M, so stream elements >= 0): those below the tile's element
+    // h - gbase, which lies before the chunk's end unless the chunk is the
+    // whole tile (the chunk spans F + K - 1 frames, F >= 2, and h < K M).
+    // They go by 4-byte copies, the rest from x.
+    const int e0 = i0 * M, e1 = chunk_end(0) * M;
+    const int eh = -xo <= e0 ? e0 : -xo >= e1 ? e1 : static_cast<int>(-xo);
+    const float* hsr = p.hist_r + b * p.ld_h + gbase;
+    const float* hsi = p.hist_i + b * p.ld_h + gbase;
+    for (int e = e0 + tid; e < eh; e += kThreads) {
+      cp_async4(xs_r + e, hsr + e);
+      cp_async4(xs_i + e, hsi + e);
+    }
+    copy_range(xs_r, gr + xo, eh, e1);
+    copy_range(xs_i, gi + xo, eh, e1);
     cp_async_commit();
   } else {
     const int cnt = nx - i0;
@@ -627,11 +653,15 @@ extern "C" long long sdsp_pfb_smem_bytes(int mode, int M, int K, int kd,
 // Launch on `stream` of `device`; returns cudaGetLastError() after the
 // launches (0 when they were accepted), or cudaErrorInvalidValue for
 // arguments the kernel does not take.  Every pointer is device memory
-// holding contiguous float32 (int32 for order; see Params for the shapes);
-// pointers a mode does not use may be null.  layout: 0 flat, 1 frames.
-// `partials` holds B * M * ceil(g / 16) floats when emit_sum is set.
+// holding contiguous float32 (int32 for order; see Params for the shapes),
+// but for the input planes' rows: x at stride ld and, flat, the history
+// (h samples a stream) at stride ld_h; pointers a mode or layout does not
+// use may be null.  layout: 0 flat, 1 frames.  `partials` holds
+// B * M * ceil(g / 16) floats when emit_sum is set.
 extern "C" int sdsp_pfb_f32(int layout, int mode, const float* xr,
                             const float* xi, long long ld, long long ld_m,
+                            const float* hist_r, const float* hist_i,
+                            long long ld_h, int h,
                             const float* fir_taps, const int* order,
                             const float* tw, const float* dec_taps,
                             const float* prev_r, const float* prev_i,
@@ -644,7 +674,7 @@ extern "C" int sdsp_pfb_f32(int layout, int mode, const float* xr,
   const bool dec = is_dec(mode);
   if (layout < 0 || layout > 1 || mode < kFm || mode > kChan || B < 1 ||
       M < 1 || M > 128 || (M & (M - 1)) || K < 1 || K > 32 || g < 1 ||
-      gt < 1 ||
+      gt < 1 || h < 0 || (layout == 0 && h > 0 && (!hist_r || !hist_i)) ||
       (dec && (kd < 1 || decim < 1 || g % decim || gt % decim)) ||
       (emit_sum && (mode != kAmDec || gt % kSumChunk))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -652,7 +682,8 @@ extern "C" int sdsp_pfb_f32(int layout, int mode, const float* xr,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kd_ = dec ? kd : 1, decim_ = dec ? decim : 1;
-  Params p{xr, xi, ld, ld_m, fir_taps, order,
+  Params p{xr, xi, ld, ld_m, hist_r, hist_i, ld_h, layout == 0 ? h : 0,
+           fir_taps, order,
            reinterpret_cast<const float2*>(tw), dec_taps, prev_r, prev_i,
            ahist, out0, out1, prev_r_out, prev_i_out, ahist_out, partials,
            M, K, g, gt, kd_, decim_, mode, emit_sum, gain,

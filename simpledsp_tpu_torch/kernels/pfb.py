@@ -16,7 +16,13 @@ where frame f of a stream is its samples [f M, (f+1) M) of the
 history-prefixed input.  Two input layouts, as in the JAX package:
 
 - flat (``pfb_fm_flat``, ``pfb_am_flat``, what the receiver banks run):
-  the (B, W) history-prefixed planes;
+  the stream in two sources, the carried history's (B, h) planes and the
+  call's (B, T) planes that follow it, each read in place at its own row
+  stride (``hist=``); element j of the stream is ``hist[j]`` below h and
+  ``x[j - h]`` past it, and no prefixed plane is made.  Given (B, W)
+  history-prefixed planes instead (as the JAX package's callers pass
+  them), the entries take their first M K - 1 samples as the history and
+  the rest as x: views of the same buffer, the same launch;
 - frames (``pfb_fm_frames``, ``pfb_am_frames``, ``pfb_channelize_frames``):
   channel-major (B, M, nfr) planes (``PFBChannelizer.frames_t``).
 
@@ -251,10 +257,14 @@ def _reference(mode, tabs: PFBTables, fr, fi, prev_r, prev_i, ahist, dtaps,
 def pfb_flat_reference(mode: str, tables: PFBTables, xpr, xpi, prev_r=None,
                        prev_i=None, ahist=None, dec_taps=None, *,
                        gain: float = 1.0, g: int, decim: int = 1,
-                       emit_sum: bool = False):
+                       emit_sum: bool = False, hist=None):
     """Plain version of the flat-layout kernel: (B, W) planes, frame f =
-    samples [f M, (f+1) M).  Returns what the matching public entry
-    returns."""
+    samples [f M, (f+1) M); with ``hist`` = (hist_r, hist_i), (B, h)
+    planes that precede them, the stream [hist | x] joined here.  Returns
+    what the matching public entry returns."""
+    if hist is not None:
+        xpr = torch.cat([hist[0], xpr], -1)
+        xpi = torch.cat([hist[1], xpi], -1)
     b = xpr.shape[0]
     m, k = tables.taps_t.shape
     nfr = g + k - 1
@@ -282,8 +292,9 @@ def _library() -> ctypes.CDLL:
     """``csrc/pfb.cu`` built and loaded, its entry points typed."""
     lib = _build.load_library("sdsp_pfb", ("pfb.cu",))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sdsp_pfb_f32.argtypes = ([i32, i32, vp, vp, ctypes.c_longlong,
-                                  ctypes.c_longlong] + [vp] * 14 + [i32] * 8
+    ll = ctypes.c_longlong
+    lib.sdsp_pfb_f32.argtypes = ([i32, i32, vp, vp, ll, ll, vp, vp, ll, i32]
+                                 + [vp] * 14 + [i32] * 8
                                  + [ctypes.c_float, i32, vp])
     lib.sdsp_pfb_f32.restype = i32
     lib.sdsp_pfb_smem_bytes.argtypes = [i32] * 6
@@ -360,11 +371,29 @@ def _phase_taps(dtaps: torch.Tensor, decim: int) -> torch.Tensor:
     return seen[2][decim]
 
 
+def _row_stride(name: str, planes, b: int) -> int:
+    """The row stride of a flat operand's (re, im) planes, two (B, n)
+    float tensors of unit sample stride and one row stride; raises on any
+    other."""
+    re, im = planes
+    rs, js = re.stride(), im.stride()
+    if (len(rs) != 2 or re.shape != im.shape or re.shape[0] != b
+            or (re.shape[1] > 1 and (rs[1] != 1 or js[1] != 1))
+            or (b > 1 and rs[0] != js[0])):
+        raise ValueError(f"{name}: expected two ({b}, n) planes of unit "
+                         f"sample stride and one row stride, got "
+                         f"{tuple(re.shape)} {rs} and {tuple(im.shape)} {js}")
+    return rs[0]
+
+
 class _PFBKernel:
     """The CUDA PFB kernel in one input layout, built from ``csrc/pfb.cu``
     at first launch.  ``launches`` counts its launches.  ``tile`` sets the
     output frames per block (default: chosen from the shared memory a
-    block needs); outputs do not depend on it, bit for bit."""
+    block needs); outputs do not depend on it, bit for bit.  Flat: ``hist``
+    = (hist_r, hist_i) are the (B, h) history planes that precede x; without
+    it x holds history-prefixed planes, split at M K - 1 into the same two
+    sources."""
 
     launches = tracing.Launches()
 
@@ -377,23 +406,40 @@ class _PFBKernel:
 
     def __call__(self, mode: str, tables: PFBTables, xr, xi, prev_r, prev_i,
                  ahist, dtaps, *, gain: float, g: int, decim: int,
-                 emit_sum: bool, tile: Optional[int]):
+                 emit_sum: bool, tile: Optional[int], hist=None):
         m, k = tables.taps_t.shape
         if not kernel_supports(m, k):
             raise ValueError(f"the CUDA PFB kernel takes M | 128 and K <= 32, "
                              f"got M={m}, K={k}")
-        b = xr.shape[0]
+        flat = self.layout == "flat"
+        b, h, x_at = xr.shape[0], 0, 0   # x starts x_at floats into xr, xi
+        if flat and hist is None:
+            # Prefixed planes: the history is their first M K - 1 samples
+            # and x the rest, both read from the one buffer.
+            h = x_at = min(m * k - 1, xr.shape[1])
+            hist = (xr, xi)
+        elif flat:
+            h = hist[0].shape[-1]
         dec = mode.endswith("_dec")
         kd = dtaps.numel() if dec else 1
-        frames = (xr.shape[1] // m if self.layout == "flat"
+        frames = ((h + xr.shape[-1] - x_at) // m if flat
                   else xr.shape[2] if xr.shape[1] == m else -1)
         if g < 1 or frames < g + k - 1 or (dec and g % decim):
+            got = (f"{h} + {xr.shape[-1] - x_at} samples a stream" if flat
+                   else tuple(xr.shape))
             raise ValueError(f"g={g} (decim={decim}) output frames need "
                              f"{g + k - 1} input frames of {m} samples; "
-                             f"got {tuple(xr.shape)}")
-        operands = {"xr": (xr, tuple(xr.shape)), "xi": (xi, tuple(xr.shape)),
-                    "fir_taps": (tables.fir_taps, (k, m)),
+                             f"got {got}")
+        operands = {"fir_taps": (tables.fir_taps, (k, m)),
                     "fft_tw": (tables.fft_tw, (m.bit_length() - 1, m, 2))}
+        if flat:   # planes read in place at their row strides
+            ld, ld_m = _row_stride("x", (xr, xi), b), 0
+            ld_h = ld if x_at else _row_stride("hist", hist, b)
+            operands.update(xr=(xr, None), xi=(xi, None),
+                            hist_r=(hist[0], None), hist_i=(hist[1], None))
+        else:
+            ld, ld_m, ld_h = m * xr.shape[2], xr.shape[2], 0
+            operands.update(xr=(xr, tuple(xr.shape)), xi=(xi, tuple(xr.shape)))
         if mode.startswith("fm"):
             operands["prev_r"] = (prev_r, (b, m, 1))
             operands["prev_i"] = (prev_i, (b, m, 1))
@@ -408,7 +454,8 @@ class _PFBKernel:
             if t.device != xr.device or t.dtype != torch.float32:
                 raise ValueError(f"{name}: the CUDA PFB kernel takes float32 "
                                  f"on {xr.device}, got {t.dtype} on {t.device}")
-            if tuple(t.shape) != shape or not t.is_contiguous():
+            if shape is not None and (tuple(t.shape) != shape
+                                      or not t.is_contiguous()):
                 raise ValueError(f"{name}: expected a contiguous {shape}, got "
                                  f"{tuple(t.shape)}")
         gt = _tile(mode, m, k, kd, decim, g, emit_sum, tile)
@@ -424,19 +471,17 @@ class _PFBKernel:
         ah_o = empty(b, m, kd - 1) if dec else None
         parts = empty(b, m, -(-g // _SUM_CHUNK)) if emit_sum else None
         esum = empty(b, m) if emit_sum else None
-        if self.layout == "flat":
-            ld, ld_m = xr.shape[1], 0
-        else:
-            ld, ld_m = m * xr.shape[2], xr.shape[2]
+        hist_r, hist_i = hist if h else (None, None)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
         fn = self.library().sdsp_pfb_f32
         stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = fn(int(self.layout == "frames"), _MODE_ID[mode], ptr(xr),
-                ptr(xi), ld, ld_m, ptr(tables.fir_taps), ptr(tables.order),
-                ptr(tables.fft_tw),
+        rc = fn(int(not flat), _MODE_ID[mode], ptr(xr) + 4 * x_at,
+                ptr(xi) + 4 * x_at, ld, ld_m,
+                ptr(hist_r), ptr(hist_i), ld_h, h, ptr(tables.fir_taps),
+                ptr(tables.order), ptr(tables.fft_tw),
                 ptr(_phase_taps(dtaps, decim) if dec else None),
                 ptr(prev_r), ptr(prev_i), ptr(ahist if dec else None),
                 ptr(out0), ptr(out1), ptr(pr_o), ptr(pi_o), ptr(ah_o),
@@ -464,13 +509,24 @@ pfb_frames_kernel = _PFBKernel("frames")
 
 def _run(layout: str, mode: str, ops: PFBOperators, xr, xi, prev=None, *,
          gain: float = 1.0, g: Optional[int] = None, dec_taps=None,
-         decim: int = 1, ahist=None, emit_sum: bool = False):
+         decim: int = 1, ahist=None, emit_sum: bool = False, hist=None):
     """Check the arguments, then run the kernel on CUDA tensors or its
     plain version on CPU tensors."""
     with tracing.span("sdsp.pfb.launch"):
         m, k = ops.m, ops.k
         b = xr.shape[0]
-        if layout == "flat":
+        kw = {}
+        if layout == "flat" and hist is not None:
+            w = xr.shape[-1]
+            if g is None:
+                g = w // m
+            have = (hist[0].shape[-1] + w) // m
+            if hist[1].shape != hist[0].shape:
+                raise ValueError(f"re/im history planes differ: "
+                                 f"{tuple(hist[0].shape)} and "
+                                 f"{tuple(hist[1].shape)}")
+            kw["hist"] = hist
+        elif layout == "flat":
             w = xr.shape[1]
             if g is None:
                 g = (w - _flat_halo(ops)) // m
@@ -499,7 +555,7 @@ def _run(layout: str, mode: str, ops: PFBOperators, xr, xi, prev=None, *,
                 raise ValueError(f"ahist must be (B, M, kd - 1) = "
                                  f"{(b, m, dtaps.numel() - 1)}")
         prev_r, prev_i = prev if prev is not None else (None, None)
-        kw = dict(gain=gain, g=g, decim=decim, emit_sum=emit_sum)
+        kw.update(gain=gain, g=g, decim=decim, emit_sum=emit_sum)
         tables = ops.tables(xr.device)
         if xr.device.type == "cuda":
             kernel = pfb_flat_kernel if layout == "flat" else pfb_frames_kernel
@@ -516,29 +572,32 @@ def _run(layout: str, mode: str, ops: PFBOperators, xr, xi, prev=None, *,
 
 def pfb_fm_flat(ops: PFBOperators, xpr, xpi, prev_r, prev_i, *,
                 gain: float = 1.0, g: Optional[int] = None, dec_taps=None,
-                decim: int = 1, ahist=None):
+                decim: int = 1, ahist=None, hist=None):
     """Flat-input channelize + FM discriminator (+ the fused decimator with
     dec_taps).  xpr/xpi: (B, W) history-prefixed planes, W >= (g + K - 1) M
-    (:func:`flat_pad_to`; default g = (W - halo) / M); prev_r/prev_i:
+    (:func:`flat_pad_to`; default g = (W - halo) / M), or with ``hist`` =
+    (hist_r, hist_i), the (B, h) history planes, the (B, T) samples that
+    follow it (default g = T / M), each read where it lies; prev_r/prev_i:
     (B, M, 1) phase carry.  Returns (disc (B, M, g), (prev_r, prev_i)), or
     with dec_taps (kd,) and ahist (B, M, kd - 1): (audio (B, M, g/decim),
     (prev_r, prev_i), ahist)."""
     mode = "fm" if dec_taps is None else "fm_dec"
     return _run("flat", mode, ops, xpr, xpi, (prev_r, prev_i), gain=gain, g=g,
-                dec_taps=dec_taps, decim=decim, ahist=ahist)
+                dec_taps=dec_taps, decim=decim, ahist=ahist, hist=hist)
 
 
 def pfb_am_flat(ops: PFBOperators, xpr, xpi, *, g: Optional[int] = None,
                 dec_taps=None, decim: int = 1, ahist=None,
-                emit_sum: bool = False):
+                emit_sum: bool = False, hist=None):
     """Flat-input channelize + AM envelope: env (B, M, g), or with dec_taps
     (audio, ahist), plus the per-call envelope sums (B, M) with emit_sum
-    (the banks' exact block-mean DC removal)."""
+    (the banks' exact block-mean DC removal).  The input as in
+    :func:`pfb_fm_flat`."""
     if emit_sum and dec_taps is None:
         raise ValueError("emit_sum needs the fused decimator (dec_taps)")
     mode = "am" if dec_taps is None else "am_dec"
     return _run("flat", mode, ops, xpr, xpi, g=g, dec_taps=dec_taps,
-                decim=decim, ahist=ahist, emit_sum=emit_sum)
+                decim=decim, ahist=ahist, emit_sum=emit_sum, hist=hist)
 
 
 def pfb_fm_frames(ops: PFBOperators, xtr, xti, prev_r, prev_i, *,

@@ -6,10 +6,11 @@ every stage streams with an explicit carried state (:class:`SDRState`).
 
 Two paths compute the same audio:
 
-- the fused path (``use_kernel=True``, the default on a CUDA device): the
-  history-prefixed planes go through one flat-layout PFB kernel
-  (``kernels/pfb.py``, built from ``csrc/pfb.cu``) that channelizes,
-  demodulates and decimates in one pass;
+- the fused path (``use_kernel=True``, the default on a CUDA device): one
+  flat-layout PFB kernel (``kernels/pfb.py``, built from ``csrc/pfb.cu``)
+  reads the carried history and the call's planes where they lie, with no
+  prefixed copy of the stream, and channelizes, demodulates and decimates
+  in one pass;
 - the composable path (``use_kernel=False``): ``PFBChannelizer.process_ri_cm``,
   then ``fm_demod_ri`` / ``am_demod_ri``, then ``PolyphaseDecimator``.
 
@@ -134,36 +135,32 @@ class FMReceiverBank(nn.Module):
             audio=fir_init(self.audio.hist_len, (batch, self.m), **kw))
 
     # -- fused path --------------------------------------------------------
-    def _flat_prefix(self, xr, xi, state: SDRState, g: int):
-        """[hist | x | zero pad] planes of width ``flat_pad_to(ops, g)``
-        and the new channelizer state (the last L-1 samples of [hist | x]).
+    def _next_history(self, xr, xi, state: SDRState) -> ChanStateRI:
+        """The new channelizer state, the last L-1 samples of [hist | x]: a
+        copy of x's tail, or for T < L-1 of the history's tail and x.
         Counts the bytes its copies move in ``bank.prefix_bytes``."""
         with tracing.span("sdsp.bank.prefix"):
-            h = self.chan.hist_len
-            w = _pfb.flat_pad_to(self.chan.kernel_ops, g)
-            pad = max(0, w - h - xr.shape[-1])
-            planes = []
-            for hist, x in ((state.chan.hist_r, xr), (state.chan.hist_i, xi)):
-                z = torch.zeros(x.shape[:-1] + (pad,), dtype=x.dtype,
-                                device=x.device)
-                planes.append(torch.cat([hist.to(x.dtype), x, z], -1))
-            end = h + xr.shape[-1]
-            chan_state = ChanStateRI(*(p[:, end - h:end].clone()
-                                       for p in planes))
-            # A plane's row: the pad's zeros written, [hist | x | pad] read
-            # and written by the cat, the new history read and written.
-            row = pad + 2 * planes[0].shape[-1] + 2 * h
+            h, t = self.chan.hist_len, xr.shape[-1]
+            old = state.chan
+            if t >= h:
+                new = ChanStateRI(xr[:, t - h:].clone(), xi[:, t - h:].clone())
+            else:
+                new = ChanStateRI(torch.cat([old.hist_r[:, t:], xr], -1),
+                                  torch.cat([old.hist_i[:, t:], xi], -1))
+            # Each plane's new history read and written.
             tracing.count("bank.prefix_bytes",
-                          2 * xr.shape[0] * row * xr.element_size())
-        return planes[0], planes[1], chan_state
+                          4 * xr.shape[0] * h * xr.element_size())
+        return new
 
-    def _fused_call(self, xpr, xpi, chan_state, state: SDRState, g: int):
-        """The fused kernel on history-prefixed planes (FM version)."""
+    def _fused_call(self, hist, xr, xi, chan_state, state: SDRState, g: int):
+        """The fused kernel on x after the (B, L-1) history planes ``hist``,
+        or on history-prefixed planes where ``hist`` is None (FM
+        version)."""
         audio, (ylr, yli), ahist = _pfb.pfb_fm_flat(
-            self.chan.kernel_ops, xpr, xpi, state.demod.prev_r[..., None],
+            self.chan.kernel_ops, xr, xi, state.demod.prev_r[..., None],
             state.demod.prev_i[..., None], gain=self.fm_gain, g=g,
             dec_taps=self.dec_taps, decim=self.decim,
-            ahist=state.audio.hist)
+            ahist=state.audio.hist, hist=hist)
         demod = DemodStateRI(ylr[..., 0], yli[..., 0])
         return audio, SDRState(chan_state, demod, FIRState(ahist))
 
@@ -179,10 +176,15 @@ class FMReceiverBank(nn.Module):
         if not self.use_kernel:
             return self._composable_call(xr, xi, state)
         g = xr.shape[-1] // self.m
-        xpr, xpi, chan_state = self._flat_prefix(xr, xi, state, g)
-        return self._fused_call(xpr, xpi, chan_state, state, g)
+        # The kernel reads rows of unit sample stride; a complex input's
+        # planes are strided views.
+        xr, xi = xr.contiguous(), xi.contiguous()
+        chan_state = self._next_history(xr, xi, state)
+        tracing.count("bank.direct_calls")
+        return self._fused_call((state.chan.hist_r, state.chan.hist_i), xr, xi,
+                                chan_state, state, g)
 
-    # -- zero-copy streaming entry ------------------------------------------
+    # -- padded streaming entry ---------------------------------------------
     def _padded_g(self, w: int) -> int:
         """Output frame count for a pre-padded (B, W) buffer: the inverse of
         ``kernels.pfb.flat_pad_to``."""
@@ -209,10 +211,11 @@ class FMReceiverBank(nn.Module):
 
     def process_padded(self, x: Tuple[torch.Tensor, torch.Tensor],
                        state: Optional[SDRState] = None):
-        """Zero-copy streaming entry: x = (xpr_buf, xpi_buf) laid out per
+        """Streaming entry for producers that write each block into a
+        history-prefixed buffer: x = (xpr_buf, xpi_buf) laid out per
         :meth:`padded_spec`.  The carried history is written into the
         buffers' front slots in place (the torch form of the JAX package's
-        buffer donation), so no prefixed copy of the stream is made.
+        buffer donation), and the kernel reads the buffers as they are.
         Returns (audio, state, (xpr_buf, xpi_buf))."""
         if not self.use_kernel:
             raise ValueError("process_padded runs the fused kernel path "
@@ -227,7 +230,7 @@ class FMReceiverBank(nn.Module):
         end = h + self.m * g
         chan_state = ChanStateRI(xpr[:, end - h:end].clone(),
                                  xpi[:, end - h:end].clone())
-        audio, st = self._fused_call(xpr, xpi, chan_state, state, g)
+        audio, st = self._fused_call(None, xpr, xpi, chan_state, state, g)
         return audio, st, (xpr, xpi)
 
     def forward(self, x, state: Optional[SDRState] = None
@@ -301,19 +304,19 @@ class AMReceiverBank(FMReceiverBank):
                                            device=self.device)
         return self._sc[gd]
 
-    def _fused_call(self, xpr, xpi, chan_state, state: SDRState, g: int):
-        """The fused kernel on history-prefixed planes (AM version)."""
+    def _fused_call(self, hist, xr, xi, chan_state, state: SDRState, g: int):
+        """The fused kernel, its input as in :meth:`FMReceiverBank._fused_call`
+        (AM version)."""
         ops = self.chan.kernel_ops
+        kw = dict(g=g, dec_taps=self.dec_taps, decim=self.decim,
+                  ahist=state.audio.hist, hist=hist)
         if not self.remove_dc:
-            audio, ahist = _pfb.pfb_am_flat(
-                ops, xpr, xpi, g=g, dec_taps=self.dec_taps, decim=self.decim,
-                ahist=state.audio.hist)
+            audio, ahist = _pfb.pfb_am_flat(ops, xr, xi, **kw)
             return audio, SDRState(chan_state, state.demod, FIRState(ahist))
         # Decimate the raw envelope in the kernel, then remove the block
         # mean exactly with this call's mean and the carried previous one.
-        audio_raw, ahist, esum = _pfb.pfb_am_flat(
-            ops, xpr, xpi, g=g, dec_taps=self.dec_taps, decim=self.decim,
-            ahist=state.audio.hist, emit_sum=True)
+        audio_raw, ahist, esum = _pfb.pfb_am_flat(ops, xr, xi, emit_sum=True,
+                                                  **kw)
         mu = esum / g
         s_all = float(np.sum(np.asarray(self._ataps, np.float64)))
         sc = self._carry_tap_sums(g // self.decim)

@@ -5,8 +5,11 @@ Counters
     :func:`count` adds to a plain dict and :func:`counters` returns a copy.
     Each kernel wrapper's ``launches`` is the counter
     ``kernel.<name>.launches`` (:class:`Launches`), still read and assigned
-    as an attribute.  The bank counts its calls (``bank.calls``) and the
-    bytes its history prefix copies move (``bank.prefix_bytes``).
+    as an attribute.  The bank counts its calls (``bank.calls``), those
+    whose input reached the PFB kernel where it lay, with no prefixed copy
+    (``bank.direct_calls``: ``__call__``'s fused path, also under the
+    sharded bank), and the bytes its copies of the new channelizer history
+    move (``bank.prefix_bytes``).
 
 Spans
     ``with span("sdsp.chain.prepass"):`` marks one layer's part of a call.
@@ -35,7 +38,8 @@ The names the port records, each at its layer's boundary:
 - ``sdsp.chain.prepass``: ``kernels/chain.chain_prepass``;
 - ``sdsp.chain.launch``: the chain kernel, or its plain version;
 - ``sdsp.bank.forward``: ``FMReceiverBank.forward``, a call;
-- ``sdsp.bank.prefix``: the bank's [hist | x | pad] copies;
+- ``sdsp.bank.prefix``: the bank's new channelizer history (copies of the
+  stream's last L-1 samples);
 - ``sdsp.pfb.launch``: the PFB kernel, or its plain version;
 - ``sdsp.sharded_chain.forward``: ``ShardedNorthStarChain.forward``, a call;
 - ``sdsp.sharded_chain.wrap``: a rank's local parts of its inputs;

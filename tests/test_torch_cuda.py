@@ -276,6 +276,49 @@ def test_pfb_kernel_reads_misaligned_rows(mode, offset, cuda_device):
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("mode", ["fm", "fm_dec", "am", "am_dec", "am_sum"])
+@pytest.mark.parametrize("m,k", [(16, 16), (32, 16), (16, 32), (8, 16)])
+def test_pfb_kernel_split_input_equals_the_prefixed_launch(mode, m, k,
+                                                           cuda_device):
+    """The flat kernel reading the history and x from their own buffers
+    (``hist=``, views whose first elements are 2 and 1 floats past a
+    16-byte boundary, at odd row strides) gives the bits of the same launch
+    on ``torch.cat``-prefixed planes, which the wrapper splits at M K - 1,
+    and of the prefixed planes read as one source (an empty history, the
+    whole stream from x): at T = 4 M (below the history), M K and 4096 M,
+    every output, the emit_sum totals too."""
+    dev, b, kd, decim = cuda_device, 3, 64, 4
+    ops = PFBChannelizer(m, taps_per_channel=k, device=dev).kernel_ops
+    h = m * k - 1
+    gen = torch.Generator(device=dev).manual_seed(m * 100 + k)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    kmode = "am_dec" if mode == "am_sum" else mode
+    fm, dec = kmode.startswith("fm"), kmode.endswith("_dec")
+    args = (randn(b, m, 1) if fm else None, randn(b, m, 1) if fm else None,
+            randn(b, m, kd - 1) if dec else None,
+            torch.as_tensor(lowpass_taps(kd, 0.1, fs=1.0), dtype=torch.float32,
+                            device=dev) if dec else None)
+    for t in (4 * m, m * k, 4096 * m):
+        kw = dict(gain=0.2, g=t // m, decim=decim, emit_sum=mode == "am_sum",
+                  tile=None)
+        hist = [randn(b, h + 4)[:, 2:2 + h] for _ in range(2)]
+        x = [randn(b, t + 3)[:, 1:1 + t] for _ in range(2)]
+        assert x[0].data_ptr() % 16 == 4 and hist[0].data_ptr() % 16 == 8
+        xp = [torch.cat([hv, xv], -1) for hv, xv in zip(hist, x)]
+        empty = tuple(v[:, :0] for v in xp)
+        split = tpfb.pfb_flat_kernel(kmode, ops.tables(dev), *x, *args,
+                                     hist=tuple(hist), **kw)
+        whole = tpfb.pfb_flat_kernel(kmode, ops.tables(dev), *xp, *args, **kw)
+        one = tpfb.pfb_flat_kernel(kmode, ops.tables(dev), *xp, *args,
+                                   hist=empty, **kw)
+        torch.cuda.synchronize()
+        for a, c, d in zip(_leaves(split), _leaves(whole), _leaves(one)):
+            assert torch.equal(a, c) and torch.equal(a, d), t
+
+
 @pytest.mark.parametrize("kind", ["fm", "am"])
 def test_banks_on_the_card_match_float64_composable(kind, cuda_device):
     """Both banks on the card, 3 chained calls through __call__ and

@@ -206,6 +206,66 @@ def test_public_entries_run_the_plain_version_on_cpu(mode, emit_sum, data):
                         tpfb.pfb_frames_kernel.launches)
 
 
+@pytest.mark.parametrize("mode,emit_sum", FLAT,
+                         ids=["fm", "fm_dec", "am", "am_dec", "am_dec_sum"])
+@pytest.mark.parametrize("t", [M * DECIM, M * K, 4096])
+def test_split_input_equals_the_prefixed_planes(mode, emit_sum, t):
+    """The flat entries given the carried history apart (``hist=``, the
+    receiver banks' input) give, bit for bit, what they give on [hist | x |
+    pad] planes of :func:`flat_pad_to`'s width, over three chained calls
+    carrying the history, the FM carry and the decimator history: at
+    T = M decim (below the history's M K - 1), M K and 4096, each entry
+    with its own default g."""
+    rng = np.random.default_rng(t)
+    ops = _ops(M, K)[1].kernel_ops
+    h = M * K - 1
+    t_ = torch.as_tensor
+    fm, dec = mode.startswith("fm"), mode.endswith("dec")
+    hist = [t_(v) for v in rng.standard_normal((2, B, h))]
+    prev = [t_(v) for v in rng.standard_normal((2, B, M, 1))]
+    ahist = t_(rng.standard_normal((B, M, KD - 1)))
+    taps = lowpass_taps(KD, 0.1, fs=1.0)
+    for _ in range(3):
+        x = [t_(v) for v in rng.standard_normal((2, B, t))]
+        pad = torch.zeros(B, tpfb.flat_pad_to(ops, t // M) - h - t,
+                          dtype=torch.float64)
+        xp = [torch.cat([hv, xv, pad], -1) for hv, xv in zip(hist, x)]
+        kw = dict(dec_taps=taps, decim=DECIM, ahist=ahist) if dec else {}
+        if fm:
+            split = tpfb.pfb_fm_flat(ops, *x, *prev, gain=2.5,
+                                     hist=tuple(hist), **kw)
+            whole = tpfb.pfb_fm_flat(ops, *xp, *prev, gain=2.5, **kw)
+        else:
+            split = tpfb.pfb_am_flat(ops, *x, emit_sum=emit_sum,
+                                     hist=tuple(hist), **kw)
+            whole = tpfb.pfb_am_flat(ops, *xp, emit_sum=emit_sum, **kw)
+        got, want = _leaves(split), _leaves(whole)
+        assert len(got) == len(want)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a, w)
+        if fm:
+            prev = list(split[1])
+        if dec:
+            ahist = split[2] if fm else split[1]
+        hist = [torch.cat([hv, xv], -1)[:, -h:] for hv, xv in zip(hist, x)]
+
+
+def test_split_input_is_refused_where_it_does_not_fit(data):
+    """A history and x too short for g frames, and re / im history planes
+    of different shapes, raise."""
+    _, tch, xr, xi = data[:4]
+    ops = tch.kernel_ops
+    h = tch.hist_len
+    t = torch.as_tensor
+    hist = (t(xr[:, :h]), t(xi[:, :h]))
+    with pytest.raises(ValueError, match="input frames"):
+        tpfb.pfb_am_flat(ops, t(xr[:, h:h + M * G]), t(xi[:, h:h + M * G]),
+                         g=G + 1, hist=hist)
+    with pytest.raises(ValueError, match="history planes differ"):
+        tpfb.pfb_am_flat(ops, t(xr[:, h:]), t(xi[:, h:]),
+                         hist=(hist[0], hist[1][:, 1:]))
+
+
 def test_channelize_frames_equals_channelizer(data):
     """The bare channelizer entry equals ``process_ri_cm`` on the same
     stream (zero history)."""
@@ -364,6 +424,54 @@ def test_kernel_tables_give_the_plain_version(m, k, mode, emit_sum):
     for a, w in zip(got, want):
         assert a.shape == w.shape
         np.testing.assert_allclose(a, w, rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("gt", [8, 64, 1024])
+@pytest.mark.parametrize("m,k", [(16, 16), (32, 16), (16, 32), (8, 16),
+                                 (128, 3)])
+def test_kernel_input_stage_reads_the_stream_from_two_sources(m, k, gt):
+    """The flat kernel's input stage (``csrc/pfb.cu``) walked in numpy for
+    every tile of tiles of ``gt`` frames: the first round's chunk split at
+    the tile's element h - gbase into 4-byte copies from the history and
+    copies from x at its origin xo = gbase - h, the later rounds' chunks
+    (``copy_chunk``) from x alone, fill the tile's frames i0 .. nx - 1 once
+    each with the stream [hist | x], reading nothing outside either source;
+    at g = decim (T below the history), K and 2000 frames, with each mode's
+    halo."""
+    kd, decim, h = 64, 4, m * k - 1
+    p = m // 32 if m > 32 else 1
+    per_round = 256 // min(m, 32) * {1: 9, 2: 4}.get(p, 2)
+    for g in (decim, k, 2000):
+        t = g * m
+        hist, x = np.arange(h) + 0.5, np.arange(h, h + t) + 0.5
+        stream = np.concatenate([hist, x])
+        for mode in ("fm", "am", "fm_dec", "am_dec"):
+            hb = (kd - 1 if mode.endswith("dec") else 0) + (mode[:2] == "fm")
+            for f0 in range(0, g, gt):
+                ny = min(gt, g - f0) + hb
+                nx = ny + k - 1
+                a0 = f0 - hb
+                i0 = max(0, -a0)
+                gbase, nrounds = a0 * m, -(-(ny - i0) // per_round)
+                xo = gbase - h
+                ends = [i0] + [min(nx, i0 + (rd + 1) * per_round + k - 1)
+                               for rd in range(nrounds)]
+                xs = np.full(nx * m, -1.0)
+                for n, (lo, hi) in enumerate(zip(ends[:-1], ends[1:])):
+                    e0, e1 = lo * m, hi * m
+                    eh = (e0 if -xo <= e0 or n else e1 if -xo >= e1
+                          else -xo)
+                    from_h = np.arange(e0, eh) + gbase
+                    from_x = np.arange(eh, e1) + xo
+                    assert from_h.size == 0 or (0 <= from_h.min()
+                                                and from_h.max() < h)
+                    assert from_x.size == 0 or (0 <= from_x.min()
+                                                and from_x.max() < t)
+                    assert (xs[e0:e1] == -1).all()
+                    xs[e0:eh], xs[eh:e1] = hist[from_h], x[from_x]
+                assert ends[-1] == nx and (xs[:i0 * m] == -1).all()
+                np.testing.assert_array_equal(
+                    xs[i0 * m:], stream[gbase + i0 * m:gbase + nx * m])
 
 
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])

@@ -165,6 +165,35 @@ def test_process_padded_equals_call(kind, remove_dc, rng):
     assert torch.equal(s_pad.chan.hist_r, hist)
 
 
+@pytest.mark.parametrize("kind,remove_dc", KINDS, ids=IDS)
+@pytest.mark.parametrize("t", [16 * 4, 16 * 16, 4096])
+def test_call_reads_the_history_in_place_as_process_padded(kind, remove_dc,
+                                                          t, rng):
+    """__call__, whose kernel reads the carried history and the call's
+    planes where they lie, gives process_padded's audio and state bit for
+    bit over three chained calls, at T = M decim (below the L-1 history),
+    L and 4096; its new channelizer state is the last L-1 samples of
+    [hist | x]."""
+    bank = _bank(kind, remove_dc, True)
+    h = bank.chan.hist_len
+    stream = np.zeros((2, h), complex)
+    s_call = s_pad = None
+    for _ in range(3):
+        x = _iq(rng, t)
+        got, s_call = bank(x, s_call)
+        want, s_pad, _ = bank.process_padded(_padded(bank, x, rng), s_pad)
+        assert torch.equal(got, want)
+        ours, theirs = sdr_state_to_numpy(s_call), sdr_state_to_numpy(s_pad)
+        for name, a in ours.items():
+            if a is None:
+                assert theirs[name] is None
+            else:
+                np.testing.assert_array_equal(a, theirs[name], err_msg=name)
+        stream = np.concatenate([stream, x], -1)[:, -h:]
+        np.testing.assert_array_equal(s_call.chan.hist_r.numpy(), stream.real)
+        np.testing.assert_array_equal(s_call.chan.hist_i.numpy(), stream.imag)
+
+
 def test_padded_entry_refuses_bad_widths(rng):
     bank = _bank("fm", None, True)
     with pytest.raises(ValueError, match="padded width"):

@@ -10,7 +10,6 @@ import sys
 import textwrap
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
@@ -284,22 +283,48 @@ def test_the_bank_records_its_spans_and_counts_its_calls(cls):
 
 
 def test_the_prefix_bytes_are_the_copies_counted_from_the_shapes():
-    """Per plane: the pad's zeros written, [hist | x | pad] read from its
-    three parts and written by the cat, the new history read and written
-    by its clone; counted here from the tensors the copies make."""
+    """The copies left beside the kernel make the new channelizer history,
+    the last L-1 samples of [hist | x]: per plane that history read and
+    written, from x's tail at T >= L-1 and from the history's tail and x
+    below it; counted here from the tensors the copies make, at T = M decim
+    (< L-1), L and 4096."""
     bank = _bank()
-    xr, xi = _iq(b=3, t=4096)
-    state = bank.init_state(3)
-    g = xr.shape[-1] // bank.m
-    before = tracing.counters().get("bank.prefix_bytes", 0)
-    xpr, xpi, chan = bank._flat_prefix(xr, xi, state, g)
-    moved = 0
-    for hist, x, plane, new in ((state.chan.hist_r, xr, xpr, chan.hist_r),
-                                (state.chan.hist_i, xi, xpi, chan.hist_i)):
-        pad = plane.nbytes - hist.nbytes - x.nbytes
-        moved += pad                                        # zeros
-        moved += hist.nbytes + x.nbytes + pad + plane.nbytes  # the cat
-        moved += 2 * new.nbytes                             # the clone
-    assert tracing.counters()["bank.prefix_bytes"] - before == moved
-    np.testing.assert_array_equal(xpr[:, :bank.chan.hist_len].numpy(),
-                                  state.chan.hist_r.numpy())
+    h = bank.chan.hist_len
+    for t in (bank.m * bank.decim, h + 1, 4096):
+        xr, xi = _iq(b=3, t=t, seed=t)
+        state = bank.init_state(3)
+        state = state._replace(chan=type(state.chan)(*_iq(b=3, t=h, seed=1)))
+        before = tracing.counters().get("bank.prefix_bytes", 0)
+        chan = bank._next_history(xr, xi, state)
+        moved = sum(2 * new.nbytes for new in chan)
+        assert tracing.counters()["bank.prefix_bytes"] - before == moved
+        for hist, x, new in ((state.chan.hist_r, xr, chan.hist_r),
+                             (state.chan.hist_i, xi, chan.hist_i)):
+            assert new.shape == (3, h) and new.is_contiguous()
+            assert torch.equal(new, torch.cat([hist, x], -1)[:, -h:])
+            assert new.data_ptr() not in (hist.data_ptr(), x.data_ptr())
+
+
+@pytest.mark.parametrize("cls", [FMReceiverBank, AMReceiverBank],
+                         ids=lambda c: c.__name__)
+def test_direct_calls_count_the_calls_that_read_the_input_in_place(cls):
+    """``bank.direct_calls`` rises by one on each fused ``__call__``, whose
+    input reaches the kernel with no prefixed copy, and not on
+    ``process_padded`` (a prefixed buffer) or the composable path."""
+    bank = _bank(cls)
+
+    def direct():
+        return tracing.counters().get("bank.direct_calls", 0)
+
+    before = direct()
+    audio, state = bank(_iq())
+    assert direct() - before == 1
+    audio, state = bank(_iq(seed=1), state)
+    assert direct() - before == 2
+    front, total = bank.padded_spec(4096)
+    bufs = tuple(torch.zeros(2, total) for _ in range(2))
+    for buf, x in zip(bufs, _iq(seed=2)):
+        buf[:, front:front + 4096] = x
+    bank.process_padded(bufs, state)
+    cls(16, 1.6e6, device="cpu", use_kernel=False)(_iq())
+    assert direct() - before == 2
