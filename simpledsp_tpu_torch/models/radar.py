@@ -12,11 +12,24 @@ Port of ``simpledsp_tpu/models/radar.py``:
                               detector; shifted-add box sums, no gathers)
 
 (re, im) float planes end to end, batched over leading axes.  The
-transforms run on the FFT engine (``ops/fft``): on a CUDA float32 tensor
-the range FFTs (4096 + 511 samples pad to 8192) and a Doppler FFT of 256
-pulses or more run the frames FFT kernel, three launches a call; 128
-pulses or fewer are one dense matmul.  The TX spectrum is a host float64
-constant per waveform, as in the JAX package.
+transforms run on the FFT engine (``ops/fft``).  On a CUDA float32 tensor
+the range FFTs (4096 + 511 samples pad to 8192) run the frames FFT kernel,
+one launch forward and one inverse, and so does a Doppler FFT of 256
+pulses or more, a third.  A Doppler FFT of 128 pulses or fewer is below
+the kernel's gate (n = 128 m, m >= 2) and takes the small-DFT route
+(``ops/fft._dft_last``): fixed-shape products of 2^20 values each, one a
+plane and a block of 2^20 / n rows, so that a row's bits do not depend on
+its batch.  At 64 beams x 128 pulses x 4096 range cells that is 262,144
+rows, 32 blocks and 64 products a call, not one matmul.  The TX spectrum
+is a host float64 constant per waveform, as in the JAX package.
+
+Spans (``utils/tracing``): ``sdsp.radar.map`` around
+:func:`range_doppler_map`, with ``sdsp.radar.range`` (the matched filter)
+and ``sdsp.radar.doppler`` (the window, the transposes, the Doppler
+transform, the power and the roll) inside it; ``sdsp.radar.cfar`` around
+:func:`cfar_ca`.  Counters: ``radar.maps`` (calls of
+:func:`range_doppler_map`) and ``radar.cells`` (range-Doppler cells
+mapped).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ import torch
 from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.ops.fft import _table
 from simpledsp_tpu_torch.ops.spectral import window_taps
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["matched_filter_ri", "range_doppler_map", "cfar_ca", "lfm_chirp"]
 
@@ -74,13 +88,14 @@ def matched_filter_ri(xr: torch.Tensor, xi: torch.Tensor,
     if length > n:
         raise ValueError(f"TX length {length} exceeds pulse length {n}")
     m = _next_pow2(n + length - 1)
-    hr64, hi64 = _tx_spectrum_f64(tx.tobytes(), length, m)
-    pad = (0, m - n)
-    fr, fi = _fft.fft_ri(torch.nn.functional.pad(xr, pad),
-                         torch.nn.functional.pad(xi, pad))
-    hr, hi = _table(hr64, xr), _table(hi64, xr)
-    yr, yi = _fft.ifft_ri(fr * hr - fi * hi, fr * hi + fi * hr)
-    return yr[..., :n], yi[..., :n]
+    with tracing.span("sdsp.radar.range"):
+        hr64, hi64 = _tx_spectrum_f64(tx.tobytes(), length, m)
+        pad = (0, m - n)
+        fr, fi = _fft.fft_ri(torch.nn.functional.pad(xr, pad),
+                             torch.nn.functional.pad(xi, pad))
+        hr, hi = _table(hr64, xr), _table(hi64, xr)
+        yr, yi = _fft.ifft_ri(fr * hr - fi * hi, fr * hi + fi * hr)
+        return yr[..., :n], yi[..., :n]
 
 
 def range_doppler_map(xr: torch.Tensor, xi: torch.Tensor, tx_re, tx_im, *,
@@ -91,14 +106,19 @@ def range_doppler_map(xr: torch.Tensor, xi: torch.Tensor, tx_re, tx_im, *,
     sits at row n_pulses // 2."""
     if xr.dim() < 2:
         raise ValueError("need (..., n_pulses, n_samples) input")
-    yr, yi = matched_filter_ri(xr, xi, tx_re, tx_im)
-    n_pulses = yr.shape[-2]
-    w = _table(window_taps(window, n_pulses), yr)[:, None]
-    # Doppler FFT across the pulse axis: pulses to the last axis and back.
-    dr, di = _fft.fft_ri((yr * w).transpose(-1, -2),
-                         (yi * w).transpose(-1, -2))
-    dr, di = dr.transpose(-1, -2), di.transpose(-1, -2)
-    return torch.roll(dr * dr + di * di, n_pulses // 2, -2)
+    with tracing.span("sdsp.radar.map"):
+        tracing.count("radar.maps")
+        tracing.count("radar.cells", xr.numel())
+        yr, yi = matched_filter_ri(xr, xi, tx_re, tx_im)
+        with tracing.span("sdsp.radar.doppler"):
+            n_pulses = yr.shape[-2]
+            w = _table(window_taps(window, n_pulses), yr)[:, None]
+            # Doppler FFT across the pulse axis: pulses to the last axis
+            # and back.
+            dr, di = _fft.fft_ri((yr * w).transpose(-1, -2),
+                                 (yi * w).transpose(-1, -2))
+            dr, di = dr.transpose(-1, -2), di.transpose(-1, -2)
+            return torch.roll(dr * dr + di * di, n_pulses // 2, -2)
 
 
 def cfar_ca(power: torch.Tensor, *, guard: int = 2, train: int = 8,
@@ -122,12 +142,13 @@ def cfar_ca(power: torch.Tensor, *, guard: int = 2, train: int = 8,
     if 2 * span + 1 > n:
         raise ValueError(f"CFAR window 2*(guard+train)+1 = {2 * span + 1} "
                          f"exceeds the axis length {n}")
-    x = power.movedim(axis, -1)
-    acc = torch.zeros_like(x)
-    for k in range(guard + 1, span + 1):
-        acc = acc + torch.roll(x, k, -1) + torch.roll(x, -k, -1)
-    n_train = 2 * train
-    alpha = n_train * (pfa ** (-1.0 / n_train) - 1.0)
-    thresh = alpha * (acc / n_train)
-    det = x > thresh
-    return det.movedim(-1, axis), thresh.movedim(-1, axis)
+    with tracing.span("sdsp.radar.cfar"):
+        x = power.movedim(axis, -1)
+        acc = torch.zeros_like(x)
+        for k in range(guard + 1, span + 1):
+            acc = acc + torch.roll(x, k, -1) + torch.roll(x, -k, -1)
+        n_train = 2 * train
+        alpha = n_train * (pfa ** (-1.0 / n_train) - 1.0)
+        thresh = alpha * (acc / n_train)
+        det = x > thresh
+        return det.movedim(-1, axis), thresh.movedim(-1, axis)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 from simpledsp_tpu_torch.utils.intmath import is_power_of as _is_power_of
 
 __all__ = ["fft_ri", "ifft_ri", "rfft_ri", "irfft_ri", "pack_rfft_ri",
@@ -168,7 +169,8 @@ def _dft_last(xr: torch.Tensor, xi: torch.Tensor, inverse: bool
     Re = xr Wr^T - xi Wi^T and Im = xi Wr^T + xr Wi^T, as in the JAX
     package: in float32 one 2n-term sum over [xr | xi] costs about 2.7
     dB, and an n-term sum taken whole (MKL's order) 1.5-1.9 dB at n = 16
-    and 32 against XLA's CPU dot.  Returns contiguous planes."""
+    and 32 against XLA's CPU dot.  Returns contiguous planes.  The
+    counter ``fft.dft_products`` counts the products launched."""
     n = xr.shape[-1]
     lead = xr.shape[:-1]
     rows = int(np.prod(lead, dtype=np.int64))
@@ -180,6 +182,7 @@ def _dft_last(xr: torch.Tensor, xi: torch.Tensor, inverse: bool
     v[1, :rows, :n] = xi.reshape(rows, n)
     table = _table(_dft_table_f64(n, bool(inverse)), xr)
     p = xr.new_empty((2, padded // block, 2, block, 2 * n))
+    tracing.count("fft.dft_products", 2 * (padded // block))
     for b, lo in enumerate(range(0, padded, block)):
         for plane in range(2):
             halves = v[plane, lo: lo + block].view(block, 2, h)

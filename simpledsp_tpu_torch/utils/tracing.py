@@ -9,7 +9,10 @@ Counters
     whose input reached the PFB kernel where it lay, with no prefixed copy
     (``bank.direct_calls``: ``__call__``'s fused path, also under the
     sharded bank), and the bytes its copies of the new channelizer history
-    move (``bank.prefix_bytes``).
+    move (``bank.prefix_bytes``).  The radar counts its maps
+    (``radar.maps``) and the range-Doppler cells they map
+    (``radar.cells``); the FFT engine's small-DFT route counts the
+    fixed-shape products it launches (``fft.dft_products``).
 
 Spans
     ``with span("sdsp.chain.prepass"):`` marks one layer's part of a call.
@@ -45,7 +48,12 @@ The names the port records, each at its layer's boundary:
 - ``sdsp.sharded_chain.wrap``: a rank's local parts of its inputs;
 - ``sdsp.sharded_chain.exchange``: the shard states' all_gather and
   all_reduce;
-- ``sdsp.sharded_chain.unwrap``: the outputs placed on the mesh.
+- ``sdsp.sharded_chain.unwrap``: the outputs placed on the mesh;
+- ``sdsp.radar.map``: ``models/radar.range_doppler_map``, a map;
+- ``sdsp.radar.range``: its pulse compression (``matched_filter_ri``);
+- ``sdsp.radar.doppler``: its window, transposes, Doppler transform, power
+  and roll;
+- ``sdsp.radar.cfar``: ``cfar_ca``, a span with no parent of its own.
 """
 
 from __future__ import annotations

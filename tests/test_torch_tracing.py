@@ -20,8 +20,10 @@ from simpledsp_tpu_torch.kernels import fft as kfft
 from simpledsp_tpu_torch.kernels import ols as kols
 from simpledsp_tpu_torch.kernels import pfb as kpfb
 from simpledsp_tpu_torch.kernels import probes as kprobes
+from simpledsp_tpu_torch.models import radar
 from simpledsp_tpu_torch.models.northstar import NorthStarChain
 from simpledsp_tpu_torch.models.sdr import AMReceiverBank, FMReceiverBank
+from simpledsp_tpu_torch.ops import fft as tfft
 from simpledsp_tpu_torch.utils import tracing
 
 REPO = Path(__file__).resolve().parents[1]
@@ -328,3 +330,82 @@ def test_direct_calls_count_the_calls_that_read_the_input_in_place(cls):
     bank.process_padded(bufs, state)
     cls(16, 1.6e6, device="cpu", use_kernel=False)(_iq())
     assert direct() - before == 2
+
+
+# -- the radar and the small-DFT route ---------------------------------------------
+
+RADAR_SPANS = ["sdsp.radar.range", "sdsp.radar.doppler", "sdsp.radar.map",
+               "sdsp.radar.cfar"]
+
+
+def _radar_call(beams=2, pulses=16, samples=256, taps=16):
+    """One map and its CFAR, as the benchmark's radar system calls them."""
+    tx_re, tx_im = radar.lfm_chirp(taps, 0.8)
+    xr, xi = _iq(b=beams * pulses, t=samples)
+    power = radar.range_doppler_map(xr.view(beams, pulses, samples),
+                                    xi.view(beams, pulses, samples),
+                                    tx_re, tx_im, window="hann")
+    return power, radar.cfar_ca(power, guard=2, train=12, pfa=1e-5)
+
+
+def test_the_radar_records_its_spans_once_a_call_nested_as_stated():
+    tracing.enable()
+    for _ in range(2):
+        _radar_call()
+    spans = tracing.snapshot()["spans"]
+    assert _names() == RADAR_SPANS * 2
+    for call in (spans[:4], spans[4:]):
+        rng, dop, rdm, cfar = call
+        assert rng["parent"] == dop["parent"] == rdm["id"]
+        assert rdm["parent"] == cfar["parent"] == 0
+        assert rng["call"] == dop["call"] == rdm["call"] != cfar["call"]
+        assert rdm["start_ns"] <= rng["start_ns"] <= rng["end_ns"] \
+            <= dop["start_ns"] <= dop["end_ns"] <= rdm["end_ns"] \
+            <= cfar["start_ns"]
+    assert {k: v["count"] for k, v in tracing.span_stats().items()} == {
+        name: 2 for name in RADAR_SPANS}
+
+
+def test_the_radar_counts_its_maps_and_cells():
+    before = tracing.counters()
+    power, _ = _radar_call(beams=3)
+    after = tracing.counters()
+    assert after["radar.maps"] - before.get("radar.maps", 0) == 1
+    assert after["radar.cells"] - before.get("radar.cells", 0) \
+        == power.numel() == 3 * 16 * 256
+
+
+def _products(before):
+    return tracing.counters()["fft.dft_products"] - before.get(
+        "fft.dft_products", 0)
+
+
+@pytest.mark.parametrize("rows, n, want", [
+    (2 * 256, 16, 2),     # 16 pulses x 2 beams x 256 cells: one CPU block
+    (2 * 256, 128, 4),    # blocks of 256 rows at n = 128 on the CPU
+    (300, 128, 4),        # the last block zero-padded
+    (5, 3, 2),
+])
+def test_dft_products_count_every_product_of_the_small_dft_route(rows, n,
+                                                                 want):
+    before = tracing.counters()
+    xr, xi = _iq(b=rows, t=n)
+    yr, _ = tfft.fft_ri(xr, xi)
+    assert _products(before) == want
+    assert want == 2 * -(-rows // tfft._dft_rows(n, xr.device))
+    assert torch.allclose(yr, torch.fft.fft(torch.complex(xr, xi)).real,
+                          atol=1e-4)
+
+
+def test_dft_products_of_a_radar_map_are_its_transforms_products():
+    """2 beams x 16 pulses x 256 cells with 16 taps on the CPU: the range
+    transforms of 512 points split 16 x 32 (one product a plane at each
+    factor, forward and inverse: 8) and the 16-point Doppler transform of
+    512 rows (2).  On a card the range transforms run the frames FFT
+    kernel and only the Doppler products count: 64 at 64 beams x 128
+    pulses x 4096 cells."""
+    before = tracing.counters()
+    _radar_call()
+    assert _products(before) == 8 + 2
+    card = torch.device("cuda")
+    assert 2 * -(-(64 * 4096) // tfft._dft_rows(128, card)) == 64
