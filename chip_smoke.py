@@ -128,7 +128,10 @@ Phases (any failure exits nonzero before the result line):
     float32 I/Q (seed 0; two targets, a 512-sample ``lfm_chirp(512, 0.8)``):
     the map >= 100 dB against a float64 numpy oracle, both targets detected
     in every CPI, a detection-cell fraction below 5e-3, three kernel
-    launches a call (8192-point forward and inverse, 256-point Doppler).
+    launches a call (8192-point forward and inverse, 256-point Doppler)
+    and one CFAR kernel launch a ``cfar_ca`` call, whose threshold and
+    mask equal the rolled route's bit for bit; the CFAR kernel's device
+    ms (CUDA graph) beside its bound and the rolled route's.
     ms/call, and with the kernel routing off.  The map's accuracy stage by
     stage (``radar_stages``: range FFT, inverse, matched filter, Doppler
     FFT, and the map on and off the targets' cells).
@@ -311,7 +314,10 @@ The probe kernels' records take their numbers from phase 20: scale_copy
 from probe_dma_scale at f = 16384 (``torch.mul``), permute from
 probe_relayout's relayout kernel alone (``.permute(1, 2, 0).contiguous()``),
 contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
-(``torch.sum``).
+(``torch.sum``).  The cfar record (a kernel that replaces no TPU kernel:
+``replaces`` is null) takes its device ms (CUDA graph), the rolled
+route's as ``plain_ms`` and its bound from phase 16, and counts the
+launches of phases 16 and 27.
 
 The ols and fft_frames records count the launches of phases 21, 23, 26
 and 27 beside those of phases 11 and 15-16; the chain_frames and pfb_flat
@@ -1425,8 +1431,11 @@ def radar_stages(dev, scene=None) -> dict:
     return {k: float(10 * np.log10(s2 / e2)) for k, (s2, e2) in sums.items()}
 
 
-def radar_path(dev, kfft, tfft, radar):
-    """Phase 16; returns the frames kernel's launches on the path."""
+def radar_path(dev, kfft, tfft, radar, kcfar):
+    """Phase 16; returns the frames kernel's launches on the path and the
+    CFAR kernel's record."""
+    from simpledsp_tpu_torch.tools._common import graph_ms
+
     scene = radar_scene(dev, radar)
     tx_re, tx_im, zr, zi, xr, xi = scene
     tx = tx_re + 1j * tx_im
@@ -1442,6 +1451,9 @@ def radar_path(dev, kfft, tfft, radar):
     launches = kfft.fft_frames_kernel.launches
     check(launches == 3, f"range_doppler_map launched the frames FFT kernel "
                          f"{launches} times, not 3")
+    cfar_launches = kcfar.cfar_kernel.launches
+    check(cfar_launches == 1, f"cfar_ca launched the CFAR kernel "
+                              f"{cfar_launches} times, not once")
     check(rdm.shape == (RC, RP, RS) and bool(torch.isfinite(rdm).all()),
           f"range-Doppler map shape {tuple(rdm.shape)} or values")
     # float64 numpy oracle on the same float32 I/Q, one CPI at a time.
@@ -1479,7 +1491,29 @@ def radar_path(dev, kfft, tfft, radar):
     check(snr >= MIN_TRANSFORM_DB, f"radar map {snr:.2f} dB")
     check(all(h == RC for h in hits), f"radar targets detected in {hits} CPIs")
     check(frac < 5e-3, f"radar detection-cell fraction {frac:.3e}")
-    return launches
+    # The CFAR kernel against the rolled route on the same map: equal bits.
+    alpha = 24 * (1e-5 ** (-1.0 / 24) - 1.0)
+    det, thresh = radar.cfar_ca(rdm, guard=2, train=12, pfa=1e-5)
+    rdet, rthresh = kcfar.cfar_rolled(rdm, 2, 12, alpha)
+    check(torch.equal(thresh, rthresh) and torch.equal(det, rdet),
+          "the CFAR kernel's bits differ from the rolled route's")
+    cfar_ms = graph_ms(lambda: radar.cfar_ca(rdm, guard=2, train=12,
+                                             pfa=1e-5))
+    rolled_ms = graph_ms(lambda: kcfar.cfar_rolled(rdm, 2, 12, alpha), per=4)
+    cells = rdm.numel()
+    cfar_bound = bound(cells * (4 + 4 + 1), cells * 25.0)
+    print(f"radar CFAR (guard 2, train 12) on the {RC} x {RP} x {RS} map: "
+          f"{cfar_launches} CFAR kernel launch a call, device "
+          f"{cfar_ms:.4f} ms (bound {cfar_bound['bound_ms']:.4f} ms, "
+          f"{cfar_bound['bound_by']}: "
+          f"{100 * cfar_bound['bound_ms'] / cfar_ms:.1f} %), the rolled "
+          f"route {rolled_ms:.4f} ms; bits equal")
+    return launches, {
+        "name": "cfar", "route": "cuda",
+        "source": "simpledsp_tpu_torch/csrc/cfar.cu", "replaces": None,
+        "launches": cfar_launches, "max_abs_err": 0.0, "ms": None,
+        "device_ms": cfar_ms, "plain_ms": rolled_ms, **cfar_bound,
+        "library_ms": None}
 
 
 # -- the rest of the chain kernel family ----------------------------------------
@@ -3318,6 +3352,7 @@ def main() -> int:
     from simpledsp_tpu_torch import runtime
     from simpledsp_tpu_torch.design.fir import lowpass_taps
     from simpledsp_tpu_torch.kernels import _build
+    from simpledsp_tpu_torch.kernels import cfar as kcfar
     from simpledsp_tpu_torch.kernels import chain as kchain
     from simpledsp_tpu_torch.kernels import chain_variants as kcv
     from simpledsp_tpu_torch.kernels import conv2d as k2d
@@ -3340,7 +3375,7 @@ def main() -> int:
                   kcv.chain_regs_kernel, kcv.chain_grouped_kernel,
                   kcv.chain_store_kernel, kprobes.scale_copy_kernel,
                   kprobes.permute_kernel, kprobes.contract_kernel,
-                  kprobes.row_sum_kernel]
+                  kprobes.row_sum_kernel, kcfar.cfar_kernel]
     # The library calls timed beside the kernels run in IEEE float32 too.
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3355,14 +3390,16 @@ def main() -> int:
     build_all([kchain.chain_kernel.library, kpfb.pfb_flat_kernel.library,
                kols.ols_kernel.library, k2d.conv2d_kernel.library,
                kfft.fft_frames_kernel.library, kcv.chain_regs_kernel.library,
-               kprobes.scale_copy_kernel.library, runtime.load_library])
+               kprobes.scale_copy_kernel.library, kcfar.cfar_kernel.library,
+               runtime.load_library])
     secs = _build.build_seconds
     print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, chain_tc.cu "
           f"{secs['sdsp_chain_tc']:.2f} s, pfb.cu "
           f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s, "
           f"conv2d.cu {secs['sdsp_conv2d']:.2f} s, fft.cu "
-          f"{secs['sdsp_fft']:.2f} s and probes.cu "
-          f"{secs['sdsp_probes']:.2f} s in nvcc, native/sdsp_io.cpp "
+          f"{secs['sdsp_fft']:.2f} s, probes.cu "
+          f"{secs['sdsp_probes']:.2f} s and cfar.cu "
+          f"{secs['sdsp_cfar']:.2f} s in nvcc, native/sdsp_io.cpp "
           f"{secs['sdsp_io']:.2f} s in g++, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
@@ -3380,7 +3417,8 @@ def main() -> int:
     conv2d_launches = conv2d_path(dev, k2d, conv2d)
     fft_main = fft_kernel_phase(dev, kfft)
     fft_launches = transform_path(dev, kfft, tfft, ttr, tsp)
-    fft_launches += radar_path(dev, kfft, tfft, radar)
+    radar_launches, cfar_record = radar_path(dev, kfft, tfft, radar, kcfar)
+    fft_launches += radar_launches
     probe_records = probe_phase(dev, kprobes)
     start = time.perf_counter()
     ols_more, fft_more = filtering_path(dev)
@@ -3409,6 +3447,7 @@ def main() -> int:
     flat_launches += (flat_cli + sharded[kpfb.pfb_flat_kernel]
                       + examples[kpfb.pfb_flat_kernel])
     frames_launches += examples[kpfb.pfb_frames_kernel]
+    cfar_record["launches"] += examples[kcfar.cfar_kernel]
     ols_launches += (ols_more + sharded[kols.ols_kernel]
                      + examples[kols.ols_kernel])
     fft_launches += (fft_more + sharded[kfft.fft_frames_kernel]
@@ -3462,7 +3501,8 @@ def main() -> int:
         **{k: family[(form, MAIN_N)][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-    } for name, form, src, replaces in FAMILY_RECORDS] + probe_records}))
+    } for name, form, src, replaces in FAMILY_RECORDS] + probe_records
+        + [cfar_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -9,7 +9,7 @@ Port of ``simpledsp_tpu/models/radar.py``:
                               of the pulses, zero-padded to a power of two)
       -> Doppler processing  (windowed FFT across the pulse axis)
       -> CA-CFAR             (cell-averaging constant false alarm rate
-                              detector; shifted-add box sums, no gathers)
+                              detector; box sums, no gathers)
 
 (re, im) float planes end to end, batched over leading axes.  The
 transforms run on the FFT engine (``ops/fft``).  On a CUDA float32 tensor
@@ -23,13 +23,23 @@ its batch.  At 64 beams x 128 pulses x 4096 range cells that is 262,144
 rows, 32 blocks and 64 products a call, not one matmul.  The TX spectrum
 is a host float64 constant per waveform, as in the JAX package.
 
+:func:`cfar_ca` takes one of two routes (``kernels/cfar``).  A plain
+``torch.Tensor`` in float32 on a CUDA device, with guard + train at most
+``MAX_SPAN``, runs the CFAR kernel: one launch that reads each row of the
+CFAR axis once and writes the threshold and the mask once (another axis is
+moved last in one copy first).  The CPU, float64, a ``DTensor`` and a wider
+window take the rolled route, 2 train shifted adds on rolled copies, which
+the CPU tests hold to the JAX package.  Both give the same bits.
+
 Spans (``utils/tracing``): ``sdsp.radar.map`` around
 :func:`range_doppler_map`, with ``sdsp.radar.range`` (the matched filter)
 and ``sdsp.radar.doppler`` (the window, the transposes, the Doppler
 transform, the power and the roll) inside it; ``sdsp.radar.cfar`` around
 :func:`cfar_ca`.  Counters: ``radar.maps`` (calls of
-:func:`range_doppler_map`) and ``radar.cells`` (range-Doppler cells
-mapped).
+:func:`range_doppler_map`), ``radar.cells`` (range-Doppler cells mapped)
+and ``radar.cfars`` (calls of :func:`cfar_ca`, either route); over
+``radar.cfars``, the kernel's ``kernel.cfar.launches`` is the share of
+CFARs on the kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from simpledsp_tpu_torch.kernels import cfar as _cfar
 from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.ops.fft import _table
 from simpledsp_tpu_torch.ops.spectral import window_taps
@@ -131,7 +142,10 @@ def cfar_ca(power: torch.Tensor, *, guard: int = 2, train: int = 8,
 
     Returns (detections bool mask, threshold map) of ``power``'s shape.
     Edges wrap around (the Doppler axis is circular; for range, a ring
-    buffer CFAR): 2 train shifted adds on rolled copies, no gathers."""
+    buffer CFAR).  Two routes with the same bits (module docstring): the
+    CFAR kernel for a float32 ``torch.Tensor`` on a CUDA device and a
+    window of at most ``kernels/cfar.MAX_SPAN`` cells a side, else 2 train
+    shifted adds on rolled copies (``kernels/cfar.cfar_rolled``)."""
     if guard < 0 or train < 1:
         raise ValueError(f"need guard >= 0, train >= 1, got ({guard}, "
                          f"{train})")
@@ -143,12 +157,13 @@ def cfar_ca(power: torch.Tensor, *, guard: int = 2, train: int = 8,
         raise ValueError(f"CFAR window 2*(guard+train)+1 = {2 * span + 1} "
                          f"exceeds the axis length {n}")
     with tracing.span("sdsp.radar.cfar"):
-        x = power.movedim(axis, -1)
-        acc = torch.zeros_like(x)
-        for k in range(guard + 1, span + 1):
-            acc = acc + torch.roll(x, k, -1) + torch.roll(x, -k, -1)
+        tracing.count("radar.cfars")
         n_train = 2 * train
         alpha = n_train * (pfa ** (-1.0 / n_train) - 1.0)
-        thresh = alpha * (acc / n_train)
-        det = x > thresh
+        x = power.movedim(axis, -1)
+        if _cfar.cfar_kernel_supported(power, guard, train):
+            det, thresh = _cfar.cfar_kernel(x.contiguous(), guard, train,
+                                            alpha)
+        else:
+            det, thresh = _cfar.cfar_rolled(x, guard, train, alpha)
         return det.movedim(-1, axis), thresh.movedim(-1, axis)

@@ -10,9 +10,10 @@ Counters
     (``bank.direct_calls``: ``__call__``'s fused path, also under the
     sharded bank), and the bytes its copies of the new channelizer history
     move (``bank.prefix_bytes``).  The radar counts its maps
-    (``radar.maps``) and the range-Doppler cells they map
-    (``radar.cells``); the FFT engine's small-DFT route counts the
-    fixed-shape products it launches (``fft.dft_products``).
+    (``radar.maps``), the range-Doppler cells they map (``radar.cells``)
+    and its CFARs (``radar.cfars``, either route: ``kernel.cfar.launches``
+    over it is the share on the kernel); the FFT engine's small-DFT route
+    counts the fixed-shape products it launches (``fft.dft_products``).
 
 Spans
     ``with span("sdsp.chain.prepass"):`` marks one layer's part of a call.

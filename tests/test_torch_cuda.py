@@ -42,7 +42,8 @@ the sizes the kernels do not take (``--fft 32768``, ``--channels 12``) the
 same bars on the plain route, with no chain or PFB launch.  The smoothing
 filters: in float64 within 1e-12 of the largest output of the same call on
 the CPU, in float32 >= 100 dB against it (the FIR bar); the rank filters
-give the CPU's bits; ``max_len_seq`` equals scipy.
+give the CPU's bits; ``max_len_seq`` equals scipy.  The CFAR kernel: equal
+bit for bit to the rolled route on the same float32 map.
 """
 
 import numpy as np
@@ -52,6 +53,7 @@ import torch
 
 from simpledsp_tpu_torch.design.biquad import sos_matrix
 from simpledsp_tpu_torch.design.fir import lowpass_taps
+from simpledsp_tpu_torch.kernels import cfar as tkcfar
 from simpledsp_tpu_torch.kernels import chain as tchain
 from simpledsp_tpu_torch.kernels import chain_variants as tcv
 from simpledsp_tpu_torch.kernels import conv2d as tk2d
@@ -724,6 +726,89 @@ def test_engine_paths_launch_the_frames_kernel(cuda_device):
                         device=cuda_device)
     _, n = runs(lambda: trd.range_doppler_map(p, p, *tx))
     assert n == 3
+
+
+# -- the CFAR kernel ----------------------------------------------------------------
+
+def _noise_power(shape, seed, device):
+    """Unit-mean exponential cells, as a noise-only power map holds."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return -torch.log1p(-u)
+
+
+def _cfar_routes(p, guard, train, pfa, axis=-1):
+    """``cfar_ca`` on the card, the rolled route on the same map, and the
+    kernel's launches in the call."""
+    before = tkcfar.cfar_kernel.launches
+    got = trd.cfar_ca(p, guard=guard, train=train, pfa=pfa, axis=axis)
+    torch.cuda.synchronize()
+    launches = tkcfar.cfar_kernel.launches - before
+    n_train = 2 * train
+    alpha = n_train * (pfa ** (-1.0 / n_train) - 1.0)
+    want = tkcfar.cfar_rolled(p.movedim(axis, -1), guard, train, alpha)
+    return got, tuple(w.movedim(-1, axis) for w in want), launches
+
+
+@pytest.mark.parametrize("shape, guard, train, pfa, axis", [
+    ((64, 128, 4096), 2, 12, 1e-5, -1),     # the benchmark's map
+    ((3, 1001), 2, 12, 1e-5, -1),           # n neither 4 k nor the tile's
+    ((5, 29), 2, 12, 1e-5, -1),             # the least length, 2 span + 1
+    ((4, 4096), 0, 8, 1e-4, -1),            # guard 0
+    ((2, 300, 64), 2, 12, 1e-5, -2),        # the Doppler axis
+    ((4096,), 2, 12, 1e-5, -1),             # a 1-D row
+    ((2, 3, 4, 1000), 3, 9, 1e-6, -1),      # a 4-D batch
+    ((70000, 32), 1, 4, 1e-3, -1),          # more rows than a grid side
+    ((2, 2 * 2048 + 1), 2040, 8, 1e-5, -1),  # the widest span, MAX_SPAN
+])
+def test_cfar_kernel_equals_the_rolled_route(shape, guard, train, pfa, axis,
+                                             cuda_device):
+    """Thresholds and detections of the kernel equal the rolled route's bit
+    for bit, one launch a call."""
+    p = _noise_power(shape, sum(shape) + guard, cuda_device)
+    (det, thresh), (rdet, rthresh), launches = _cfar_routes(p, guard, train,
+                                                            pfa, axis)
+    assert launches == 1
+    assert det.shape == thresh.shape == p.shape and det.dtype == torch.bool
+    assert torch.equal(thresh, rthresh)
+    assert torch.equal(det, rdet)
+
+
+def test_cfar_kernel_wraps_at_both_ends_of_a_row(cuda_device):
+    """A target a row within span of one end or the other (on an aligned
+    and an unaligned base, so the kernel's one-cell loads and stores run
+    too): the bits of the rolled route, and every target detected."""
+    guard, train, n = 2, 12, 4096
+    cols = torch.tensor([0, 5, 13, n - 14, n - 6, n - 1, 1, n - 2],
+                        device=cuda_device)
+    rows = torch.arange(8, device=cuda_device)
+    flat = torch.empty(8 * n + 1, device=cuda_device)
+    for base in (flat[: 8 * n], flat[1:]):
+        p = base.view(8, n)
+        p.copy_(_noise_power((8, n), 7, cuda_device))
+        p[rows, cols] = 1e4
+        (det, thresh), (rdet, rthresh), launches = _cfar_routes(
+            p, guard, train, 1e-5)
+        assert launches == 1
+        assert torch.equal(thresh, rthresh) and torch.equal(det, rdet)
+        assert bool(det[rows, cols].all())
+
+
+@pytest.mark.parametrize("dtype, guard, train", [
+    (torch.float64, 2, 12),                     # float64 on the card
+    (torch.float32, 2041, 8),                   # one cell past MAX_SPAN
+])
+def test_cfar_off_the_kernel_on_the_card(dtype, guard, train, cuda_device):
+    """float64 and a span past the tile take the rolled route on the card:
+    no launch, the call counted in radar.cfars."""
+    from simpledsp_tpu_torch.utils import tracing
+    p = _noise_power((2, 2 * (guard + train) + 7), 3, cuda_device).to(dtype)
+    cfars = tracing.counters().get("radar.cfars", 0)
+    (det, thresh), (rdet, rthresh), launches = _cfar_routes(p, guard, train,
+                                                            1e-5)
+    assert launches == 0
+    assert tracing.counters()["radar.cfars"] == cfars + 1
+    assert torch.equal(thresh, rthresh) and torch.equal(det, rdet)
 
 
 def _chain_frames(n, device):

@@ -3,7 +3,9 @@ the JAX package and brute-force numpy, in float64 on the CPU.
 
 Tolerances: the range-Doppler map at 1e-9 relative to its largest cell and
 the matched filter at 1e-10 against the JAX package; the CFAR detection
-masks equal and the thresholds at 1e-12 relative.
+masks equal and the thresholds at 1e-12 relative.  The CFAR's rolled route
+against a float64 numpy box sum at 1e-12 (float64) and 1e-5 (float32, a
+few float32 roundings of sums of 2 train terms) of the largest threshold.
 """
 
 import jax.numpy as jnp
@@ -12,7 +14,9 @@ import pytest
 import torch
 
 from simpledsp_tpu.models import radar as jrd
+from simpledsp_tpu_torch.kernels import cfar as kcfar
 from simpledsp_tpu_torch.models import radar as trd
+from simpledsp_tpu_torch.utils import tracing
 
 
 def _t(a):
@@ -103,3 +107,98 @@ def test_bad_arguments_raise():
         trd.cfar_ca(p, guard=4, train=16)
     with pytest.raises(ValueError, match="n_pulses"):
         trd.range_doppler_map(p[0], p[0], *trd.lfm_chirp(8))
+
+
+# -- the CFAR's two routes (kernels/cfar) -------------------------------------------
+
+def _cfar_counts():
+    c = tracing.counters()
+    return c.get("radar.cfars", 0), c["kernel.cfar.launches"]
+
+
+def _box_reference(p, guard, train, pfa):
+    """Thresholds in float64 numpy: the mean of the 2 train training cells
+    (wrapping), times alpha, along the last axis."""
+    p = np.asarray(p, dtype=np.float64)
+    n_train = 2 * train
+    acc = sum(np.roll(p, k, -1) + np.roll(p, -k, -1)
+              for k in range(guard + 1, guard + train + 1))
+    return n_train * (pfa ** (-1.0 / n_train) - 1.0) * acc / n_train
+
+
+@pytest.mark.parametrize("dtype, guard, train, n", [
+    (torch.float32, 2, 12, 512),                      # the CPU
+    (torch.float64, 2, 12, 512),                      # float64
+    (torch.float32, kcfar.MAX_SPAN, 1, 2 * kcfar.MAX_SPAN + 3),  # span past
+])
+def test_cfar_off_the_kernel_takes_the_rolled_route(dtype, guard, train, n,
+                                                    rng):
+    """CPU tensors, float64 and a window wider than the kernel's tile go to
+    the rolled route: no kernel launch, the call counted in radar.cfars,
+    the thresholds those of the box sum."""
+    p = torch.as_tensor(rng.exponential(size=(3, n)), dtype=dtype)
+    assert not kcfar.cfar_kernel_supported(p, guard, train)
+    cfars, launches = _cfar_counts()
+    det, thresh = trd.cfar_ca(p, guard=guard, train=train, pfa=1e-5)
+    assert _cfar_counts() == (cfars + 1, launches)
+    ref = _box_reference(p.numpy(), guard, train, 1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    _close(thresh.numpy(), ref, tol)
+    assert det.dtype == torch.bool and det.shape == p.shape
+    assert torch.equal(det, p > thresh)
+
+
+@pytest.mark.parametrize("shape, axis", [
+    ((4096,), -1),            # a 1-D row
+    ((3, 16, 100), -1),       # the map's range axis, as it lies
+    ((3, 16, 100), -2),       # the Doppler axis: moved last in one copy
+    ((40, 3, 5), 0),
+    ((2, 3, 40, 5), 2),       # a 4-D batch
+])
+def test_cfar_kernel_route_gets_the_axis_last_and_contiguous(shape, axis,
+                                                             monkeypatch, rng):
+    """The kernel route's plumbing on the CPU, with the plain version in the
+    kernel's place: the kernel gets the map with ``axis`` last and
+    contiguous, and the outputs come back with the map's shape and the
+    rolled route's values."""
+    got = []
+
+    def fake_kernel(x, guard, train, alpha):
+        got.append((tuple(x.shape), x.is_contiguous()))
+        return kcfar.cfar_rolled(x, guard, train, alpha)
+
+    p = torch.as_tensor(rng.exponential(size=shape), dtype=torch.float32)
+    want = trd.cfar_ca(p, guard=1, train=4, pfa=1e-3, axis=axis)
+    monkeypatch.setattr(kcfar, "cfar_kernel_supported", lambda *a: True)
+    monkeypatch.setattr(kcfar, "cfar_kernel", fake_kernel)
+    cfars, _ = _cfar_counts()
+    det, thresh = trd.cfar_ca(p, guard=1, train=4, pfa=1e-3, axis=axis)
+    moved = p.movedim(axis, -1).shape
+    assert got == [(tuple(moved), True)]
+    assert _cfar_counts()[0] == cfars + 1
+    assert det.shape == thresh.shape == p.shape
+    assert torch.equal(det, want[0]) and torch.equal(thresh, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(guard=-1), "guard"),
+    (dict(train=0), "train"),
+    (dict(pfa=0.0), "pfa"),
+    (dict(pfa=1.0), "pfa"),
+    (dict(guard=4, train=16), "exceeds"),
+    (dict(guard=2, train=14), "exceeds"),     # 2 * 16 + 1 = 33 > 32
+])
+def test_cfar_keeps_its_argument_errors(kwargs, match, dtype):
+    p = torch.zeros(4, 32, dtype=dtype)
+    cfars, launches = _cfar_counts()
+    with pytest.raises(ValueError, match=match):
+        trd.cfar_ca(p, **kwargs)
+    assert _cfar_counts() == (cfars, launches)
+
+
+def test_cfar_kernel_wrapper_refuses_what_it_does_not_take():
+    p = torch.zeros(4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kcfar.cfar_kernel(p, 2, 12, 1.0)
+    assert kcfar.cfar_kernel_supported(p, 2, 12) is False

@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from simpledsp_tpu_torch.kernels import cfar as kcfar
 from simpledsp_tpu_torch.kernels import chain as kchain
 from simpledsp_tpu_torch.kernels import chain_variants as kcv
 from simpledsp_tpu_torch.kernels import conv2d as k2d
@@ -45,6 +46,7 @@ KERNELS = {
     "permute": kprobes.permute_kernel,
     "contract": kprobes.contract_kernel,
     "row_sum": kprobes.row_sum_kernel,
+    "cfar": kcfar.cfar_kernel,
 }
 
 CHAIN_SPANS = {"sdsp.chain.forward", "sdsp.chain.prepass",
@@ -373,6 +375,8 @@ def test_the_radar_counts_its_maps_and_cells():
     assert after["radar.maps"] - before.get("radar.maps", 0) == 1
     assert after["radar.cells"] - before.get("radar.cells", 0) \
         == power.numel() == 3 * 16 * 256
+    assert after["radar.cfars"] - before.get("radar.cfars", 0) == 1
+    assert after["kernel.cfar.launches"] == before["kernel.cfar.launches"]
 
 
 def _products(before):
