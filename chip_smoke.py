@@ -122,7 +122,7 @@ Phases (any failure exits nonzero before the result line):
     launches the frames kernel as often as the code implies; the stft's
     direct and FFT routes timed at nfft 1024 and 4096.  ms/call and
     Msamples/s, and ms/call with the engine's kernel routing off (the plain
-    four-step), the A/B behind the port's routing default.
+    four-step), the A/B behind the port's routing.
 16. Radar path: ``range_doppler_map`` and ``cfar_ca(guard=2, train=12,
     pfa=1e-5)`` on 16 CPIs x 256 pulses x 4096 range cells of complex
     float32 I/Q (seed 0; two targets, a 512-sample ``lfm_chirp(512, 0.8)``):
@@ -299,12 +299,16 @@ Phases (any failure exits nonzero before the result line):
     at N = 32768 against the float64 oracle.
     Phases 21-27 print their seconds, and the script its total.
 
-Every kernel's record gives its bound: the larger of the bytes it must move
-(each input read once, each output written once) over 3.35 TB/s and its
-operations over 67 TFLOP/s (float32 outside the tensor cores; an FFT counts
-5 N log2 N a complex frame), the H100 SXM data sheet's peaks; and the time
-of one PyTorch call that computes the same function (``F.conv1d`` /
-``F.conv2d`` with TF32 off, ``torch.fft.fft``), or null where there is none.
+Every kernel's record gives its bound on the benchmark's yardstick
+(``dspbench/roofline.py``: the H100 SXM data sheet's peaks, float32 outside
+the tensor cores): the larger of the bytes it must move (each input read
+once, each output written once) over the memory bandwidth and its
+operations over the float32 peak (an FFT counts 5 N log2 N a complex
+frame).  The chain family's rows and the PFB's fm_dec rows take the
+benchmark's own counts (``roofline.chain_work``, ``roofline.pfb_fm_work``);
+the other rows count their own.  Beside the bound, the time of one PyTorch
+call that computes the same function (``F.conv1d`` / ``F.conv2d`` with
+TF32 off, ``torch.fft.fft``), or null where there is none.
 
 The chain family's records (chain_full, chain_regs, chain_grouped with the
 "reg2" numbers, chain_store with the "regw" numbers) take ms, plain ms,
@@ -341,12 +345,14 @@ import time
 import numpy as np
 import torch
 
+from dspbench import roofline
+from simpledsp_tpu_torch.tools._common import graph_ms, median_ms
+
 C, T = 64, 1 << 20          # chain: channels, samples per channel per call
 SIZES = (1024, 2048, 4096, 16384, 200, 256, 512, 768, 1152)
 MAIN_N = 4096
 CALLS = 4
 MIN_SNR_DB = 130.0
-REPS = 5
 
 B, M, K = 16, 16, 16        # banks: streams, channels, taps per channel
 TB = 1 << 20                # banks: samples per stream per call
@@ -367,9 +373,6 @@ MIN_FFT_DB = 120.0
 MIN_TRANSFORM_DB = 100.0
 RC, RP, RS = 16, 256, 4096  # radar: CPIs, pulses, range cells
 RADAR_TARGETS = ((1000, 40, 1.0), (2900, -70, 0.7))   # (delay, Doppler bin, amp)
-
-HBM_BPS = 3.35e12           # H100 SXM: HBM3 bytes/s (NVIDIA's data sheet)
-FP32_FLOPS = 67e12          # float32 FLOP/s outside the tensor cores
 
 
 KERNELS = []                # every kernel wrapper with a launch count
@@ -401,33 +404,16 @@ def nbytes(*tensors) -> int:
 
 def bound(moved: int, flops: float) -> dict:
     """The least time the card could take for a function that moves
-    ``moved`` bytes and does ``flops`` float32 operations."""
-    t_bytes, t_ops = moved / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
-    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
-            else {"bound_ms": t_ops, "bound_by": "operations"})
+    ``moved`` bytes and does ``flops`` float32 operations
+    (``roofline.bound_s``), and which of the two sets it."""
+    by_bytes = roofline.bound_s(0, moved) >= roofline.bound_s(flops, 0)
+    return {"bound_ms": roofline.bound_s(flops, moved) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations"}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def median_ms(fn, reps=REPS, per=1) -> float:
-    """Median over ``reps`` CUDA-event timings of ``per`` back-to-back
-    calls, in ms per call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / per)
-    return float(np.median(times))
 
 
 def oracle_packed(design, x64: np.ndarray, n: int) -> np.ndarray:
@@ -534,7 +520,7 @@ def chain_phases(dev, kchain, NorthStarChain, design):
         plain_ms = median_ms(lambda: kchain.chain_frames_reference(x3, s3, tabs))
         per_size[n] = dict(snr=snr, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
         if n == MAIN_N:
-            per_size[n].update(chain_bound(x3, s3, tabs, (kr, ki), n))
+            per_size[n].update(chain_bound(x3, C, design.nsections))
         print(f"kernel N={n} ({ops.n1} x {ops.n2}) frames={x3.shape[0]}: "
               f"{snr:.2f} dB vs float64 plain (float32 plain {plain_snr:.2f} "
               f"dB), max |err| {max_err:.3e}; kernel {ms:.3f} ms, plain "
@@ -620,10 +606,11 @@ def chain_phases(dev, kchain, NorthStarChain, design):
 # -- the PFB kernels and the receiver banks ---------------------------------
 
 def pfb_flops(mode: str, samples: int, m: int, k: int) -> float:
-    """Operations of a PFB mode on ``samples`` complex input samples: the
-    FIR (4 K a sample), the M-point DFT (5 log2 M a sample), the demod (6
-    for FM's conjugate product, 3 for AM's magnitude) and the decimator
-    (2 KD / decim a channel sample)."""
+    """Operations of a PFB mode the benchmark does not count (chan, am,
+    am_dec, am_sum, undecimated fm; fm_dec is ``roofline.pfb_fm_work``) on
+    ``samples`` complex input samples: the FIR (4 K a sample), the M-point
+    DFT (5 log2 M a sample), the demod (6 for FM's conjugate product, 3 for
+    AM's magnitude) and the decimator (2 KD / decim a channel sample)."""
     per = 4 * k + 5 * np.log2(m)
     if mode != "chan":
         per += 6 if mode.startswith("fm") else 3
@@ -636,7 +623,6 @@ def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
     """Phase 6; returns {(layout, mode): (max |err|, kernel ms, plain ms,
     bound, device ms)}."""
     from simpledsp_tpu_torch.tools import pfb_stages
-    from simpledsp_tpu_torch.tools._common import graph_ms
     g = TB // M
     chan = PFBChannelizer(M, taps_per_channel=K, device=dev)
     ops = chan.kernel_ops
@@ -697,9 +683,13 @@ def pfb_kernel_phase(dev, kpfb, PFBChannelizer, lowpass_taps):
         print(f"pfb {layout} {mode}: max |err| {err:.3e} vs float64 plain, "
               f"tile seams bitwise equal; kernel {ms:.4f} ms (CUDA graph "
               f"{device_ms:.4f} ms), float32 plain {plain_ms:.3f} ms")
-        results[(layout, mode)] = (err, ms, plain_ms, bound(
-            nbytes(x, args, tabs, got), pfb_flops(mode, B * M * g, M, K)),
-            device_ms)
+        if mode == "fm_dec":
+            work = roofline.pfb_fm_work(B, M * g, M, K, DECIM, KD)
+            b = bound(work["bytes"], work["flops"])
+        else:
+            b = bound(nbytes(x, args, tabs, got),
+                      pfb_flops(mode, B * M * g, M, K))
+        results[(layout, mode)] = (err, ms, plain_ms, b, device_ms)
         del got, other, ref32
     del ftr, fti, xpr, xpi
     for m, k in PFB_CONFIGS:
@@ -871,7 +861,6 @@ def ols_kernel_phase(dev, kols):
     library ms, device ms)}: the library call is ``F.conv1d`` of the signal,
     the same full convolution; device ms the kernel's CUDA-graph time."""
     from simpledsp_tpu_torch.kernels.fft import _best_split
-    from simpledsp_tpu_torch.tools._common import graph_ms
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (CB, CT), dtype=np.float32), device=dev)
     results = {}
@@ -1041,7 +1030,6 @@ def conv2d_kernel_phase(dev, k2d):
     """Phase 12; returns {(kh, kw): (max |err|, kernel ms, plain ms, bound,
     library ms, device ms)}: the library call is ``F.conv2d``, VALID;
     device ms the kernel's CUDA-graph time."""
-    from simpledsp_tpu_torch.tools._common import graph_ms
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(
         (IB, IH, IH), dtype=np.float32), device=dev)
     results = {}
@@ -1086,7 +1074,6 @@ def conv2d_path(dev, k2d, conv2d):
     """Phase 13; returns the conv2d kernel's launches on the path."""
     import scipy.signal as ss
 
-    from simpledsp_tpu_torch.tools._common import graph_ms
     x_host = np.random.default_rng(8).standard_normal((IB, IH, IH),
                                                       dtype=np.float32)
     x = torch.as_tensor(x_host, device=dev)
@@ -1168,7 +1155,6 @@ def snr_planes(ref, got) -> float:
 
 def fft_kernel_phase(dev, kfft):
     """Phase 14; returns the record's numbers at N = 4096, forward complex."""
-    from simpledsp_tpu_torch.tools._common import graph_ms
     rng = np.random.default_rng(14)
     main = None
     for n in FFT_SIZES:
@@ -1250,12 +1236,13 @@ def fft_kernel_phase(dev, kfft):
 
 def plain_engine_ms(tfft, run, per=STEADY) -> float:
     """ms/call of ``run`` with the FFT engine's kernel routing off (the plain
-    four-step matmuls): the A/B behind the port's routing default."""
-    tfft._FUSED_DISPATCH = False
+    four-step matmuls): the A/B behind the port's routing."""
+    gate = tfft._use_fused_kernel
+    tfft._use_fused_kernel = lambda n, x: False
     try:
         return median_ms(run, reps=3, per=per)
     finally:
-        tfft._FUSED_DISPATCH = True
+        tfft._use_fused_kernel = gate
 
 
 def transform_path(dev, kfft, tfft, ttr, tsp):
@@ -1434,8 +1421,6 @@ def radar_stages(dev, scene=None) -> dict:
 def radar_path(dev, kfft, tfft, radar, kcfar):
     """Phase 16; returns the frames kernel's launches on the path and the
     CFAR kernel's record."""
-    from simpledsp_tpu_torch.tools._common import graph_ms
-
     scene = radar_scene(dev, radar)
     tx_re, tx_im, zr, zi, xr, xi = scene
     tx = tx_re + 1j * tx_im
@@ -1501,7 +1486,10 @@ def radar_path(dev, kfft, tfft, radar, kcfar):
                                              pfa=1e-5))
     rolled_ms = graph_ms(lambda: kcfar.cfar_rolled(rdm, 2, 12, alpha), per=4)
     cells = rdm.numel()
-    cfar_bound = bound(cells * (4 + 4 + 1), cells * 25.0)
+    # Its own count: roofline_radar counts the CFAR only inside the whole
+    # call, with the same operations, 2 T + 1 a cell (T = 12).  Bytes: the
+    # map read once, the threshold and the mask written once.
+    cfar_bound = bound(cells * (2 * roofline.F32 + 1), cells * (2 * 12 + 1.0))
     print(f"radar CFAR (guard 2, train 12) on the {RC} x {RP} x {RS} map: "
           f"{cfar_launches} CFAR kernel launch a call, device "
           f"{cfar_ms:.4f} ms (bound {cfar_bound['bound_ms']:.4f} ms, "
@@ -1533,13 +1521,15 @@ FAMILY_RECORDS = (
 )
 
 
-def chain_bound(x3, s3, tabs, outs, n) -> dict:
-    """The chain's bound: its inputs, tables and output planes once; the IIR
-    (n2 + 1 + 2 D flops a sample) and the real FFT (2.5 N log2 N a frame)."""
-    nf, _, n2 = x3.shape
-    return bound(nbytes(x3, s3, tabs, outs),
-                 x3.numel() * (n2 + 1 + 2 * s3.shape[1])
-                 + nf * 2.5 * n * np.log2(n))
+def chain_bound(x3, channels: int, sections: int) -> dict:
+    """A chain row's bound on the frames ``x3`` (C F, n1, n2) of ``channels``
+    channels: the benchmark's count of the algorithm
+    (``roofline.chain_work``, which ``chain_kernel_roofline`` reads), the
+    same for every form and layout."""
+    frames, n1, n2 = x3.shape
+    w = roofline.chain_work(channels, frames // channels * n1 * n2, n1 * n2,
+                            sections, 2 * (sections + 1))
+    return bound(w["bytes"], w["flops"])
 
 
 def natural(planes):
@@ -1562,11 +1552,11 @@ def chain_family_phase(dev, kchain, kcv, design):
         x64, s64 = x3.double(), s3.double()
         tabs = ops.tables()
         ftabs = ops.tables(full=True)
-        # (form, tables, kernel run, float32 plain run, float64 plain run)
+        # (form, kernel run, float32 plain run, float64 plain run)
         cases = []
         if n in FULL_SIZES:
             cases.append((
-                "full", ftabs, lambda: kchain.chain_frames_full(x3, s3, ftabs),
+                "full", lambda: kchain.chain_frames_full(x3, s3, ftabs),
                 lambda: kchain.chain_frames_full_reference(x3, s3, ftabs),
                 lambda: kchain.chain_frames_full_reference(
                     x64, s64, kchain.ChainTables(*(t.double() for t in ftabs)))))
@@ -1601,10 +1591,10 @@ def chain_family_phase(dev, kchain, kcv, design):
 
                     def run(g=g):
                         return kcv.chain_frames_grouped(x3, s3, tabs, g)
-                cases.append((layout, tabs, run, own_plain, half64))
+                cases.append((layout, run, own_plain, half64))
         refs = {}
         reg = None
-        for form, tb, run, plain32, plain64 in cases:
+        for form, run, plain32, plain64 in cases:
             got = natural(run())
             torch.cuda.synchronize()
             extra = ""
@@ -1628,7 +1618,7 @@ def chain_family_phase(dev, kchain, kcv, design):
             ms = median_ms(run)
             plain_ms = median_ms(plain32, reps=3)
             rec = dict(snr=snr, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       **chain_bound(x3, s3, tb, got, n))
+                       **chain_bound(x3, FAMILY_C, design.nsections))
             results[(form, n)] = rec
             print(f"chain family {form} N={n} ({ops.n1} x {ops.n2}{extra}) "
                   f"frames={x3.shape[0]}: {snr:.2f} dB vs float64 plain "

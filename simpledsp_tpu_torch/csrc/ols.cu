@@ -52,7 +52,7 @@
 // What bounds it: by its bytes (32 KB read and 29 KB written a pair at
 // N = 4096, about 8 flops a byte against the card's 20) it would be
 // bound by device memory; on the H100 it is not: its loads alone take a
-// sixth of its time (tools/ols_variants.py, a build cut after them), and
+// sixth of its time (a build cut after them, commit e437957, PERF.md §6), and
 // the passes execute about 20 instructions a value each (the radix-16 DFT,
 // the twiddles, the exchange through shared memory), two transforms a pair.
 // So the design cuts instructions and latency: the interleaved buffer (one
@@ -121,7 +121,7 @@ struct TapTurn {
 
 // The same product as the last pass's destination, into the buffer (where
 // the forward transform's last radix is 16: there pass_turn's registers
-// spill and it ran slower on the H100, tools/ols_variants.py).
+// spill and it ran slower on the H100: commit e437957, PERF.md §6).
 struct TapProduct {
   Interleaved s;
   TapTurn tap;

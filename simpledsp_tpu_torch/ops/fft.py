@@ -17,12 +17,13 @@ public boundary matches the JAX package's.  ``torch.fft`` is not used.
 On a CUDA tensor, a float32 transform of n = 128 m, 2 <= m <= 128, runs
 the frames FFT kernel (``kernels/fft._fft_frames``, ``csrc/fft.cu``)
 instead: :func:`_use_fused_kernel` is the JAX package's gate with "the
-tensor is on CUDA" for "the backend is a TPU", and ``_FUSED_DISPATCH`` is
-on here, where it is off in the JAX package (on the v5e the fused kernel
-lost to XLA's one batched einsum; on the card the alternative is the plain
-four-step above).  Larger sizes recurse with the inner transform on the
-kernel; float64 and CPU tensors never take it.  Sizes with a prime factor
-above 128 run Bluestein's chirp-z (``ops/transforms.czt_ri``).
+tensor is on CUDA" for "the backend is a TPU", and the port routes every
+transform it admits to the kernel.  The JAX package keeps its own switch,
+off there (on the v5e the fused kernel lost to XLA's one batched einsum;
+on the card the alternative is the plain four-step above).  Larger sizes
+recurse with the inner transform on the kernel; float64 and CPU tensors
+never take it.  Sizes with a prime factor above 128 run Bluestein's chirp-z
+(``ops/transforms.czt_ri``).
 
 The complex-dtype wrappers (:func:`fft`, :func:`ifft`, :func:`rfft`,
 :func:`irfft`, :func:`fft2`, :func:`ifft2`) take and return complex torch
@@ -193,19 +194,13 @@ def _dft_last(xr: torch.Tensor, xi: torch.Tensor, inverse: bool
     return yr.reshape(lead + (n,)), yi.reshape(lead + (n,))
 
 
-# Route this engine through the frames FFT kernel (kernels/fft.py) where
-# _use_fused_kernel admits the transform.  On in the port, off in the JAX
-# package (see the module docstring).
-_FUSED_DISPATCH = True
-
-
 def _use_fused_kernel(n: int, x: torch.Tensor) -> bool:
-    """Route this transform of ``x`` through the frames FFT kernel?
+    """Route this transform of ``x`` through the frames FFT kernel
+    (``kernels/fft.py``)?
 
-    Requires ``_FUSED_DISPATCH``, a CUDA tensor, float32 and the JAX
-    package's size gate n = 128 m, 2 <= m <= 128 (n <= _MAX_DFT is
-    already one dense matmul)."""
-    if not _FUSED_DISPATCH or x.dtype != torch.float32:
+    Requires a CUDA tensor, float32 and the JAX package's size gate
+    n = 128 m, 2 <= m <= 128 (n <= _MAX_DFT is already one dense matmul)."""
+    if x.dtype != torch.float32:
         return False
     if n % 128 or not 2 <= n // 128 <= 128:
         return False

@@ -1,8 +1,8 @@
 """What the probes share: the card they measure, CUDA-event and host timing,
-checks that raise, and the command-line entry; and what the tools that
-time edited sources share (``conv2d_variants``, ``contract_variants``,
-``ols_variants``, ``chain_stages``): sources edited into a directory of
-their own, builds run all at once, and arms timed in turns, a process each.
+checks that raise, and the command-line entry; and what ``chain_stages``
+uses to split a kernel by stage: sources edited into a directory of their
+own and builds run all at once.  The card's peaks are the benchmark's
+(``dspbench/roofline.py``).
 
 A probe measures the card, so it runs on a CUDA device or raises: there is
 no CPU version of a probe (the CPU tests hold the kernels' plain versions
@@ -14,7 +14,6 @@ from __future__ import annotations
 import json
 import shutil
 import subprocess
-import sys
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -22,13 +21,13 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dspbench.roofline import HBM_BYTES_PER_S as HBM_BPS
 from simpledsp_tpu_torch.device import resolve_device
 
 __all__ = ["HBM_BPS", "cuda_device", "median_ms", "capture_graph",
            "graph_ms", "host_us", "require", "same_bits", "randn", "record",
-           "main", "edited_csrc", "build_all", "time_in_turns"]
+           "main", "edited_csrc", "build_all"]
 
-HBM_BPS = 3.35e12           # H100 SXM: HBM3 bytes/s (NVIDIA's data sheet)
 REPS = 5
 
 
@@ -177,34 +176,3 @@ def build_all(commands: Sequence[Sequence[str]], what: str) -> None:
               for c in commands]
     if any([b.wait() for b in builds]):
         raise RuntimeError(f"{what}: a build failed")
-
-
-def time_in_turns(script: str, arms: Sequence[Tuple[str, ...]],
-                  turns: int, extra: Sequence[str] = ()) -> dict:
-    """Run ``python3 script --child ROOT CSRC *extra *own`` for each arm
-    (name, root, csrc[, own]: that arm's own arguments): once with
-    ``--build-only``, all at once, then once a turn, the arms forward in
-    even turns and backward in odd ones.  Each child prints a JSON object
-    as its last line; returns {"nvidia_smi", "runs"}."""
-    arms = [(a[0], a[1], a[2], tuple(a[3]) if len(a) > 3 else ())
-            for a in arms]
-    extra = tuple(extra)
-    build_all([[sys.executable, script, "--child", root, csrc, "--build-only"]
-               for _, root, csrc, _ in {a[2]: a for a in arms}.values()],
-              script)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    runs = []
-    for turn in range(turns):
-        for name, root, csrc, own in (arms if turn % 2 == 0
-                                      else arms[::-1]):
-            proc = subprocess.run([sys.executable, script, "--child", root,
-                                   csrc, *extra, *own], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"{name} failed:\n{proc.stdout}"
-                                   f"{proc.stderr}")
-            runs.append({"arm": name, "turn": turn,
-                         **json.loads(proc.stdout.strip().splitlines()[-1])})
-    return {"nvidia_smi": smi, "runs": runs}

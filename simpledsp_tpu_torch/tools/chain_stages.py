@@ -6,10 +6,10 @@ Builds copies of both sources that stop every block after its loads, or
 after its IIR block (the ``SDSP_CHAIN_CUT_AT`` hook of
 ``csrc/chain_natural.cuh``, 1 or 2, the values so far kept live) and times
 them beside the whole kernels, on the frames and starts of 16 x 2^20
-float32 noise (seed 17, as ``tools/chain_forms.py``) at N = 200, 1024,
-4096 and 16384, as CUDA-graph replays: device time, without the wrappers'
-host work.  A stage's time is the difference of two cuts: "load", then
-"iir" (the loads and the IIR block), then "all".
+float32 noise (seed 17, as the chain-forms timer of commit e437957) at
+N = 200, 1024, 4096 and 16384, as CUDA-graph replays: device time, without
+the wrappers' host work.  A stage's time is the difference of two cuts:
+"load", then "iir" (the loads and the IIR block), then "all".
 
     python3 simpledsp_tpu_torch/tools/chain_stages.py [--sizes 4096 ...]
 

@@ -537,15 +537,6 @@ def test_fmajor_plain_rows_are_the_k1_major_spectrum(rng):
     assert torch.equal(fi.transpose(1, 2).reshape(3, -1), ri)
 
 
-def test_chain_forms_tool_needs_a_card():
-    """``tools/chain_forms.py`` times the card and raises without one."""
-    from simpledsp_tpu_torch.tools import chain_forms
-
-    assert set(chain_forms.LAYOUTS) == set(tchain.LAYOUTS)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        chain_forms.run(sizes=(200,))
-
-
 def test_chain_stages_tool_has_its_hook_and_needs_a_card():
     """``tools/chain_stages.py`` cuts the chain kernel through the
     ``SDSP_CHAIN_CUT_AT`` hook of ``csrc/chain_natural.cuh`` (after the

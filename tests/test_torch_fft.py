@@ -429,7 +429,6 @@ def test_dispatch_gate(n):
         assert not tfft._use_fused_kernel(n, torch.zeros(1, dtype=dtype))
     meta = torch.empty(1, dtype=torch.float32, device="meta")
     assert not tfft._use_fused_kernel(n, meta)
-    assert tfft._FUSED_DISPATCH
 
 
 @pytest.mark.parametrize("n", [256, 4096, 32768])

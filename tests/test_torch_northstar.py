@@ -221,7 +221,6 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.tools.probe_transpose\n"
             "import simpledsp_tpu_torch.tools.probe_relayout\n"
             "import simpledsp_tpu_torch.tools.probe_mosaic\n"
-            "import simpledsp_tpu_torch.tools.chain_forms\n"
             "import simpledsp_tpu_torch.utils.fixtures\n"
             "import simpledsp_tpu_torch.utils.intmath\n"
             "import simpledsp_tpu_torch.ops.lfilter\n"
@@ -248,7 +247,6 @@ def test_port_imports_no_jax():
             "import simpledsp_tpu_torch.entry\n"
             "import simpledsp_tpu_torch.utils.benchmark\n"
             "import simpledsp_tpu_torch.utils.debug\n"
-            "import simpledsp_tpu_torch.tools.rank_forms\n"
             "import simpledsp_tpu_torch.ops.peaks\n"
             "import simpledsp_tpu_torch.ops.smooth\n"
             "import simpledsp_tpu_torch.ops.splines\n"

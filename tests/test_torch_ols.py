@@ -335,17 +335,3 @@ def test_ols_kernel_exchanges_have_no_bank_conflict(nfft):
             p = p[p >= 0]
             slots = (p ^ ((p >> 4) & 15)) % 16
             assert len(set(slots.tolist())) == len(p), (nfft, p)
-
-
-def test_ols_variants_tool_edits_apply_and_need_a_card():
-    """``tools/ols_variants.py`` builds each variant by one edit of
-    ``csrc/ols.cu``: every edit's text is in the source once, and the tool
-    times the card and raises without one."""
-    from simpledsp_tpu_torch.kernels import _build
-    from simpledsp_tpu_torch.tools import ols_variants
-
-    text = (_build.CSRC_DIR / "ols.cu").read_text()
-    for name, edit in ols_variants.VARIANTS.items():
-        assert edit is None or text.count(edit[0]) == 1, name
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ols_variants.run(variants=("all",))

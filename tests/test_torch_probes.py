@@ -499,3 +499,38 @@ def test_probes_need_the_card(probe):
     module = importlib.import_module(f"simpledsp_tpu_torch.tools.{probe}")
     with pytest.raises(RuntimeError, match="CUDA"):
         module.run("cpu")
+
+
+@pytest.mark.parametrize("case", ["probes_peak", "smoke_timing",
+                                  "smoke_chain_bound"])
+def test_one_yardstick_for_the_card(case):
+    """The card-side scripts take the card's peaks and the chain's count
+    from the benchmark's yardstick (``dspbench/roofline.py``) and time with
+    ``tools/_common``: the probes' bandwidth is the benchmark's; the smoke
+    script keeps no peaks or timer of its own; its chain rows' bound is
+    ``roofline.chain_work``'s."""
+    import chip_smoke
+    from dspbench import roofline
+    from simpledsp_tpu_torch.tools import _common
+
+    if case == "probes_peak":
+        assert _common.HBM_BPS is roofline.HBM_BYTES_PER_S
+    elif case == "smoke_timing":
+        assert not hasattr(chip_smoke, "HBM_BPS")
+        assert not hasattr(chip_smoke, "FP32_FLOPS")
+        assert chip_smoke.median_ms is _common.median_ms
+    else:
+        from simpledsp_tpu_torch.kernels import chain as kchain
+        from simpledsp_tpu_torch.models.northstar import default_design
+
+        design = default_design()
+        m, c, t, n = design.nsections, 2, 1024, 256
+        ops = kchain.FusedNorthStarOperators(design, n, device="cpu")
+        assert ops.state_dim == 2 * (m + 1)
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (c, t), dtype=np.float32))
+        x3, _, _ = kchain.chain_prepass(ops, x, torch.zeros(c, ops.state_dim))
+        w = roofline.chain_work(c, t, n, m, 2 * (m + 1))
+        got = chip_smoke.chain_bound(x3, c, m)
+        assert got["bound_ms"] == pytest.approx(
+            roofline.bound_s(w["flops"], w["bytes"]) * 1e3, rel=1e-12)
