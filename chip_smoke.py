@@ -14,12 +14,13 @@ Phases (any failure exits nonzero before the result line):
 
 1. Device: a CUDA device is required; prints the card's name and power limit.
 2. Build: compiles ``simpledsp_tpu_torch/csrc/chain.cu``, ``chain_tc.cu``,
-   ``pfb.cu``, ``ols.cu``, ``conv2d.cu``, ``fft.cu`` and ``probes.cu`` into
-   ``build/``, one nvcc for each, and the host runtime's
-   ``native/sdsp_io.cpp`` with g++, all started together (``chain.cu``,
-   ``chain_tc.cu``, ``ols.cu`` and ``fft.cu`` include the FFT core
-   ``fft_core.cuh``; the two chain sources the kernel's template
-   ``chain_natural.cuh``); prints each compiler's seconds.
+   ``pfb.cu``, ``ols.cu``, ``conv2d.cu``, ``fft.cu``, ``probes.cu``,
+   ``cfar.cu`` and ``doppler.cu`` into ``build/``, one nvcc for each, and
+   the host runtime's ``native/sdsp_io.cpp`` with g++, all started
+   together (``chain.cu``, ``chain_tc.cu``, ``ols.cu`` and ``fft.cu``
+   include the FFT core ``fft_core.cuh``; the two chain sources the
+   kernel's template ``chain_natural.cuh``); prints each compiler's
+   seconds.
 3. Chain kernel against its plain version at N = 1024, 2048, 4096, 16384
    and at the smaller splits N = 200, 256, 512, 768, 1152, on the frames
    and sub-block starts that 64 x 2^20 samples of noise give: >= 130 dB SNR
@@ -127,11 +128,17 @@ Phases (any failure exits nonzero before the result line):
     pfa=1e-5)`` on 16 CPIs x 256 pulses x 4096 range cells of complex
     float32 I/Q (seed 0; two targets, a 512-sample ``lfm_chirp(512, 0.8)``):
     the map >= 100 dB against a float64 numpy oracle, both targets detected
-    in every CPI, a detection-cell fraction below 5e-3, three kernel
-    launches a call (8192-point forward and inverse, 256-point Doppler)
-    and one CFAR kernel launch a ``cfar_ca`` call, whose threshold and
-    mask equal the rolled route's bit for bit; the CFAR kernel's device
-    ms (CUDA graph) beside its bound and the rolled route's.
+    in every CPI, a detection-cell fraction below 5e-3, two frames kernel
+    launches a call (8192-point forward and inverse), one Doppler kernel
+    launch a map (256 pulses) and one CFAR kernel launch a ``cfar_ca``
+    call, whose threshold and mask equal the rolled route's bit for bit;
+    the CFAR kernel's device ms (CUDA graph) beside its bound and the
+    rolled route's.  The Doppler kernel against its plain route
+    (``doppler_power_plain``) on the card, at the benchmark's 64 x 128 x
+    4096 (noise read from rows of 8192, seed 16) and on this scene's
+    matched filter output (16 x 256 x 4096): relative RMS error at most
+    1e-6, its device ms (CUDA graph) beside its bound (y read once, the map
+    written once) and the plain route's.
     ms/call, and with the kernel routing off.  The map's accuracy stage by
     stage (``radar_stages``: range FFT, inverse, matched filter, Doppler
     FFT, and the map on and off the targets' cells).
@@ -321,7 +328,10 @@ contract from probe_mosaic's k1 (``torch.einsum``) and row_sum from its k3
 (``torch.sum``).  The cfar record (a kernel that replaces no TPU kernel:
 ``replaces`` is null) takes its device ms (CUDA graph), the rolled
 route's as ``plain_ms`` and its bound from phase 16, and counts the
-launches of phases 16 and 27.
+launches of phases 16 and 27; so does the doppler record (no TPU kernel
+either), at 64 x 128 x 4096, with ``torch.fft.fft`` across the pulses
+and its power and roll as ``library_ms`` (a yardstick the port never
+calls).
 
 The ols and fft_frames records count the launches of phases 21, 23, 26
 and 27 beside those of phases 11 and 15-16; the chain_frames and pfb_flat
@@ -1418,9 +1428,9 @@ def radar_stages(dev, scene=None) -> dict:
     return {k: float(10 * np.log10(s2 / e2)) for k, (s2, e2) in sums.items()}
 
 
-def radar_path(dev, kfft, tfft, radar, kcfar):
+def radar_path(dev, kfft, tfft, radar, kcfar, kdop):
     """Phase 16; returns the frames kernel's launches on the path and the
-    CFAR kernel's record."""
+    CFAR and Doppler kernels' records."""
     scene = radar_scene(dev, radar)
     tx_re, tx_im, zr, zi, xr, xi = scene
     tx = tx_re + 1j * tx_im
@@ -1434,8 +1444,11 @@ def radar_path(dev, kfft, tfft, radar, kcfar):
     rdm, det = run()
     torch.cuda.synchronize()
     launches = kfft.fft_frames_kernel.launches
-    check(launches == 3, f"range_doppler_map launched the frames FFT kernel "
-                         f"{launches} times, not 3")
+    check(launches == 2, f"range_doppler_map launched the frames FFT kernel "
+                         f"{launches} times, not 2")
+    doppler_launches = kdop.doppler_power.launches
+    check(doppler_launches == 1, f"range_doppler_map launched the Doppler "
+                                 f"kernel {doppler_launches} times, not once")
     cfar_launches = kcfar.cfar_kernel.launches
     check(cfar_launches == 1, f"cfar_ca launched the CFAR kernel "
                               f"{cfar_launches} times, not once")
@@ -1496,12 +1509,61 @@ def radar_path(dev, kfft, tfft, radar, kcfar):
           f"{cfar_bound['bound_by']}: "
           f"{100 * cfar_bound['bound_ms'] / cfar_ms:.1f} %), the rolled "
           f"route {rolled_ms:.4f} ms; bits equal")
+    doppler = doppler_kernel_phase(dev, tfft, radar, kdop, scene)
     return launches, {
         "name": "cfar", "route": "cuda",
         "source": "simpledsp_tpu_torch/csrc/cfar.cu", "replaces": None,
         "launches": cfar_launches, "max_abs_err": 0.0, "ms": None,
         "device_ms": cfar_ms, "plain_ms": rolled_ms, **cfar_bound,
-        "library_ms": None}
+        "library_ms": None}, {
+        "name": "doppler", "route": "cuda",
+        "source": "simpledsp_tpu_torch/csrc/doppler.cu", "replaces": None,
+        "launches": doppler_launches, "ms": None, **doppler}
+
+
+def doppler_kernel_phase(dev, tfft, radar, kdop, scene) -> dict:
+    """Phase 16's Doppler kernel against its plain route, at the benchmark's
+    64 x 128 x 4096 and on the scene's matched filter output; returns the
+    first's numbers for the kernel's record."""
+    tx_re, tx_im, _, _, xr, xi = scene
+    gen = torch.Generator(device=dev).manual_seed(16)
+    noise = torch.randn((2, 64, 128, 2 * RS), generator=gen, device=dev)
+    yr, yi = radar.matched_filter_ri(xr, xi, tx_re, tx_im)
+    record = None
+    for what, ur, ui in (("noise", noise[0][..., :RS], noise[1][..., :RS]),
+                         ("the scene's matched filter output", yr, yi)):
+        b, p, n = ur.shape
+        w = tfft._table(radar.window_taps("hann", p), ur)[:, None]
+        got = kdop.doppler_power(ur, ui, w)
+        want = kdop.doppler_power_plain(ur, ui, w)
+        err = float(((got.double() - want) ** 2).sum().sqrt()
+                    / (want.double() ** 2).sum().sqrt())
+        check(err <= 1e-6, f"the Doppler kernel at {b} x {p} x {n} is "
+                           f"{err:.3e} (relative RMS) from its plain route")
+        ms = graph_ms(lambda: kdop.doppler_power(ur, ui, w))
+        plain_ms = graph_ms(lambda: kdop.doppler_power_plain(ur, ui, w), per=4)
+
+        def library():
+            d = torch.fft.fft(torch.complex(ur * w, ui * w), dim=-2)
+            return torch.roll(d.real * d.real + d.imag * d.imag, p // 2, -2)
+
+        library_ms = graph_ms(library, per=4)
+        # y's planes read once, the map written once; the window (2 a
+        # complex sample), 5 P log2 P a column and the power (3 a cell).
+        cells = b * p * n
+        bnd = bound(cells * 3 * roofline.F32,
+                    cells * 5.0 + b * n * 5.0 * p * np.log2(p))
+        print(f"radar Doppler kernel at {b} x {p} x {n} ({what}): 1 launch, "
+              f"{err:.3e} relative RMS from the plain route; device "
+              f"{ms:.4f} ms (bound {bnd['bound_ms']:.4f} ms, "
+              f"{bnd['bound_by']}: {100 * bnd['bound_ms'] / ms:.1f} %), "
+              f"the plain route {plain_ms:.4f} ms, torch.fft.fft across the "
+              f"pulses with its power and roll {library_ms:.4f} ms")
+        if record is None:
+            record = {"max_abs_err": float((got - want).abs().max()),
+                      "device_ms": ms, "plain_ms": plain_ms, **bnd,
+                      "library_ms": library_ms}
+    return record
 
 
 # -- the rest of the chain kernel family ----------------------------------------
@@ -3346,6 +3408,7 @@ def main() -> int:
     from simpledsp_tpu_torch.kernels import chain as kchain
     from simpledsp_tpu_torch.kernels import chain_variants as kcv
     from simpledsp_tpu_torch.kernels import conv2d as k2d
+    from simpledsp_tpu_torch.kernels import doppler as kdop
     from simpledsp_tpu_torch.kernels import fft as kfft
     from simpledsp_tpu_torch.kernels import ols as kols
     from simpledsp_tpu_torch.kernels import pfb as kpfb
@@ -3365,7 +3428,8 @@ def main() -> int:
                   kcv.chain_regs_kernel, kcv.chain_grouped_kernel,
                   kcv.chain_store_kernel, kprobes.scale_copy_kernel,
                   kprobes.permute_kernel, kprobes.contract_kernel,
-                  kprobes.row_sum_kernel, kcfar.cfar_kernel]
+                  kprobes.row_sum_kernel, kcfar.cfar_kernel,
+                  kdop.doppler_power]
     # The library calls timed beside the kernels run in IEEE float32 too.
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3381,15 +3445,16 @@ def main() -> int:
                kols.ols_kernel.library, k2d.conv2d_kernel.library,
                kfft.fft_frames_kernel.library, kcv.chain_regs_kernel.library,
                kprobes.scale_copy_kernel.library, kcfar.cfar_kernel.library,
-               runtime.load_library])
+               kdop.doppler_power.library, runtime.load_library])
     secs = _build.build_seconds
     print(f"build: chain.cu {secs['sdsp_chain']:.2f} s, chain_tc.cu "
           f"{secs['sdsp_chain_tc']:.2f} s, pfb.cu "
           f"{secs['sdsp_pfb']:.2f} s, ols.cu {secs['sdsp_ols']:.2f} s, "
           f"conv2d.cu {secs['sdsp_conv2d']:.2f} s, fft.cu "
           f"{secs['sdsp_fft']:.2f} s, probes.cu "
-          f"{secs['sdsp_probes']:.2f} s and cfar.cu "
-          f"{secs['sdsp_cfar']:.2f} s in nvcc, native/sdsp_io.cpp "
+          f"{secs['sdsp_probes']:.2f} s, cfar.cu {secs['sdsp_cfar']:.2f} s "
+          f"and doppler.cu {secs['sdsp_doppler']:.2f} s in nvcc, "
+          f"native/sdsp_io.cpp "
           f"{secs['sdsp_io']:.2f} s in g++, "
           f"{time.perf_counter() - start:.2f} s for all with loading")
 
@@ -3407,7 +3472,8 @@ def main() -> int:
     conv2d_launches = conv2d_path(dev, k2d, conv2d)
     fft_main = fft_kernel_phase(dev, kfft)
     fft_launches = transform_path(dev, kfft, tfft, ttr, tsp)
-    radar_launches, cfar_record = radar_path(dev, kfft, tfft, radar, kcfar)
+    radar_launches, cfar_record, doppler_record = radar_path(
+        dev, kfft, tfft, radar, kcfar, kdop)
     fft_launches += radar_launches
     probe_records = probe_phase(dev, kprobes)
     start = time.perf_counter()
@@ -3438,6 +3504,7 @@ def main() -> int:
                       + examples[kpfb.pfb_flat_kernel])
     frames_launches += examples[kpfb.pfb_frames_kernel]
     cfar_record["launches"] += examples[kcfar.cfar_kernel]
+    doppler_record["launches"] += examples[kdop.doppler_power]
     ols_launches += (ols_more + sharded[kols.ols_kernel]
                      + examples[kols.ols_kernel])
     fft_launches += (fft_more + sharded[kfft.fft_frames_kernel]
@@ -3492,7 +3559,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     } for name, form, src, replaces in FAMILY_RECORDS] + probe_records
-        + [cfar_record]}))
+        + [cfar_record, doppler_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -13,8 +13,8 @@ cells.  The JAX script's ``jax.jit`` pipeline is a plain function here.
     python -m simpledsp_tpu_torch.examples.radar_rdm [--device cpu]
 
 On the card the matched filter's 1024-point range transforms run the
-frames FFT kernel; the 64-point Doppler transform is the FFT engine's
-small-DFT route (fixed-shape products).
+frames FFT kernel, and the Doppler stage across the 64 pulses (window,
+transform, power, roll) the Doppler kernel (``kernels/doppler``).
 """
 
 from __future__ import annotations

@@ -11,17 +11,25 @@ Port of ``simpledsp_tpu/models/radar.py``:
       -> CA-CFAR             (cell-averaging constant false alarm rate
                               detector; box sums, no gathers)
 
-(re, im) float planes end to end, batched over leading axes.  The
-transforms run on the FFT engine (``ops/fft``).  On a CUDA float32 tensor
-the range FFTs (4096 + 511 samples pad to 8192) run the frames FFT kernel,
-one launch forward and one inverse, and so does a Doppler FFT of 256
-pulses or more, a third.  A Doppler FFT of 128 pulses or fewer is below
-the kernel's gate (n = 128 m, m >= 2) and takes the small-DFT route
-(``ops/fft._dft_last``): fixed-shape products of 2^20 values each, one a
-plane and a block of 2^20 / n rows, so that a row's bits do not depend on
-its batch.  At 64 beams x 128 pulses x 4096 range cells that is 262,144
-rows, 32 blocks and 64 products a call, not one matmul.  The TX spectrum
-is a host float64 constant per waveform, as in the JAX package.
+(re, im) float planes end to end, batched over leading axes.  The range
+transforms run on the FFT engine (``ops/fft``): on a CUDA float32 tensor
+(4096 + 511 samples pad to 8192) the frames FFT kernel, one launch forward
+and one inverse.  The TX spectrum is a host float64 constant per waveform,
+as in the JAX package.
+
+The Doppler stage (window, FFT across the pulses, power, roll) takes one of
+two routes (``kernels/doppler``).  A plain ``torch.Tensor`` in float32 on a
+CUDA device, with a power-of-two number of pulses from 16 to 512, runs the
+Doppler kernel: one launch that reads the matched filter's output where it
+lies and writes the power map once.  The CPU, float64, a ``DTensor`` and
+other pulse counts take the plain route (``doppler_power_plain``): the
+window, the pulses moved last, the FFT engine across them (the small-DFT
+route's fixed-shape products at 128 pulses or fewer; on a card in float32
+the frames FFT kernel at 128 m pulses, m >= 2), the power and the roll,
+which the CPU tests hold to the JAX package.  The routes agree to float32
+rounding, not bit for bit (a radix-2 FFT in registers against the engine's
+transforms); each gives a beam, and a range cell, the same bits alone as
+inside a batch.
 
 :func:`cfar_ca` takes one of two routes (``kernels/cfar``).  A plain
 ``torch.Tensor`` in float32 on a CUDA device, with guard + train at most
@@ -33,13 +41,13 @@ the CPU tests hold to the JAX package.  Both give the same bits.
 
 Spans (``utils/tracing``): ``sdsp.radar.map`` around
 :func:`range_doppler_map`, with ``sdsp.radar.range`` (the matched filter)
-and ``sdsp.radar.doppler`` (the window, the transposes, the Doppler
-transform, the power and the roll) inside it; ``sdsp.radar.cfar`` around
-:func:`cfar_ca`.  Counters: ``radar.maps`` (calls of
-:func:`range_doppler_map`), ``radar.cells`` (range-Doppler cells mapped)
-and ``radar.cfars`` (calls of :func:`cfar_ca`, either route); over
-``radar.cfars``, the kernel's ``kernel.cfar.launches`` is the share of
-CFARs on the kernel.
+and ``sdsp.radar.doppler`` (the Doppler stage, either route) inside it;
+``sdsp.radar.cfar`` around :func:`cfar_ca`.  Counters: ``radar.maps``
+(calls of :func:`range_doppler_map`), ``radar.cells`` (range-Doppler cells
+mapped) and ``radar.cfars`` (calls of :func:`cfar_ca`, either route); over
+``radar.maps``, ``kernel.doppler.launches`` is the share of maps on the
+Doppler kernel, and over ``radar.cfars``, ``kernel.cfar.launches`` the
+share of CFARs on the CFAR kernel.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from simpledsp_tpu_torch.kernels import cfar as _cfar
+from simpledsp_tpu_torch.kernels import doppler as _doppler
 from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.ops.fft import _table
 from simpledsp_tpu_torch.ops.spectral import window_taps
@@ -124,12 +133,9 @@ def range_doppler_map(xr: torch.Tensor, xi: torch.Tensor, tx_re, tx_im, *,
         with tracing.span("sdsp.radar.doppler"):
             n_pulses = yr.shape[-2]
             w = _table(window_taps(window, n_pulses), yr)[:, None]
-            # Doppler FFT across the pulse axis: pulses to the last axis
-            # and back.
-            dr, di = _fft.fft_ri((yr * w).transpose(-1, -2),
-                                 (yi * w).transpose(-1, -2))
-            dr, di = dr.transpose(-1, -2), di.transpose(-1, -2)
-            return torch.roll(dr * dr + di * di, n_pulses // 2, -2)
+            if _doppler.doppler_kernel_supported(yr, n_pulses):
+                return _doppler.doppler_power(yr, yi, w)
+            return _doppler.doppler_power_plain(yr, yi, w)
 
 
 def cfar_ca(power: torch.Tensor, *, guard: int = 2, train: int = 8,

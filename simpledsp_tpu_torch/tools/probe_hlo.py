@@ -43,7 +43,7 @@ from simpledsp_tpu_torch.tools._common import (cuda_device, main, randn,
 HAND_KERNELS = ("chain_natural_kernel", "chain_regs_kernel", "pfb_kernel", "sum_partials_kernel",
                 "ols_frames_kernel", "conv2d_valid_kernel", "fft_frames_kernel",
                 "scale_copy_kernel", "permute_kernel", "contract_kernel",
-                "row_sum_kernel", "cfar_ca_kernel")
+                "row_sum_kernel", "cfar_ca_kernel", "doppler_power_kernel")
 
 # Idle seconds before each call inside its range and after it outside: the
 # trace's host and device timestamps may disagree, and without a margin a

@@ -10,10 +10,12 @@ Counters
     (``bank.direct_calls``: ``__call__``'s fused path, also under the
     sharded bank), and the bytes its copies of the new channelizer history
     move (``bank.prefix_bytes``).  The radar counts its maps
-    (``radar.maps``), the range-Doppler cells they map (``radar.cells``)
-    and its CFARs (``radar.cfars``, either route: ``kernel.cfar.launches``
-    over it is the share on the kernel); the FFT engine's small-DFT route
-    counts the fixed-shape products it launches (``fft.dft_products``).
+    (``radar.maps``: ``kernel.doppler.launches`` over it is the share on
+    the Doppler kernel), the range-Doppler cells they map
+    (``radar.cells``) and its CFARs (``radar.cfars``, either route:
+    ``kernel.cfar.launches`` over it is the share on the CFAR kernel); the
+    FFT engine's small-DFT route counts the fixed-shape products it
+    launches (``fft.dft_products``).
 
 Spans
     ``with span("sdsp.chain.prepass"):`` marks one layer's part of a call.
@@ -52,8 +54,8 @@ The names the port records, each at its layer's boundary:
 - ``sdsp.sharded_chain.unwrap``: the outputs placed on the mesh;
 - ``sdsp.radar.map``: ``models/radar.range_doppler_map``, a map;
 - ``sdsp.radar.range``: its pulse compression (``matched_filter_ri``);
-- ``sdsp.radar.doppler``: its window, transposes, Doppler transform, power
-  and roll;
+- ``sdsp.radar.doppler``: its Doppler stage (window, transform across the
+  pulses, power and roll), the Doppler kernel or its plain version;
 - ``sdsp.radar.cfar``: ``cfar_ca``, a span with no parent of its own.
 """
 

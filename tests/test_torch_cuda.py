@@ -43,7 +43,11 @@ same bars on the plain route, with no chain or PFB launch.  The smoothing
 filters: in float64 within 1e-12 of the largest output of the same call on
 the CPU, in float32 >= 100 dB against it (the FIR bar); the rank filters
 give the CPU's bits; ``max_len_seq`` equals scipy.  The CFAR kernel: equal
-bit for bit to the rolled route on the same float32 map.
+bit for bit to the rolled route on the same float32 map.  The Doppler
+kernel: a relative RMS error of at most 1e-6 against its plain route and
+against float64 numpy on the same float32 y (a float32 FFT of 16-512
+points and its square read about 1-2e-7 on the H100), and a beam or a
+range cell alone the bits it has inside a batch.
 """
 
 import numpy as np
@@ -57,6 +61,7 @@ from simpledsp_tpu_torch.kernels import cfar as tkcfar
 from simpledsp_tpu_torch.kernels import chain as tchain
 from simpledsp_tpu_torch.kernels import chain_variants as tcv
 from simpledsp_tpu_torch.kernels import conv2d as tk2d
+from simpledsp_tpu_torch.kernels import doppler as tkdop
 from simpledsp_tpu_torch.kernels import fft as tkfft
 from simpledsp_tpu_torch.kernels import ols as tols
 from simpledsp_tpu_torch.kernels import pfb as tpfb
@@ -667,7 +672,8 @@ def test_fft_frames_kernel_rejects_what_it_does_not_take(cuda_device):
 def test_engine_paths_launch_the_frames_kernel(cuda_device):
     """fft / ifft / rfft / irfft, Bluestein, dct, the analytic signal, the
     stft / istft engine route and the radar map launch the kernel as many
-    times as the code implies, and hold >= 100 dB against numpy / scipy;
+    times as the code implies (the map twice, its range transforms, beside
+    one Doppler kernel launch), and hold >= 100 dB against numpy / scipy;
     float64 never launches it."""
     import scipy.fft as sfft
     rng = np.random.default_rng(21)
@@ -724,8 +730,9 @@ def test_engine_paths_launch_the_frames_kernel(cuda_device):
     tx = trd.lfm_chirp(64, 0.8)
     p = torch.as_tensor(rng.standard_normal((2, 256, 512)), dtype=torch.float32,
                         device=cuda_device)
+    before = tkdop.doppler_power.launches
     _, n = runs(lambda: trd.range_doppler_map(p, p, *tx))
-    assert n == 3
+    assert n == 2 and tkdop.doppler_power.launches - before == 1
 
 
 # -- the CFAR kernel ----------------------------------------------------------------
@@ -809,6 +816,165 @@ def test_cfar_off_the_kernel_on_the_card(dtype, guard, train, cuda_device):
     assert launches == 0
     assert tracing.counters()["radar.cfars"] == cfars + 1
     assert torch.equal(thresh, rthresh) and torch.equal(det, rdet)
+
+
+# -- the Doppler kernel -------------------------------------------------------------
+
+DOPPLER_TOL = 1e-6     # relative RMS error of a map, float32 (module docstring)
+WINDOWS = ("hann", "hamming", "blackman", "blackmanharris", "nuttall",
+           "flattop", "bartlett", "triang", "barthann", "bohman", "parzen",
+           "cosine", "lanczos", "rect", "none", ("kaiser", 8.0),
+           ("gaussian", 20.0), ("tukey", 0.5))
+
+
+def _doppler_planes(b, p, n, strided, seed, device):
+    """(yr, yi), (b, p, n) float32 noise planes on the card: the first n
+    cells of rows twice as wide, as the matched filter's trimmed rows lie,
+    or contiguous."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    planes = torch.randn((2, b, p, 2 * n if strided else n), generator=gen,
+                         device=device, dtype=torch.float32)
+    return planes[0][..., :n], planes[1][..., :n]
+
+
+def _doppler_window(window, p, like):
+    return tfft._table(tsp.window_taps(window, p), like)[:, None]
+
+
+def _doppler_numpy(yr, yi, window):
+    """np.roll(|fft(y w, axis=-2)|^2, P // 2, -2) in float64 on the host."""
+    p = yr.shape[-2]
+    y = yr.double().cpu().numpy() + 1j * yi.double().cpu().numpy()
+    taps = tsp.window_taps(window, p)[:, None]
+    return np.roll(np.abs(np.fft.fft(y * taps, axis=-2)) ** 2, p // 2, -2)
+
+
+def _rel_rms(got, ref) -> float:
+    got = got.double().cpu().numpy() if torch.is_tensor(got) else got
+    ref = ref.double().cpu().numpy() if torch.is_tensor(ref) else ref
+    return float(np.sqrt(((got - ref) ** 2).sum() / (ref ** 2).sum()))
+
+
+def _doppler_routes(yr, yi, window):
+    """The kernel's map, its launches, and the plain route's map."""
+    w = _doppler_window(window, yr.shape[-2], yr)
+    before = tkdop.doppler_power.launches
+    got = tkdop.doppler_power(yr, yi, w)
+    torch.cuda.synchronize()
+    launches = tkdop.doppler_power.launches - before
+    return got, launches, tkdop.doppler_power_plain(yr, yi, w)
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("n", [17, 1000, 4096])
+@pytest.mark.parametrize("p", [16, 32, 64, 128, 256, 512])
+def test_doppler_kernel_matches_plain_and_float64(p, n, strided, cuda_device):
+    """Each admitted pulse count, range lengths that end a tile early, y
+    read in place from wider rows or contiguous: one launch, a contiguous
+    map within DOPPLER_TOL of the plain route and of float64 numpy."""
+    yr, yi = _doppler_planes(3, p, n, strided, p + n, cuda_device)
+    got, launches, plain = _doppler_routes(yr, yi, "hann")
+    assert launches == 1
+    assert got.shape == yr.shape and got.is_contiguous()
+    assert _rel_rms(got, plain) <= DOPPLER_TOL
+    assert _rel_rms(got, _doppler_numpy(yr, yi, "hann")) <= DOPPLER_TOL
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_doppler_kernel_at_each_batch(b, cuda_device):
+    """1, 3 and 64 beams of 128 pulses x 4096 cells (64 is the benchmark's
+    map), read from rows of 8192: the bars of the test above."""
+    yr, yi = _doppler_planes(b, 128, 4096, True, b, cuda_device)
+    got, launches, plain = _doppler_routes(yr, yi, "hann")
+    assert launches == 1
+    assert _rel_rms(got, plain) <= DOPPLER_TOL
+    assert _rel_rms(got, _doppler_numpy(yr, yi, "hann")) <= DOPPLER_TOL
+
+
+@pytest.mark.parametrize("window", WINDOWS, ids=str)
+def test_doppler_kernel_with_each_window(window, cuda_device):
+    yr, yi = _doppler_planes(2, 64, 1000, True, 5, cuda_device)
+    got, launches, plain = _doppler_routes(yr, yi, window)
+    assert launches == 1
+    assert _rel_rms(got, plain) <= DOPPLER_TOL
+    assert _rel_rms(got, _doppler_numpy(yr, yi, window)) <= DOPPLER_TOL
+
+
+@pytest.mark.parametrize("p", [16, 128, 512])
+def test_doppler_kernel_gives_a_beam_and_a_cell_the_same_bits_alone(
+        p, cuda_device):
+    """A beam's map, a range cell's, a run of cells across a tile's edge
+    and a few beams' alone have the bits they have inside the batch."""
+    yr, yi = _doppler_planes(5, p, 1000, True, p, cuda_device)
+    w = _doppler_window("hann", p, yr)
+    whole = tkdop.doppler_power(yr, yi, w)
+    for part in ((2,), (slice(None), Ellipsis, slice(333, 334)),
+                 (Ellipsis, slice(20, 77)), (slice(1, 4),),
+                 (4, Ellipsis, slice(999, 1000))):
+        alone = tkdop.doppler_power(yr[part], yi[part], w)
+        assert torch.equal(alone, whole[part]), part
+
+
+@pytest.mark.parametrize("case", ["float64", "p96", "p1024", "dtensor"])
+def test_doppler_off_the_kernel_on_the_card(case, cuda_device):
+    """float64, pulse counts outside the gate (96, 1024) and a DTensor do
+    not take the kernel: ``range_doppler_map`` launches none and gives the
+    plain route's bits; the wrapper refuses a DTensor."""
+    from simpledsp_tpu_torch.utils import tracing
+    tx = trd.lfm_chirp(32, 0.8)
+    p = {"p96": 96, "p1024": 1024}.get(case, 128)
+    dtype = torch.float64 if case == "float64" else torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(p)
+    xr, xi = torch.randn((2, 2, p, 300), generator=gen, device=cuda_device,
+                         dtype=dtype)
+    before = tkdop.doppler_power.launches
+    if case == "dtensor":
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from simpledsp_tpu_torch.parallel.mesh import single_device_mesh
+        started = not dist.is_initialized()
+        mesh = single_device_mesh(cuda_device)
+        try:
+            yr = DTensor.from_local(xr, mesh, [Replicate(), Replicate()],
+                                    run_check=False)
+            assert not tkdop.doppler_kernel_supported(yr, p)
+            with pytest.raises(ValueError, match="DTensor"):
+                tkdop.doppler_power(yr, yr, _doppler_window("hann", p, xr))
+        finally:
+            if started:
+                dist.destroy_process_group()
+    else:
+        maps = tracing.counters().get("radar.maps", 0)
+        got = trd.range_doppler_map(xr, xi, *tx)
+        torch.cuda.synchronize()
+        assert tracing.counters()["radar.maps"] == maps + 1
+        yr, yi = trd.matched_filter_ri(xr, xi, *tx)
+        assert not tkdop.doppler_kernel_supported(yr, p)
+        want = tkdop.doppler_power_plain(yr, yi,
+                                         _doppler_window("hann", p, yr))
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert tkdop.doppler_power.launches == before
+
+
+def test_the_radar_map_launches_the_doppler_kernel_once_a_map(cuda_device):
+    """``range_doppler_map`` on the card: one Doppler launch and one map
+    counted a call, the map the kernel's on the matched filter's output."""
+    from simpledsp_tpu_torch.utils import tracing
+    tx = trd.lfm_chirp(128, 0.8)
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+    xr, xi = torch.randn((2, 4, 128, 1000), generator=gen, device=cuda_device)
+    for calls in (1, 2, 3):
+        maps = tracing.counters().get("radar.maps", 0)
+        before = tkdop.doppler_power.launches
+        for _ in range(calls):
+            got = trd.range_doppler_map(xr, xi, *tx)
+        torch.cuda.synchronize()
+        assert tkdop.doppler_power.launches - before == calls
+        assert tracing.counters()["radar.maps"] - maps == calls
+    yr, yi = trd.matched_filter_ri(xr, xi, *tx)
+    want = tkdop.doppler_power(yr, yi, _doppler_window("hann", 128, yr))
+    assert torch.equal(got, want)
 
 
 def _chain_frames(n, device):

@@ -6,6 +6,9 @@ the matched filter at 1e-10 against the JAX package; the CFAR detection
 masks equal and the thresholds at 1e-12 relative.  The CFAR's rolled route
 against a float64 numpy box sum at 1e-12 (float64) and 1e-5 (float32, a
 few float32 roundings of sums of 2 train terms) of the largest threshold.
+The Doppler stage's plain route bit for bit the map's lines before they
+moved to ``kernels/doppler``, and against float64 numpy as a relative RMS
+error: 1e-13 in float64, 1e-6 in float32.
 """
 
 import jax.numpy as jnp
@@ -15,7 +18,11 @@ import torch
 
 from simpledsp_tpu.models import radar as jrd
 from simpledsp_tpu_torch.kernels import cfar as kcfar
+from simpledsp_tpu_torch.kernels import doppler as kdop
 from simpledsp_tpu_torch.models import radar as trd
+from simpledsp_tpu_torch.ops import fft as tfft
+from simpledsp_tpu_torch.ops.fft import _table
+from simpledsp_tpu_torch.ops.spectral import window_taps
 from simpledsp_tpu_torch.utils import tracing
 
 
@@ -202,3 +209,116 @@ def test_cfar_kernel_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         kcfar.cfar_kernel(p, 2, 12, 1.0)
     assert kcfar.cfar_kernel_supported(p, 2, 12) is False
+
+
+# -- the Doppler stage's two routes (kernels/doppler) ------------------------------
+
+def _doppler_launches():
+    return tracing.counters()["kernel.doppler.launches"]
+
+
+def _route_before_the_move(xr, xi, tx, window):
+    """``range_doppler_map``'s lines as they stood before the Doppler stage
+    moved to ``kernels/doppler``: the reference for its plain route."""
+    yr, yi = trd.matched_filter_ri(xr, xi, *tx)
+    n_pulses = yr.shape[-2]
+    w = _table(window_taps(window, n_pulses), yr)[:, None]
+    dr, di = tfft.fft_ri((yr * w).transpose(-1, -2),
+                         (yi * w).transpose(-1, -2))
+    dr, di = dr.transpose(-1, -2), di.transpose(-1, -2)
+    return torch.roll(dr * dr + di * di, n_pulses // 2, -2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape, window", [
+    ((4, 64, 300), "hann"),
+    ((16, 100), "rect"),            # one CPI, no batch axis
+    ((2, 3, 32, 50), "hamming"),    # two batch axes
+    ((3, 96, 40), "blackman"),      # pulses outside the kernel's gate
+])
+def test_doppler_plain_is_the_maps_route_before_the_move(shape, window, dtype,
+                                                         rng):
+    """On the CPU ``range_doppler_map`` and ``doppler_power_plain`` give
+    bit for bit what the map gave before the move, and no kernel runs."""
+    tx = trd.lfm_chirp(16, 0.8)
+    xr, xi = (torch.as_tensor(a, dtype=dtype)
+              for a in rng.standard_normal((2, *shape)))
+    want = _route_before_the_move(xr, xi, tx, window)
+    maps = tracing.counters().get("radar.maps", 0)
+    launches = _doppler_launches()
+    got = trd.range_doppler_map(xr, xi, *tx, window=window)
+    assert tracing.counters()["radar.maps"] == maps + 1
+    assert _doppler_launches() == launches
+    assert got.dtype == dtype and torch.equal(got, want)
+    yr, yi = trd.matched_filter_ri(xr, xi, *tx)
+    w = _table(window_taps(window, shape[-2]), yr)[:, None]
+    assert torch.equal(kdop.doppler_power_plain(yr, yi, w), want)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-13),
+                                        (torch.float32, 1e-6)])
+@pytest.mark.parametrize("n_pulses, window", [
+    (16, "hann"), (64, "hamming"), (96, "hann"), (128, "hann"),
+    (256, "rect"),
+])
+def test_doppler_plain_matches_float64_numpy(n_pulses, window, dtype, tol,
+                                             rng):
+    """The plain route against np.roll(|fft(y w, axis=-2)|^2, P // 2, -2)
+    on the same y, as a relative RMS error: 1e-13 in float64, 1e-6 in
+    float32 (a few roundings of a P-point transform and its square)."""
+    y = (rng.standard_normal((3, n_pulses, 70))
+         + 1j * rng.standard_normal((3, n_pulses, 70)))
+    yr, yi = (torch.as_tensor(a, dtype=dtype) for a in (y.real, y.imag))
+    taps = window_taps(window, n_pulses)
+    got = kdop.doppler_power_plain(yr, yi, _table(taps, yr)[:, None])
+    yq = yr.double().numpy() + 1j * yi.double().numpy()
+    ref = np.roll(np.abs(np.fft.fft(yq * taps[:, None], axis=-2)) ** 2,
+                  n_pulses // 2, -2)
+    err = np.sqrt(((got.double().numpy() - ref) ** 2).sum()
+                  / (ref ** 2).sum())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_pulses", [8, 16, 96, 128, 512, 1024])
+def test_doppler_kernel_gate_is_shut_on_the_cpu(n_pulses, dtype):
+    """CPU tensors never take the kernel, in float32 or float64, inside the
+    gate's pulse counts (16-512, powers of two) or outside them."""
+    y = torch.zeros(2, n_pulses, 8, dtype=dtype)
+    assert not kdop.doppler_kernel_supported(y, n_pulses)
+    assert (kdop.MIN_PULSES, kdop.MAX_PULSES) == (16, 512)
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 300), (16, 100), (2, 3, 32, 50)])
+def test_doppler_kernel_route_gets_y_where_it_lies(shape, monkeypatch, rng):
+    """The kernel route's plumbing on the CPU, with the plain version in the
+    kernel's place: the kernel gets the matched filter's trimmed rows as
+    they lie (no copy) and the window as a column, and its map is the
+    map."""
+    got = []
+
+    def fake_kernel(yr, yi, w):
+        got.append((tuple(yr.shape), yr.stride(), yr.is_contiguous(),
+                    tuple(w.shape), yi.stride() == yr.stride()))
+        return kdop.doppler_power_plain(yr, yi, w)
+
+    tx = trd.lfm_chirp(16, 0.8)
+    xr, xi = (torch.as_tensor(a, dtype=torch.float32)
+              for a in rng.standard_normal((2, *shape)))
+    want = trd.range_doppler_map(xr, xi, *tx)
+    monkeypatch.setattr(kdop, "doppler_kernel_supported", lambda *a: True)
+    monkeypatch.setattr(kdop, "doppler_power", fake_kernel)
+    power = trd.range_doppler_map(xr, xi, *tx)
+    wide = 1 << (shape[-1] + 16 - 2).bit_length()    # the padded row
+    (yshape, ystride, contiguous, wshape, same), = got
+    assert yshape == shape and ystride[-2:] == (wide, 1)
+    assert not contiguous and same and wshape == (shape[-2], 1)
+    assert torch.equal(power, want)
+
+
+def test_doppler_kernel_wrapper_refuses_what_it_does_not_take():
+    y = torch.zeros(2, 64, 32)
+    launches = _doppler_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kdop.doppler_power(y, y, torch.ones(64))
+    assert _doppler_launches() == launches

@@ -17,6 +17,7 @@ from simpledsp_tpu_torch.kernels import cfar as kcfar
 from simpledsp_tpu_torch.kernels import chain as kchain
 from simpledsp_tpu_torch.kernels import chain_variants as kcv
 from simpledsp_tpu_torch.kernels import conv2d as k2d
+from simpledsp_tpu_torch.kernels import doppler as kdop
 from simpledsp_tpu_torch.kernels import fft as kfft
 from simpledsp_tpu_torch.kernels import ols as kols
 from simpledsp_tpu_torch.kernels import pfb as kpfb
@@ -47,6 +48,7 @@ KERNELS = {
     "contract": kprobes.contract_kernel,
     "row_sum": kprobes.row_sum_kernel,
     "cfar": kcfar.cfar_kernel,
+    "doppler": kdop.doppler_power,
 }
 
 CHAIN_SPANS = {"sdsp.chain.forward", "sdsp.chain.prepass",
