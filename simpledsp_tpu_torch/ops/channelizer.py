@@ -15,6 +15,9 @@ Three entry points, as in the JAX package: :meth:`PFBChannelizer.forward`
 (complex, frame-major), :meth:`~PFBChannelizer.process_ri` ((re, im)
 planes, frame-major) and :meth:`~PFBChannelizer.process_ri_cm` (planes,
 channel-major: the layout the receiver banks' composable path consumes).
+The port adds a fourth, :meth:`~PFBChannelizer.process_real`: a real
+stream's M/2 channels below the Nyquist channel, as a radio telescope's
+F-engine keeps them, through the half-spectrum transform.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from simpledsp_tpu_torch.kernels.pfb import PFBOperators
 from simpledsp_tpu_torch.ops import fft as _fft
 from simpledsp_tpu_torch.ops.fir import FIRState, fir_init
 from simpledsp_tpu_torch.precision import ieee_fp32
+from simpledsp_tpu_torch.utils import tracing
 
 __all__ = ["PFBChannelizer", "ChanStateRI"]
 
@@ -78,19 +82,31 @@ class PFBChannelizer(nn.Module):
         self.dtype = dtype
         # branch_taps[r, j] = h[j*M + r]
         self._branch = taps.reshape(self.taps_per_branch, self.m).T.copy()
-        wr64, wi64 = _fft.dft_matrix(self.m)  # forward W = c + i s, s = -sin
-
-        def buf(name, a):
-            self.register_buffer(name, torch.as_tensor(
-                np.ascontiguousarray(a), dtype=dtype, device=device))
-
-        buf("masked", self._masked_taps)
-        buf("wc", wr64)
-        buf("ws", -wi64)   # conjugate: the inverse DFT's +sin
+        # The channel-major path's tables hold M^2 K + 2 M^2 values (4.8 GB
+        # at M 8192, K 16), so they are made at its first call
+        # (:meth:`_cm_tables`); this empty buffer carries the bank's device
+        # and dtype through ``.to()``.
+        self.register_buffer("_anchor", torch.empty(0, dtype=dtype,
+                                                    device=device))
+        self._cm = None
 
     @property
     def device(self) -> torch.device:
-        return self.wc.device
+        return self._anchor.device
+
+    def _cm_tables(self):
+        """(masked, wc, ws): the masked taps (:attr:`_masked_taps`) and the
+        forward DFT's cos and the inverse's +sin, made in the bank's dtype
+        on its device at the first call of the channel-major path (again
+        after ``.to()`` moves the bank)."""
+        key = (self._anchor.device, self._anchor.dtype)
+        if self._cm is None or self._cm[0] != key:
+            wr64, wi64 = _fft.dft_matrix(self.m)  # W = c + i s, s = -sin
+            self._cm = (key, tuple(
+                torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
+                                device=key[0]).to(key[1])
+                for a in (self._masked_taps, wr64, -wi64)))
+        return self._cm[1]
 
     def _branch_filter(self, xp: torch.Tensor) -> torch.Tensor:
         """Polyphase branch FIRs: (..., L-1+T) -> (..., T//M, M).
@@ -156,8 +172,7 @@ class PFBChannelizer(nn.Module):
         lead = xpr.shape[:-1]
         W = xpr.shape[-1]
         G = (W - (L - 1)) // M
-        rhs = self.masked.to(xpr.dtype)
-        wc, ws = self.wc.to(xpr.dtype), self.ws.to(xpr.dtype)
+        rhs, wc, ws = (t.to(xpr.dtype) for t in self._cm_tables())
 
         def dot(w, v):
             return torch.einsum("cm,...mg->...cg", w, v)
@@ -217,6 +232,49 @@ class PFBChannelizer(nn.Module):
         ((yr, yi) each (..., T//M, M), state)."""
         xpr, xpi, new = self._prefixed(xr, xi, state)
         return self._run_ri(xpr, xpi), new
+
+    def process_real(self, x: torch.Tensor, state: Optional[FIRState] = None
+                     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], FIRState]:
+        """Streaming real-input entry: x (..., T) real, T % M == 0, M even;
+        returns ((yr, yi) each (..., T//M, M//2), state).
+
+        Channels 0 .. M/2-1 of :meth:`forward` (of a real stream the others
+        mirror them, y_{M-c} = conj(y_c)); the Nyquist channel M/2 is
+        dropped, as an F-engine drops it.  The branch FIRs run on the one
+        real plane, then the half-spectrum transform :func:`ops.fft.rfft_ri`
+        across branches, conjugated for the +i sign; no full complex
+        transform.  The state is :meth:`forward`'s (the last L-1 samples),
+        so blockwise output equals whole-signal output at multiples of M.
+        ``yr`` is a view of the transform's M/2+1 bins.
+
+        Spans ``sdsp.chan.forward`` (the call), ``sdsp.chan.fir`` and
+        ``sdsp.chan.fft``; counters ``chan.calls`` and ``chan.prefix_bytes``
+        (the values the history concatenation reads and writes, and the new
+        history read and copied, counted from the shapes)."""
+        with tracing.span("sdsp.chan.forward"):
+            t, h = x.shape[-1], self.hist_len
+            if t % self.m != 0 or self.m % 2 != 0:
+                raise ValueError(f"need an even M and a block length that is "
+                                 f"a multiple of it: M={self.m}, T={t}")
+            if x.is_complex():
+                raise ValueError("process_real takes a real stream; use "
+                                 "forward or process_ri for a complex one")
+            tracing.count("chan.calls")
+            x = x.to(self.dtype)
+            if state is None:
+                state = fir_init(h, tuple(x.shape[:-1]), dtype=x.dtype,
+                                 device=x.device)
+            xp = torch.cat([state.hist.to(x.dtype), x], -1)
+            new = FIRState(xp[..., xp.shape[-1] - h:].contiguous())
+            tracing.count("chan.prefix_bytes", 2 * (
+                xp.numel() + new.hist.numel()) * x.element_size())
+            with tracing.span("sdsp.chan.fir"):
+                v = self._branch_filter(xp)
+            with tracing.span("sdsp.chan.fft"):
+                vr, vi = _fft.rfft_ri(v)
+                half = self.m // 2
+                y = (vr[..., :half], torch.neg(vi[..., :half]))
+        return y, new
 
     def forward(self, x: torch.Tensor, state: Optional[FIRState] = None
                 ) -> Tuple[torch.Tensor, FIRState]:

@@ -15,7 +15,10 @@ Counters
     (``radar.cells``) and its CFARs (``radar.cfars``, either route:
     ``kernel.cfar.launches`` over it is the share on the CFAR kernel); the
     FFT engine's small-DFT route counts the fixed-shape products it
-    launches (``fft.dft_products``).
+    launches (``fft.dft_products``).  The channelizer's real-input entry
+    counts its calls (``chan.calls``) and the bytes its history
+    concatenation and new-history copy read and write
+    (``chan.prefix_bytes``).
 
 Spans
     ``with span("sdsp.chain.prepass"):`` marks one layer's part of a call.
@@ -56,7 +59,10 @@ The names the port records, each at its layer's boundary:
 - ``sdsp.radar.range``: its pulse compression (``matched_filter_ri``);
 - ``sdsp.radar.doppler``: its Doppler stage (window, transform across the
   pulses, power and roll), the Doppler kernel or its plain version;
-- ``sdsp.radar.cfar``: ``cfar_ca``, a span with no parent of its own.
+- ``sdsp.radar.cfar``: ``cfar_ca``, a span with no parent of its own;
+- ``sdsp.chan.forward``: ``PFBChannelizer.process_real``, a call;
+- ``sdsp.chan.fir``: its polyphase branch FIRs;
+- ``sdsp.chan.fft``: its half-spectrum transform across the branches.
 """
 
 from __future__ import annotations
